@@ -1,0 +1,436 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch + CUDA port (mam3slam_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printing its findings on a line of its own; any failure
+raises (exit code != 0) and no result line is printed:
+
+1. Device: requires CUDA; prints the card's name and its
+   ``nvidia-smi`` name / power limit.
+2. Build: compiles ``mam3slam_tpu_torch/csrc/*.cu`` with nvcc.
+3. Kernels vs their plain PyTorch versions on the card, at the shapes of
+   the tracking path (EuRoC monocular: 752x480, 8 levels, 1000 features;
+   4096 projected map points x 1024 features), with median CUDA-event
+   times of both.
+4. Tracking: a room scene is rendered at EuRoC cam0 intrinsics, a map of
+   32 keyframes is seeded from the scene's true depth in one shared arena
+   (512 KF / 24576 MP), and two agents track interleaved arcs through
+   ``extract_orb`` -> ``track_frame_step``, chaining the map and their
+   pose/velocity state on the device; each runs ``track_ref_kf`` once.
+   Every frame must keep >= 30 inliers and land within 1 cm / 0.2 deg of
+   the pose that rendered it, and the four kernels' launch counters must
+   be > 0 with no plain version called.
+
+It prints a JSON line of per-kernel results, the nvidia-smi line, and as
+its last line ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+W, H = 752, 480
+FX, FY, CX, CY = 458.654, 457.296, 367.215, 248.375   # EuRoC cam0
+N_FEATURES = 1000
+KF_EVERY = 5
+N_ARC = 160                    # frames per arc, 1 degree apart
+MAX_T_ERR = 0.01               # m, camera centre
+MAX_R_ERR = math.radians(0.2)
+MIN_INLIERS = 30
+
+KERNELS = {  # launch-counter name -> (source, replaced Pallas kernel)
+    "orb_desc": ("mam3slam_tpu_torch/csrc/orb_desc.cu",
+                 "mam3slam_tpu/ops/pallas_orb_desc.py:177"),
+    "masked_match": ("mam3slam_tpu_torch/csrc/match.cu",
+                     "mam3slam_tpu/ops/pallas_match.py:66"),
+    "min_hamming2": ("mam3slam_tpu_torch/csrc/match.cu",
+                     "mam3slam_tpu/ops/pallas_match.py:178"),
+    "pose_opt": ("mam3slam_tpu_torch/csrc/pose.cu",
+                 "mam3slam_tpu/ops/pallas_pose.py:226"),
+}
+
+
+def log(phase: str, **kw) -> None:
+    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kw.items()),
+          flush=True)
+
+
+def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median CUDA-event time of one call of ``fn``."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def rot_err(q: np.ndarray, q_ref: np.ndarray) -> float:
+    d = abs(float(np.dot(q.astype(np.float64), q_ref.astype(np.float64))))
+    return 2.0 * math.acos(min(d, 1.0))
+
+
+def quat_of(R: np.ndarray) -> torch.Tensor:
+    from mam3slam_tpu_torch.geometry import lie
+    return lie.quat_from_matrix(torch.tensor(R, dtype=torch.float32))
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def check_kernels(dev, scene, cam_r, orb_cfg) -> dict:
+    from mam3slam_tpu_torch.io import render
+    from mam3slam_tpu_torch.geometry import lie
+    from mam3slam_tpu_torch.ops import cuda_match as CM
+    from mam3slam_tpu_torch.ops import cuda_orb_desc as CO
+    from mam3slam_tpu_torch.ops import cuda_pose as CP
+    from mam3slam_tpu_torch.ops import orb as O
+
+    rng = np.random.default_rng(0)
+    out = {}
+
+    def T(x):
+        return torch.tensor(x, device=dev)
+
+    # describe: one rendered EuRoC-size frame
+    R, t, _ = render.orbit_trajectory(2, 30, 31, bob=0.05)[0]
+    stack = O.build_stack(scene.render(R, t, cam_r), orb_cfg)
+    xy, _, valid = O._select_keypoints_stacked(O.fast_score_map(stack),
+                                               orb_cfg)
+    blur = torch.round(O.gaussian_blur(stack))
+    _, lvl, _, hws = O._device_constants(orb_cfg, dev)
+    args = (stack, blur, xy, lvl, hws)
+    ka, kd = CO.ic_brief(*args)
+    pa, pd = CO.ic_brief_plain(*args)
+    bits = (CM.unpack_bits(kd) != CM.unpack_bits(pd)).sum(-1)[valid]
+    err = (ka - pa).abs()[valid].max().item()
+    same = (bits == 0).float().mean().item()
+    log("kernel", name="orb_desc", n=int(valid.sum()), angle_err=err,
+        desc_identical=same, desc_max_bits=int(bits.max()),
+        tol="angle<=1e-4,identical>=0.99,max_bits<=2")
+    if not (err <= 1e-4 and same >= 0.99 and int(bits.max()) <= 2):
+        raise AssertionError("orb_desc disagrees with its plain version")
+    out["orb_desc"] = dict(err=err, ms=median_ms(lambda: CO.ic_brief(*args)),
+                           plain_ms=median_ms(
+                               lambda: CO.ic_brief_plain(*args)))
+
+    # masked match: Q=4096 candidates x F=1024 features, planted matches
+    # and exact ties (duplicated targets)
+    Q, F = 4096, 1024
+    dq = rng.integers(0, 256, (Q, 32), dtype=np.uint8)
+    dt = rng.integers(0, 256, (F, 32), dtype=np.uint8)
+    quv = rng.uniform(0, W, (Q, 2)).astype(np.float32)
+    tuv = rng.uniform(0, W, (F, 2)).astype(np.float32)
+    dt[:400] = dq[:400]
+    tuv[:400] = quv[:400] + rng.uniform(-4, 4, (400, 2))
+    dt[400:450], tuv[400:450] = dt[350:400], tuv[350:400]     # ties
+    rad = rng.uniform(2.5, 24.0, Q).astype(np.float32)
+    ql = rng.integers(0, 8, Q).astype(np.int32)
+    tl = ql[np.arange(F) % Q]
+    qv = rng.random(Q) > 0.05
+    tv = rng.random(F) > 0.05
+    margs = tuple(T(x) for x in (dq, quv, rad, ql, qv, dt, tuv, tl, tv))
+    k = CM.fused_masked_match(*margs)
+    p = CM.fused_masked_match_plain(*margs)
+    err = max((a - b).abs().max().item() for a, b in zip(k, p))
+    log("kernel", name="masked_match", Q=Q, F=F,
+        matched=int((k[1] < CM.BIG).sum()),
+        ties=int(((k[1] == k[2]) & (k[1] < CM.BIG)).sum()),
+        max_abs_err=err, tol="exact")
+    if err != 0:
+        raise AssertionError("masked_match disagrees with its plain version")
+    out["masked_match"] = dict(
+        err=err, ms=median_ms(lambda: CM.fused_masked_match(*margs)),
+        plain_ms=median_ms(lambda: CM.fused_masked_match_plain(*margs)))
+
+    # unmasked best-two: 1024 x 1024, with duplicates
+    hargs = (T(dq[:F]), T(qv[:F]), T(dt), T(tv))
+    k = CM.min_hamming2(*hargs)
+    p = CM.min_hamming2_plain(*hargs)
+    err = max((a - b).abs().max().item() for a, b in zip(k, p))
+    log("kernel", name="min_hamming2", Q=F, M=F,
+        ties=int((k[1] == k[2]).sum()), max_abs_err=err, tol="exact")
+    if err != 0:
+        raise AssertionError("min_hamming2 disagrees with its plain version")
+    out["min_hamming2"] = dict(
+        err=err, ms=median_ms(lambda: CM.min_hamming2(*hargs)),
+        plain_ms=median_ms(lambda: CM.min_hamming2_plain(*hargs)))
+
+    # pose: N=1024 edges, 60 outliers, perturbed start
+    n = 1024
+    pts = np.stack([rng.uniform(-4, 4, n), rng.uniform(-3, 3, n),
+                    rng.uniform(3, 12, n)], 1).astype(np.float32)
+    q_true = lie.so3_exp_quat(T(rng.normal(0, 0.05, 3).astype(np.float32)))
+    t_true = T(rng.normal(0, 0.2, 3).astype(np.float32))
+    xc = lie.quat_rotate(q_true[None], T(pts)) + t_true
+    uv = xc[:, :2] / xc[:, 2:] * T(np.float32([FX, FY])) + T(
+        np.float32([CX, CY]))
+    uv = uv + T(rng.normal(0, 0.6, (n, 2)).astype(np.float32))
+    uv[:60] += T(rng.uniform(20, 80, (60, 2)).astype(np.float32))
+    q0 = lie.quat_normalize(lie.quat_mul(
+        lie.so3_exp_quat(T(np.float32([0.02, -0.03, 0.01]))), q_true))
+    t0 = t_true + T(np.float32([0.05, -0.04, 0.08]))
+    fxycxy = T(np.float32([FX, FY, CX, CY]))
+    valid = T(np.arange(n) % 29 != 0)
+    w = torch.ones(n, device=dev)
+    pargs = (q0[None], t0[None], fxycxy[None], T(pts)[None], uv[None],
+             w[None], valid[None])
+    kq, kt, ki, kn = CP.pose_optimization_pinhole(*pargs)
+    params = torch.cat([fxycxy, torch.zeros_like(fxycxy)])
+    plain = (q0, t0, params, 0, T(pts), uv, w, valid)
+    pq, pt, pi, pn = CP.pose_optimization_plain(*plain)
+    r_err = rot_err(kq[0].cpu().numpy(), pq.cpu().numpy())
+    t_err = (kt[0] - pt).norm().item()
+    agree = (ki[0] == pi).float().mean().item()
+    log("kernel", name="pose_opt", N=n, rot_err=r_err, t_err=t_err,
+        inlier_agree=agree, n_in=int(kn[0]), plain_n_in=int(pn),
+        tol="rot<2e-3rad,t<5e-3,agree>=0.99")
+    if not (r_err < 2e-3 and t_err < 5e-3 and agree >= 0.99):
+        raise AssertionError("pose_opt disagrees with its plain version")
+    out["pose_opt"] = dict(
+        err=max((kq[0] - pq).abs().max().item(), t_err),
+        ms=median_ms(lambda: CP.pose_optimization_pinhole(*pargs)),
+        plain_ms=median_ms(lambda: CP.pose_optimization_plain(*plain)))
+    for name, r in out.items():
+        log("time", name=name, kernel_ms=r["ms"], plain_ms=r["plain_ms"])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4: map seeding and two-agent tracking
+# ---------------------------------------------------------------------------
+
+def frame_of(img, orb_cfg, cam):
+    from mam3slam_tpu_torch.ops import orb as O
+    from mam3slam_tpu_torch.slam import steps
+
+    f = O.with_undistorted(O.extract_orb(img, orb_cfg), cam)
+    return steps.FrameObs(f.uv, f.level, f.angle, f.desc, f.valid)
+
+
+def seed_map(dev, scene, cam_r, cam, orb_cfg, cfg, traj):
+    """Keyframes every KF_EVERY frames of ``traj``: KF 0 turns every
+    valid feature into a map point at the scene's true depth; later KFs
+    link features to existing points by ``match_map_to_frame`` at their
+    true pose, and the rest become new points."""
+    from mam3slam_tpu_torch.mapstate import state as S
+    from mam3slam_tpu_torch.slam import steps
+
+    ms = S.init_map_state(cfg.map_config(), dev)
+    sf = torch.tensor(cfg.scale_factors, device=dev)
+    n_mp = 0
+    for kf_i, fi in enumerate(range(0, len(traj), KF_EVERY)):
+        R, t, C = traj[fi]
+        q, tt = quat_of(R).to(dev), torch.tensor(t, device=dev)
+        frame = frame_of(scene.render(R, t, cam_r), orb_cfg, cam)
+        if kf_i == 0:
+            feat_mp = torch.full_like(frame.level, S.NO_MP)
+        else:
+            feat_mp, _, _ = steps.match_map_to_frame(
+                ms, frame, q, tt, cam, float(W), float(H), ms.mp_valid, sf)
+        new = frame.valid & (feat_mp < 0)
+        k = int(new.sum())
+        if n_mp + k > cfg.max_mp:
+            raise RuntimeError(f"map-point arena full: {n_mp} + {k}")
+        slots = torch.arange(n_mp, n_mp + k, device=dev)
+        uv = frame.uv[new]
+        rays = torch.stack([(uv[:, 0] - CX) / FX, (uv[:, 1] - CY) / FY,
+                            torch.ones_like(uv[:, 0])], dim=-1)
+        _, pos = scene.intersect(R, t, rays)
+        vec = pos - torch.tensor(C, dtype=torch.float32, device=dev)
+        dist = vec.norm(dim=-1)
+        max_dist = dist * sf[frame.level[new].long()]
+        put = {
+            "mp_pos": pos, "mp_valid": True, "mp_map": 0,
+            "mp_desc": frame.desc[new], "mp_normal": vec / dist[:, None],
+            "mp_max_dist": max_dist, "mp_min_dist": max_dist / sf[-1],
+            "mp_first_agent": 0, "mp_first_agent_kf": kf_i,
+            "mp_ref_kf": kf_i, "mp_first_kf": kf_i,
+        }
+        for f, v in put.items():   # the map being seeded is ours alone
+            getattr(ms, f)[slots] = v
+        feat_mp = feat_mp.clone()
+        feat_mp[new] = slots.to(torch.int32)
+        n_mp += k
+        ms, _ = S.add_keyframe(ms, q, tt, 0, 0, float(fi), kf_i, frame.uv,
+                               frame.level, frame.angle, frame.desc,
+                               frame.valid, feat_mp, cam.params)
+    return ms
+
+
+def track_agents(dev, scene, cam_r, cam, orb_cfg, cfg, ms, trajs, n_kf,
+                 ref_frame: int):
+    """Interleaved tracking of one arc per agent (extract -> step, the
+    map and each agent's pose/velocity chained on the device); at
+    ``ref_frame`` each agent also runs track_ref_kf from its last pose.
+    Returns per-agent results and the final map."""
+    from mam3slam_tpu_torch.slam import system
+
+    fns = system.tracking_programs(cfg, cam.kind)
+    id_q = torch.tensor([1.0, 0, 0, 0], device=dev)
+    z3 = torch.zeros(3, device=dev)
+    res, chains = [], []
+    for traj in trajs:
+        q0 = quat_of(traj[0][0]).to(dev)
+        chains.append((q0, torch.tensor(traj[0][1], device=dev), id_q, z3,
+                       False))
+        res.append(dict(n_in=[], t_err=[], r_err=[], sec=[]))
+    for i in range(len(trajs[0])):
+        for a, traj in enumerate(trajs):
+            R, t, C = traj[i]
+            q_true = quat_of(R).numpy()
+            img = scene.render(R, t, cam_r)
+            ref_kf = min(i // KF_EVERY, n_kf - 1)
+            q_last, t_last, vq, vt, has_vel = chains[a]
+            ms_read = ms
+            sync(dev)
+            t0 = time.perf_counter()
+            frame = frame_of(img, orb_cfg, cam)
+            ms, _, _, _, vec, chains[a] = fns["track_frame_step"](
+                ms, frame, ref_kf, vq, vt, has_vel, q_last, t_last, id_q, z3,
+                False, cam.params)
+            vec = vec.cpu().numpy()
+            res[a]["sec"].append(time.perf_counter() - t0)
+            res[a]["n_in"].append(int(vec[21]))
+            res[a]["t_err"].append(centre_err(vec[0:4], vec[4:7], C))
+            res[a]["r_err"].append(rot_err(vec[0:4], q_true))
+            if i == ref_frame:
+                _, q_r, t_r, _, n_r, n_m = fns["track_ref_kf"](
+                    ms_read, frame, ref_kf, q_last, t_last, cam.params)
+                q_r, t_r = q_r.cpu().numpy(), t_r.cpu().numpy()
+                res[a]["ref"] = dict(n_in=int(n_r), n_matches=int(n_m),
+                                     r_err=rot_err(q_r, q_true),
+                                     t_err=centre_err(q_r, t_r, C))
+    return res, ms
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def centre_err(q: np.ndarray, t: np.ndarray, C: np.ndarray) -> float:
+    """Distance of the camera centre -R(q)^T t from the true centre C."""
+    return float(np.linalg.norm(-quat_rot_inv(q, t) - C))
+
+
+def quat_rot_inv(q: np.ndarray, t: np.ndarray) -> np.ndarray:
+    """R(q)^T t in float64 (so -R^T t is the camera centre)."""
+    w, x, y, z = q.astype(np.float64)
+    Rm = np.array([[1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                    2 * (x * z + w * y)],
+                   [2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+                    2 * (y * z - w * x)],
+                   [2 * (x * z - w * y), 2 * (y * z + w * x),
+                    1 - 2 * (x * x + y * y)]])
+    return Rm.T @ t.astype(np.float64)
+
+
+def main() -> int:
+    # 1. device
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from mam3slam_tpu_torch import _build
+    from mam3slam_tpu_torch.geometry import cameras
+    from mam3slam_tpu_torch.io import render
+    from mam3slam_tpu_torch.ops import orb as O
+    from mam3slam_tpu_torch.slam import system
+
+    dev = torch.device("cuda", 0)
+    smi = nvidia_smi()
+    log("device", name=torch.cuda.get_device_name(0),
+        count=torch.cuda.device_count(), smi=repr(smi),
+        torch=torch.__version__, cuda=torch.version.cuda)
+
+    # 2. build
+    t0 = time.perf_counter()
+    _build.library()
+    log("build", seconds=time.perf_counter() - t0,
+        nvcc_seconds=_build.build_seconds, lib=_build.library_path())
+
+    # 3. kernels vs plain
+    cam_r = render.RenderCam(W, H, FX, FY, CX, CY)
+    scene = render.RoomScene(seed=5, device=dev)
+    orb_cfg = O.OrbConfig(height=H, width=W, n_features=N_FEATURES)
+    kernels = check_kernels(dev, scene, cam_r, orb_cfg)
+
+    # 4. tracking: map from the bob=+0.05 arc, agents on +0.05 / -0.05
+    cfg = system.SlamConfig(width=W, height=H, n_feat=orb_cfg.capacity)
+    cam = cameras.make_pinhole(FX, FY, CX, CY, device=dev)
+    arc0 = render.orbit_trajectory(N_ARC, 0, N_ARC, radius=2.5, bob=0.05)
+    arc1 = render.orbit_trajectory(N_ARC, 0, N_ARC, radius=2.5, bob=-0.05)
+    t0 = time.perf_counter()
+    ms = seed_map(dev, scene, cam_r, cam, orb_cfg, cfg, arc0)
+    n_kf = int(ms.kf_valid.sum())
+    n_mp = int(ms.mp_valid.sum())
+    log("map", keyframes=n_kf, map_points=n_mp,
+        seconds=time.perf_counter() - t0)
+    if n_kf < 24 or n_mp < 10000:
+        raise AssertionError("map smaller than 24 KF / 10k points")
+
+    _build.reset_counts()
+    res, ms = track_agents(dev, scene, cam_r, cam, orb_cfg, cfg, ms,
+                           [arc0, arc1], n_kf, ref_frame=N_ARC // 2)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    plain = dict(_build.PLAIN_CALLS)
+    for a, r in enumerate(res):
+        ms_frame = 1e3 * np.asarray(r["sec"])
+        log("track", agent=a, frames=len(r["n_in"]),
+            min_inliers=min(r["n_in"]), max_t_err_m=max(r["t_err"]),
+            max_r_err_deg=math.degrees(max(r["r_err"])),
+            frames_per_s=len(ms_frame) / (ms_frame.sum() / 1e3),
+            frame_ms_median=float(np.median(ms_frame)),
+            frame_ms_p90=float(np.percentile(ms_frame, 90)), card=repr(smi))
+        ref = r["ref"]
+        log("track_ref_kf", agent=a, n_in=ref["n_in"],
+            n_matches=ref["n_matches"], t_err_m=ref["t_err"],
+            r_err_deg=math.degrees(ref["r_err"]))
+        if (min(r["n_in"]) < MIN_INLIERS or max(r["t_err"]) > MAX_T_ERR
+                or max(r["r_err"]) > MAX_R_ERR):
+            raise AssertionError(f"agent {a} lost the true pose")
+        if ref["t_err"] > MAX_T_ERR or ref["r_err"] > MAX_R_ERR:
+            raise AssertionError(f"agent {a}: track_ref_kf off the pose")
+    log("counters", launches=launches, plain_calls=plain)
+    if any(launches.get(k, 0) == 0 for k in KERNELS) or any(plain.values()):
+        raise AssertionError("the main path did not run every kernel")
+
+    print(json.dumps({"kernels": [
+        {"name": k, "route": "cuda", "source": src, "replaces": rep,
+         "launches": launches[k], "max_abs_err": kernels[k]["err"],
+         "ms": kernels[k]["ms"], "plain_ms": kernels[k]["plain_ms"]}
+        for k, (src, rep) in KERNELS.items()]}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

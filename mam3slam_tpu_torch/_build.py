@@ -1,0 +1,152 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+All ``csrc/*.cu`` files compile with ``nvcc`` into ONE shared library with
+a plain C interface (no PyTorch headers, so a build takes seconds), which
+is loaded with ``ctypes``.  The library lands in ``build/mam3slam_tpu_torch/``
+at the repository root, named by a hash of the sources and flags: the
+first kernel launch of a process builds it when it is missing, so a fresh
+checkout needs no separate build step.
+
+Every kernel wrapper adds one to ``LAUNCHES[name]`` where it launches its
+kernel, and every plain PyTorch version adds one to ``PLAIN_CALLS[name]``,
+so a run can show which path it went through.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+import torch
+
+_PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
+                         "mam3slam_tpu_torch")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+LAUNCHES: collections.Counter = collections.Counter()
+PLAIN_CALLS: collections.Counter = collections.Counter()
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C signatures of the kernels' launchers: each returns cudaGetLastError()
+_SIGNATURES = {
+    "mam3_orb_desc": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P],
+    "mam3_masked_match": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I,
+                          _P, _P, _P, _P],
+    "mam3_min_hamming2": [_P, _P, _I, _P, _P, _I, _P, _P, _P, _P],
+    "mam3_pose_opt": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                      _P, _P, _P, _P, _P],
+}
+
+_lock = threading.Lock()
+_lib = None
+build_seconds = None  # wall time of this process's nvcc run (None: cached)
+
+
+def reset_counts() -> None:
+    LAUNCHES.clear()
+    PLAIN_CALLS.clear()
+
+
+def is_cuda(*tensors: torch.Tensor) -> bool:
+    """Dispatch on where the tensors lie: True when all are on the current
+    CUDA device (launch the kernel), False when all are on the CPU (the
+    plain version).  Mixed or other devices raise."""
+    devices = {t.device for t in tensors}
+    if len(devices) == 1:
+        (dev,) = devices
+        if dev.type == "cpu":
+            return False
+        if dev.type == "cuda" and dev.index == torch.cuda.current_device():
+            return True
+    raise ValueError(f"tensors on unsupported or mixed devices: {devices}")
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu"))
+                  + glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libmam3kernels_{h.hexdigest()[:16]}.so")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("nvcc not found: no CUDA toolkit to build the "
+                           "mam3slam_tpu_torch kernels")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def _compile(out: str) -> None:
+    global build_seconds
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *[s for s in _sources() if s.endswith(".cu")]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError("nvcc failed:\n" + " ".join(cmd) + "\n"
+                           + proc.stdout + proc.stderr)
+    os.replace(tmp, out)
+    build_seconds = time.perf_counter() - t0
+
+
+def library() -> ctypes.CDLL:
+    """The kernels' shared library, built from ``csrc/`` on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            path = library_path()
+            if not os.path.exists(path):
+                _compile(path)
+            lib = ctypes.CDLL(path)
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def launch(name: str, *args) -> None:
+    """Call the C launcher ``name`` on the current stream; raise on a CUDA
+    error, count the launch otherwise."""
+    fn = getattr(library(), name)
+    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err}")
+    LAUNCHES[name.removeprefix("mam3_")] += 1
+
+
+def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:
+    """Validate a kernel argument: dtype, shape (None = any extent) and
+    contiguity."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if len(t.shape) != len(shape) or any(
+            s is not None and s != d for s, d in zip(shape, t.shape)):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")

@@ -1,0 +1,144 @@
+"""Match kernels: masked projection search and unmasked best-two search.
+
+Wrappers of ``csrc/match.cu`` and their plain PyTorch versions:
+
+* ``fused_masked_match`` replaces the Pallas kernel
+  ``mam3slam_tpu/ops/pallas_match.py:fused_masked_match``: per query, the
+  best and second-best Hamming distance (and the best's index) over the
+  targets inside the query's radius, with level in [pred-1, pred+1], valid
+  on both sides.
+* ``min_hamming2`` replaces ``pallas_match.py:min_hamming2``: the same
+  over every valid target, with no spatial or level mask.
+
+Both return exact int32 (idx, d1, d2) with the semantics of
+``mam3slam_tpu.ops.matching.best_in_mask``: the lowest index wins ties,
+d2 is the best over the other targets (it may equal d1), and a query with
+no qualifying target gets (0, BIG, BIG).  Descriptors stay packed
+(u8[32]); the plain versions use the exact f32 bit-matmul identity
+|a| + |b| - 2 a.b, the kernels XOR + popcount.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mam3slam_tpu_torch import _build
+
+BIG = 1 << 20
+
+
+def unpack_bits(desc: torch.Tensor) -> torch.Tensor:
+    """[..., 32] uint8 -> [..., 256] f32 0/1 bits (bit 8j + k = bit k of
+    byte j, OpenCV order)."""
+    shifts = torch.arange(8, dtype=torch.uint8, device=desc.device)
+    bits = (desc[..., :, None] >> shifts) & 1
+    return bits.reshape(desc.shape[:-1] + (256,)).to(torch.float32)
+
+
+def hamming_matrix(desc_q: torch.Tensor, desc_t: torch.Tensor) -> torch.Tensor:
+    """[Q, 32], [M, 32] packed descriptors -> [Q, M] int32 distances.
+
+    Exact: 0/1 products summed in f32 stay integers <= 256 (TF32 off)."""
+    bq = unpack_bits(desc_q)
+    bt = unpack_bits(desc_t)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        dot = bq @ bt.T
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    return (bq.sum(-1)[:, None] + bt.sum(-1)[None, :] - 2.0 * dot).to(
+        torch.int32)
+
+
+def best_two(d: torch.Tensor):
+    """Best + second-best per row of a masked distance matrix [Q, M]
+    (masked entries hold BIG): (idx, d1, d2) int32, first minimum wins."""
+    i1 = torch.argmin(d, dim=1)
+    d1 = torch.gather(d, 1, i1[:, None])[:, 0]
+    cols = torch.arange(d.shape[1], device=d.device)
+    d2 = torch.where(cols[None, :] == i1[:, None], BIG, d).amin(dim=1)
+    return i1.to(torch.int32), d1.to(torch.int32), d2.to(torch.int32)
+
+
+def radius_mask(query_uv, target_uv, radius) -> torch.Tensor:
+    """[Q, 2], [M, 2], radius [Q] -> bool [Q, M]: |q - t|^2 <= r^2."""
+    d2 = torch.sum((query_uv[:, None, :] - target_uv[None, :, :]) ** 2, -1)
+    return d2 <= (radius[:, None] ** 2)
+
+
+def level_window_mask(pred_level, target_level, lo: int = 0, hi: int = 1):
+    """Target level in [pred - lo, pred + hi]."""
+    lv = target_level[None, :]
+    pl = pred_level[:, None]
+    return (lv >= pl - lo) & (lv <= pl + hi)
+
+
+def fused_masked_match_plain(desc_q, q_uv, q_radius, q_level, q_valid,
+                             desc_t, t_uv, t_level, t_valid):
+    _build.PLAIN_CALLS["masked_match"] += 1
+    mask = (radius_mask(q_uv, t_uv, q_radius)
+            & level_window_mask(q_level, t_level, 1, 1)
+            & q_valid[:, None] & t_valid[None, :])
+    return best_two(torch.where(mask, hamming_matrix(desc_q, desc_t), BIG))
+
+
+def min_hamming2_plain(desc_q, q_valid, desc_t, t_valid):
+    _build.PLAIN_CALLS["min_hamming2"] += 1
+    mask = q_valid[:, None] & t_valid[None, :]
+    return best_two(torch.where(mask, hamming_matrix(desc_q, desc_t), BIG))
+
+
+def _words(desc: torch.Tensor, name: str) -> torch.Tensor:
+    """[N, 32] u8 -> [N, 8] int32 view (the kernels read u32 words)."""
+    _build.check(desc, name, torch.uint8, (None, 32))
+    if desc.data_ptr() % 16:
+        desc = desc.clone()
+    return desc.view(torch.int32)
+
+
+def fused_masked_match(desc_q, q_uv, q_radius, q_level, q_valid,
+                       desc_t, t_uv, t_level, t_valid):
+    """Masked best-two Hamming search.  desc_q [Q, 32] u8, q_uv [Q, 2]
+    f32, q_radius [Q] f32, q_level [Q] i32, q_valid [Q] bool; the same
+    for the M targets (no radius).  Returns (idx, d1, d2) int32 [Q]."""
+    args = (desc_q, q_uv, q_radius, q_level, q_valid,
+            desc_t, t_uv, t_level, t_valid)
+    if not _build.is_cuda(*args):
+        return fused_masked_match_plain(*args)
+    Q, M = desc_q.shape[0], desc_t.shape[0]
+    wq, wt = _words(desc_q, "desc_q"), _words(desc_t, "desc_t")
+    _build.check(q_uv, "q_uv", torch.float32, (Q, 2))
+    _build.check(q_radius, "q_radius", torch.float32, (Q,))
+    _build.check(q_level, "q_level", torch.int32, (Q,))
+    _build.check(q_valid, "q_valid", torch.bool, (Q,))
+    _build.check(t_uv, "t_uv", torch.float32, (M, 2))
+    _build.check(t_level, "t_level", torch.int32, (M,))
+    _build.check(t_valid, "t_valid", torch.bool, (M,))
+    idx, d1, d2 = (torch.empty(Q, dtype=torch.int32, device=desc_q.device)
+                   for _ in range(3))
+    if Q:
+        _build.launch("mam3_masked_match", wq.data_ptr(), q_uv.data_ptr(),
+                      q_radius.data_ptr(), q_level.data_ptr(),
+                      q_valid.data_ptr(), Q, wt.data_ptr(), t_uv.data_ptr(),
+                      t_level.data_ptr(), t_valid.data_ptr(), M,
+                      idx.data_ptr(), d1.data_ptr(), d2.data_ptr())
+    return idx, d1, d2
+
+
+def min_hamming2(desc_q, q_valid, desc_t, t_valid):
+    """Unmasked best-two Hamming search of every valid query over every
+    valid target.  Returns (idx, d1, d2) int32 [Q]."""
+    if not _build.is_cuda(desc_q, q_valid, desc_t, t_valid):
+        return min_hamming2_plain(desc_q, q_valid, desc_t, t_valid)
+    Q, M = desc_q.shape[0], desc_t.shape[0]
+    wq, wt = _words(desc_q, "desc_q"), _words(desc_t, "desc_t")
+    _build.check(q_valid, "q_valid", torch.bool, (Q,))
+    _build.check(t_valid, "t_valid", torch.bool, (M,))
+    idx, d1, d2 = (torch.empty(Q, dtype=torch.int32, device=desc_q.device)
+                   for _ in range(3))
+    if Q:
+        _build.launch("mam3_min_hamming2", wq.data_ptr(), q_valid.data_ptr(),
+                      Q, wt.data_ptr(), t_valid.data_ptr(), M,
+                      idx.data_ptr(), d1.data_ptr(), d2.data_ptr())
+    return idx, d1, d2

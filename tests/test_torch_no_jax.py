@@ -1,0 +1,97 @@
+"""The port stands alone: it imports no JAX and nothing of the reference
+package, takes the plain versions on CPU tensors without launching a
+kernel, and chip_smoke.py refuses to run without a GPU."""
+
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+import mam3slam_tpu_torch
+from mam3slam_tpu_torch import _build
+from mam3slam_tpu_torch.geometry import cameras
+from mam3slam_tpu_torch.ops import cuda_match, matching, orb
+from mam3slam_tpu_torch.solvers import ba
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT_MODULES = sorted(
+    m.name for m in pkgutil.walk_packages(mam3slam_tpu_torch.__path__,
+                                          "mam3slam_tpu_torch."))
+
+
+def test_port_imports_no_jax():
+    code = ("import sys, importlib\n"
+            f"for m in {PORT_MODULES!r} + ['chip_smoke']:\n"
+            "    importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
+            "('jax.', 'jaxlib', 'mam3slam_tpu.')) or m == 'mam3slam_tpu']\n"
+            "assert not bad, bad\n"
+            "print(len(sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert len(PORT_MODULES) >= 14
+
+
+def test_port_sources_have_no_jax_import():
+    pat = re.compile(r"^\s*(import jax|from jax|import mam3slam_tpu\b|"
+                     r"from mam3slam_tpu[ .])", re.M)
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    port_dir = os.path.dirname(mam3slam_tpu_torch.__file__)
+    for root, _, files in os.walk(port_dir):
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    for path in paths:
+        with open(path) as f:
+            assert not pat.search(f.read()), path
+
+
+def test_cpu_tensors_launch_no_kernel():
+    _build.reset_counts()
+    rng = np.random.default_rng(0)
+    img = torch.tensor(rng.uniform(0, 255, (96, 128)).astype(np.float32))
+    feats = orb.extract_orb(img, orb.OrbConfig(96, 128, n_features=64,
+                                               n_levels=2))
+    d = feats.desc
+    matching.search_by_brute_force(d, feats.valid, feats.angle, d,
+                                   feats.valid, feats.angle)
+    cuda_match.fused_masked_match(
+        d, feats.uv, torch.full((d.shape[0],), 8.0), feats.level,
+        feats.valid, d, feats.uv, feats.level, feats.valid)
+    cam = cameras.make_pinhole(100.0, 100.0, 64.0, 48.0)
+    pts = torch.tensor(rng.uniform(1, 3, (32, 3)).astype(np.float32))
+    uv = pts[:, :2] / pts[:, 2:] * 100.0 + torch.tensor([64.0, 48.0])
+    ba.pose_optimization(torch.tensor([1.0, 0, 0, 0]), torch.zeros(3),
+                         cam.params, cam.kind, pts, uv, torch.ones(32),
+                         torch.ones(32, dtype=torch.bool))
+    assert sum(_build.LAUNCHES.values()) == 0
+    assert set(_build.PLAIN_CALLS) == {"orb_desc", "min_hamming2",
+                                       "masked_match", "pose_opt"}
+
+
+def test_dispatch_refuses_mixed_devices():
+    meta = torch.empty(3, device="meta")
+    try:
+        _build.is_cuda(torch.zeros(3), meta)
+    except ValueError:
+        return
+    raise AssertionError("mixed devices accepted")
+
+
+def test_chip_smoke_fails_without_gpu(tmp_path):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+    # alone in a directory, without the package, it fails too
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text(open(os.path.join(REPO, "chip_smoke.py")).read())
+    out = subprocess.run([sys.executable, str(lone)], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
