@@ -11,8 +11,9 @@ raises (exit code != 0) and no result line is printed:
 2. Build: compiles ``mam3slam_tpu_torch/csrc/*.cu`` with nvcc.
 3. Kernels vs their plain PyTorch versions on the card, at the shapes of
    the tracking path (EuRoC monocular: 752x480, 8 levels, 1000 features;
-   4096 projected map points x 1024 features), with median CUDA-event
-   times of both.
+   4096 projected map points x 1024 features) and of the mapping path's
+   fuse (the whole 24576-point arena as queries, most not visible), with
+   median CUDA-event times of both.
 4. Tracking: a room scene is rendered at EuRoC cam0 intrinsics, a map of
    32 keyframes is seeded from the scene's true depth in one shared arena
    (512 KF / 24576 MP), and two agents track interleaved arcs through
@@ -21,6 +22,18 @@ raises (exit code != 0) and no result line is printed:
    Every frame must keep >= 30 inliers and land within 1 cm / 0.2 deg of
    the pose that rendered it, and the four kernels' launch counters must
    be > 0 with no plain version called.
+5. SLAM: one ``SlamSystem`` at the same EuRoC point with the
+   ``SlamConfig`` defaults (512 KF / 24576 MP arena); two agents start
+   from no images on their own rendered arcs of 200 frames (-10 to 150
+   deg, bob +0.05; 170 to 330 deg, bob -0.05) and build their maps in the
+   one arena through ``track()`` alone.  Each must initialise within 20
+   frames, keep >= 90% of frames after init OK, stay within its ATE
+   bound after Sim3 alignment (``MAX_ATE_FRAC`` of the arc's span), and
+   own a map of >= 8 live keyframes and >= 2000 points in which a mapping
+   epoch ran a window BA; forward and reverse observations must agree,
+   and the describe, masked-match and pose kernels must have launched
+   with no plain version called.  Prints the init, per-frame and
+   mapping-epoch times and the keyframes culled.
 
 It prints a JSON line of per-kernel results, the nvidia-smi line, and as
 its last line ``{"ok": true, "device": {...}}``.
@@ -46,6 +59,18 @@ N_ARC = 160                    # frames per arc, 1 degree apart
 MAX_T_ERR = 0.01               # m, camera centre
 MAX_R_ERR = math.radians(0.2)
 MIN_INLIERS = 30
+SLAM_FRAMES = 200              # frames per agent in phase 5
+SLAM_ARCS = ((-10.0, 150.0, 0.05), (170.0, 330.0, -0.05))  # deg, deg, bob
+DT = 0.05                      # s between frames (20 Hz)
+MAX_FIRST_OK = 20
+MIN_OK_FRAC = 0.9
+# ATE bound per agent, as a fraction of its arc's span: 1.5x what the
+# reference SlamSystem reaches on these arcs when rehearsed at half size
+# (376x240, 500 features) on the same rendered frames, 4.76% and 4.61%,
+# since it misses 1% there (see PERF.md)
+MAX_ATE_FRAC = (1.5 * 0.0476, 1.5 * 0.0461)
+MIN_MAP_KF, MIN_MAP_MP = 8, 2000
+SLAM_KERNELS = ("orb_desc", "masked_match", "pose_opt")
 
 KERNELS = {  # launch-counter name -> (source, replaced Pallas kernel)
     "orb_desc": ("mam3slam_tpu_torch/csrc/orb_desc.cu",
@@ -102,7 +127,7 @@ def quat_of(R: np.ndarray) -> torch.Tensor:
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_kernels(dev, scene, cam_r, orb_cfg) -> dict:
+def check_kernels(dev, scene, cam_r, orb_cfg, n_arena: int) -> dict:
     from mam3slam_tpu_torch.io import render
     from mam3slam_tpu_torch.geometry import lie
     from mam3slam_tpu_torch.ops import cuda_match as CM
@@ -166,6 +191,31 @@ def check_kernels(dev, scene, cam_r, orb_cfg) -> dict:
     out["masked_match"] = dict(
         err=err, ms=median_ms(lambda: CM.fused_masked_match(*margs)),
         plain_ms=median_ms(lambda: CM.fused_masked_match_plain(*margs)))
+
+    # masked match at the fuse shape: every arena point a query, ~10%
+    # visible (as after the frustum test), against one keyframe
+    Qa = n_arena
+    aq = rng.integers(0, 256, (Qa, 32), dtype=np.uint8)
+    auv = rng.uniform(0, W, (Qa, 2)).astype(np.float32)
+    aq[:600] = dt[:600]
+    auv[:600] = tuv[:600] + rng.uniform(-3, 3, (600, 2))
+    arad = (3.0 * 1.2 ** rng.integers(0, 8, Qa)).astype(np.float32)
+    alv = rng.integers(0, 8, Qa).astype(np.int32)
+    alv[:600] = tl[:600]
+    avis = rng.random(Qa) < 0.1
+    avis[:600] = True
+    fargs = tuple(T(x) for x in (aq, auv, arad, alv, avis, dt, tuv, tl, tv))
+    k = CM.fused_masked_match(*fargs)
+    p = CM.fused_masked_match_plain(*fargs)
+    err = max((a - b).abs().max().item() for a, b in zip(k, p))
+    log("kernel", name="masked_match_fuse", Q=Qa, visible=int(avis.sum()),
+        F=F, matched=int((k[1] <= 50).sum()), max_abs_err=err, tol="exact")
+    if err != 0:
+        raise AssertionError("masked_match disagrees with its plain version "
+                             "at the fuse shape")
+    out["masked_match_fuse"] = dict(
+        err=err, ms=median_ms(lambda: CM.fused_masked_match(*fargs)),
+        plain_ms=median_ms(lambda: CM.fused_masked_match_plain(*fargs)))
 
     # unmasked best-two: 1024 x 1024, with duplicates
     hargs = (T(dq[:F]), T(qv[:F]), T(dt), T(tv))
@@ -290,7 +340,7 @@ def track_agents(dev, scene, cam_r, cam, orb_cfg, cfg, ms, trajs, n_kf,
     Returns per-agent results and the final map."""
     from mam3slam_tpu_torch.slam import system
 
-    fns = system.tracking_programs(cfg, cam.kind)
+    fns = system.programs(cfg, cam.kind)
     id_q = torch.tensor([1.0, 0, 0, 0], device=dev)
     z3 = torch.zeros(3, device=dev)
     res, chains = [], []
@@ -326,6 +376,127 @@ def track_agents(dev, scene, cam_r, cam, orb_cfg, cfg, ms, trajs, n_kf,
                                      r_err=rot_err(q_r, q_true),
                                      t_err=centre_err(q_r, t_r, C))
     return res, ms
+
+
+# ---------------------------------------------------------------------------
+# phase 5: SLAM from no images, two agents in one arena
+# ---------------------------------------------------------------------------
+
+def run_slam(dev, scene, cam_r, cam, orb_cfg, cfg, arcs):
+    """Interleaved frames of one arc per agent through
+    ``SlamSystem.track`` only.  Per agent: the states, the host wall of
+    the frame that initialised (extract + track, synchronised) and of
+    every OK frame that inserted no keyframe."""
+    from mam3slam_tpu_torch.slam import system
+
+    sys_ = system.SlamSystem(cfg, cam, seed=0)
+    agents = [dict(aid=sys_.add_agent(), states=[], init_ms=None,
+                   track_ms=[]) for _ in arcs]
+    for i in range(len(arcs[0])):
+        for ag, arc in zip(agents, arcs):
+            R, t, _ = arc[i]
+            img = scene.render(R, t, cam_r)
+            before = sys_.agents[ag["aid"]].state
+            n_epochs = len(sys_.epochs)
+            sync(dev)
+            t0 = time.perf_counter()
+            state, _ = sys_.track(ag["aid"], frame_of(img, orb_cfg, cam),
+                                  ts=i * DT)
+            sync(dev)
+            ms = (time.perf_counter() - t0) * 1e3
+            ag["states"].append(state)
+            if before == system.NOT_INITIALIZED and state == system.OK:
+                ag["init_ms"] = ms
+            elif before == system.OK and len(sys_.epochs) == n_epochs:
+                ag["track_ms"].append(ms)
+    return sys_, agents
+
+
+def ate_rmse(est: np.ndarray, gt: np.ndarray) -> float:
+    """RMSE of camera centres after Sim3 (Umeyama) alignment."""
+    mx, my = est.mean(0), gt.mean(0)
+    Xc, Yc = est - mx, gt - my
+    U, D, Vt = np.linalg.svd(Yc.T @ Xc / len(est))
+    S = np.eye(3)
+    if np.linalg.det(U) * np.linalg.det(Vt) < 0:
+        S[2, 2] = -1
+    s = np.trace(np.diag(D) @ S) / (Xc ** 2).sum() * len(est)
+    aligned = (s * (U @ S @ Vt @ Xc.T)).T + my
+    return float(np.sqrt(((aligned - gt) ** 2).sum(1).mean()))
+
+
+def check_slam(sys_, agents, arcs, max_ate_frac=MAX_ATE_FRAC):
+    """The phase-5 gates (``max_ate_frac``: one bound per agent); returns
+    per-agent results."""
+    from mam3slam_tpu_torch.slam import system
+
+    ms = sys_.ms
+    kf_valid, kf_map = ms.kf_valid.cpu().numpy(), ms.kf_map.cpu().numpy()
+    mp_valid, mp_map = ms.mp_valid.cpu().numpy(), ms.mp_map.cpu().numpy()
+    out = []
+    for a, (ag, arc) in enumerate(zip(agents, arcs)):
+        states = ag["states"]
+        if system.OK not in states:
+            raise AssertionError(f"agent {a} never initialised")
+        first_ok = states.index(system.OK)
+        ok_frac = float(np.mean([s == system.OK for s in states[first_ok:]]))
+        est, gt = [], []
+        for ts, _, t_wc, st in sys_.trajectory_world(ag["aid"]):
+            if st == system.OK:
+                est.append(t_wc)
+                gt.append(arc[int(round(ts / DT))][2])
+        est, gt = np.asarray(est, np.float64), np.asarray(gt, np.float64)
+        ate = ate_rmse(est, gt)
+        span = float(np.ptp(gt, axis=0).max())
+        map_id = sys_.agents[ag["aid"]].map_id
+        n_kf = int((kf_valid & (kf_map == map_id)).sum())
+        n_mp = int((mp_valid & (mp_map == map_id)).sum())
+        lba = sum(1 for _, m, row in sys_.epochs
+                  if m == map_id and row[4] >= 1 and row[5] > 0)
+        r = dict(first_ok=first_ok, ok_frac=ok_frac, ate=ate, span=span,
+                 ate_frac=ate / span, keyframes=n_kf, map_points=n_mp,
+                 lba_epochs=lba, map_id=map_id)
+        log("slam", agent=a, frames=len(states), **r)
+        if first_ok >= MAX_FIRST_OK:
+            raise AssertionError(f"agent {a}: no init in {MAX_FIRST_OK}")
+        if ok_frac < MIN_OK_FRAC:
+            raise AssertionError(f"agent {a}: {ok_frac:.3f} of frames OK")
+        if ate >= max_ate_frac[a] * span:
+            raise AssertionError(f"agent {a}: ATE {ate:.4f} >= "
+                                 f"{max_ate_frac[a]} x span {span:.3f}")
+        if n_kf < MIN_MAP_KF or n_mp < MIN_MAP_MP:
+            raise AssertionError(f"agent {a}: map of {n_kf} KF / {n_mp} MP")
+        if lba == 0:
+            raise AssertionError(f"agent {a}: no window BA in its map")
+        out.append(r)
+    # every reverse observation of a live point is a forward link to it
+    okf = ms.mp_obs_kf.cpu().numpy()
+    oft = ms.mp_obs_feat.cpu().numpy()
+    nobs = ms.mp_nobs.cpu().numpy()
+    fmp = ms.kf_feat_mp.cpu().numpy()
+    live = ((np.arange(okf.shape[1])[None, :] < nobs[:, None]) & (okf >= 0)
+            & mp_valid[:, None])
+    pts = np.nonzero(live)[0]
+    bad = int((fmp[okf[live], oft[live]] != pts).sum())
+    log("slam_obs", checked=int(live.sum()), disagree=bad)
+    if bad or live.sum() < 1000:
+        raise AssertionError("forward and reverse observations disagree")
+    return out
+
+
+def slam_times(sys_, agents, smi: str) -> None:
+    """Print the init, per-frame and mapping-epoch times."""
+    track = np.concatenate([np.asarray(ag["track_ms"]) for ag in agents])
+    epochs = np.concatenate([np.asarray(v) for k, v in
+                             sys_.timers.series.items()
+                             if k.startswith("LM_")])
+    log("slam_time", card=repr(smi),
+        init_ms=[round(ag["init_ms"], 3) for ag in agents],
+        track_frames=len(track), track_ms_median=float(np.median(track)),
+        track_ms_p90=float(np.percentile(track, 90)),
+        epochs=len(epochs), epoch_ms_median=float(np.median(epochs)),
+        epoch_ms_p90=float(np.percentile(epochs, 90)),
+        kf_culled=sys_.kf_culled)
 
 
 def sync(dev) -> None:
@@ -377,7 +548,8 @@ def main() -> int:
     cam_r = render.RenderCam(W, H, FX, FY, CX, CY)
     scene = render.RoomScene(seed=5, device=dev)
     orb_cfg = O.OrbConfig(height=H, width=W, n_features=N_FEATURES)
-    kernels = check_kernels(dev, scene, cam_r, orb_cfg)
+    kernels = check_kernels(dev, scene, cam_r, orb_cfg,
+                            system.SlamConfig(W, H).max_mp)
 
     # 4. tracking: map from the bob=+0.05 arc, agents on +0.05 / -0.05
     cfg = system.SlamConfig(width=W, height=H, n_feat=orb_cfg.capacity)
@@ -416,13 +588,32 @@ def main() -> int:
             raise AssertionError(f"agent {a} lost the true pose")
         if ref["t_err"] > MAX_T_ERR or ref["r_err"] > MAX_R_ERR:
             raise AssertionError(f"agent {a}: track_ref_kf off the pose")
-    log("counters", launches=launches, plain_calls=plain)
+    log("counters", path="track", launches=launches, plain_calls=plain)
     if any(launches.get(k, 0) == 0 for k in KERNELS) or any(plain.values()):
         raise AssertionError("the main path did not run every kernel")
 
+    # 5. SLAM from no images: two agents, one arena, track() only
+    arcs = [render.orbit_trajectory(SLAM_FRAMES, a0, a1, radius=2.5, bob=b)
+            for a0, a1, b in SLAM_ARCS]
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    sys_, agents = run_slam(dev, scene, cam_r, cam, orb_cfg, cfg, arcs)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    slam_launches = dict(_build.LAUNCHES)
+    slam_plain = dict(_build.PLAIN_CALLS)
+    log("counters", path="slam", launches=slam_launches,
+        plain_calls=slam_plain, seconds=seconds)
+    check_slam(sys_, agents, arcs)
+    slam_times(sys_, agents, smi)
+    if (any(slam_launches.get(k, 0) == 0 for k in SLAM_KERNELS)
+            or any(slam_plain.values())):
+        raise AssertionError("the SLAM path did not run its kernels")
+
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[k], "max_abs_err": kernels[k]["err"],
+         "launches": launches[k] + slam_launches.get(k, 0),
+         "max_abs_err": kernels[k]["err"],
          "ms": kernels[k]["ms"], "plain_ms": kernels[k]["plain_ms"]}
         for k, (src, rep) in KERNELS.items()]}))
     print(smi)

@@ -25,16 +25,21 @@ def camera_from_numpy(params, kind: int, device=None) -> cam_mod.Camera:
                           int(kind))
 
 
+def from_numpy(cls, obj, device=None):
+    """Any object with every field of the NamedTuple ``cls`` (a MapState,
+    FrameObs, WindowProblem, TwoViewResult, ...), by name -> ``cls`` of
+    tensors."""
+    return cls(*(tensor(getattr(obj, f), device) for f in cls._fields))
+
+
 def frame_from_numpy(frame, device=None) -> steps.FrameObs:
     """Any object with ``uv, level, angle, desc, valid`` -> FrameObs."""
-    return steps.FrameObs(*(tensor(getattr(frame, f), device)
-                            for f in steps.FrameObs._fields))
+    return from_numpy(steps.FrameObs, frame, device)
 
 
 def map_state_from_numpy(ms, device=None) -> S.MapState:
     """Any object with every MapState field, by name -> MapState."""
-    return S.MapState(*(tensor(getattr(ms, f), device)
-                        for f in S.MapState._fields))
+    return from_numpy(S.MapState, ms, device)
 
 
 def to_numpy(tree):

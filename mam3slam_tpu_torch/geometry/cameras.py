@@ -40,6 +40,14 @@ class Camera(NamedTuple):
     def cy(self):
         return self.params[..., 3]
 
+    def K(self) -> torch.Tensor:
+        """[..., 3, 3] calibration matrix (no distortion)."""
+        z = torch.zeros_like(self.fx)
+        o = torch.ones_like(self.fx)
+        k = torch.stack([self.fx, z, self.cx, z, self.fy, self.cy, z, z, o],
+                        dim=-1)
+        return k.reshape(self.params.shape[:-1] + (3, 3))
+
 
 def make_pinhole(fx, fy, cx, cy, dist=(0.0, 0.0, 0.0, 0.0),
                  device=None) -> Camera:

@@ -1,10 +1,12 @@
 """Struct-of-arrays map state: keyframes, map points, observations, graph.
 
 Port of ``mam3slam_tpu.mapstate.state``: the same ``MapState`` fields,
-shapes and dtypes, as torch tensors on one device, and the mutators the
-tracking slice uses.  Mutators return a new ``MapState`` and leave the
-one they were given unchanged (the tracking step keeps the map it read
-beside the one it returns); a tensor they change is copied first.
+shapes and dtypes, as torch tensors on one device, and its mutators.
+Mutators return a new ``MapState`` and leave the one they were given
+unchanged (the tracking step keeps the map it read beside the one it
+returns); a tensor they change is copied first.  Where the reference
+routes no-op scatter rows to slot ``P - 1`` and writes the old value
+back, the port writes them to a scratch row past the arena and drops it.
 """
 
 from __future__ import annotations
@@ -13,6 +15,9 @@ from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
+
+from mam3slam_tpu_torch.geometry import lie
+from mam3slam_tpu_torch.ops import matching as M
 
 NO_MP = -1
 NO_KF = -1
@@ -121,24 +126,56 @@ def init_map_state(cfg: MapConfig, device=None) -> MapState:
     )
 
 
-def _put(x: torch.Tensor, index, values) -> torch.Tensor:
+def set_at(x: torch.Tensor, index, values) -> torch.Tensor:
     """Copy of ``x`` with ``x[index] = values``."""
     y = x.clone()
     y[index] = values
     return y
 
 
+def set_rows(x: torch.Tensor, rows, values) -> torch.Tensor:
+    """Copy of ``x`` with ``x[rows] = values``, where a row index equal to
+    ``len(x)`` lands in a scratch row that is dropped."""
+    y = torch.cat([x, x[:1]])
+    y[rows] = values
+    return y[:x.shape[0]]
+
+
+def _rank_in_runs(key: torch.Tensor) -> torch.Tensor:
+    """For each entry, the number of earlier entries (by index) with the
+    same key: a stable sort, then each run's start carried by cummax."""
+    order = torch.argsort(key, stable=True)
+    sk = key[order]
+    idx = torch.arange(key.shape[0], device=key.device)
+    start = torch.ones_like(sk, dtype=torch.bool)
+    start[1:] = sk[1:] != sk[:-1]
+    run_start = torch.cummax(torch.where(start, idx, 0), 0).values
+    rank = torch.empty_like(idx)
+    rank[order] = idx - run_start
+    return rank
+
+
+def alloc_mp_slots(ms: MapState, want: torch.Tensor):
+    """(slots, granted) for map-point slot requests ``want [N]``: request
+    i gets the rank(i)-th free slot, lowest first; requests past the free
+    capacity are not granted (the caller drops them)."""
+    P = ms.mp_valid.shape[0]
+    free_first = torch.argsort(ms.mp_valid.to(torch.int32), stable=True)
+    ranks = torch.cumsum(want.to(torch.int32), 0) - 1
+    granted = want & (ranks < (~ms.mp_valid).sum())
+    return (free_first[torch.clamp(ranks, 0, P - 1)].to(torch.int32),
+            granted)
+
+
 def mp_add_observation(ms: MapState, mp, kf, feat, ok) -> MapState:
     """Batch-add reverse + forward observations (mp/kf/feat [N], ok mask).
     Several observations of one point in a batch take consecutive
-    reverse slots; only ``ok`` rows write."""
+    reverse slots in batch order; only ``ok`` rows write."""
     P, M = ms.mp_obs_kf.shape
     K = ms.kf_feat_mp.shape[0]
     mp, kf, feat = mp.long(), kf.long(), feat.long()
-    same = (mp[:, None] == mp[None, :]) & ok[:, None] & ok[None, :]
-    before = torch.tril(same, diagonal=-1).sum(dim=1)
+    before = _rank_in_runs(torch.where(ok, mp, P))
     slot = torch.clamp(ms.mp_nobs[mp] + before, 0, M - 1)
-    # rows that do not write land in one scratch row past the arena
     row = torch.where(ok, mp, P)
     obs_kf = torch.cat([ms.mp_obs_kf, ms.mp_obs_kf[:1]])
     obs_kf[row, slot] = kf.to(torch.int32)
@@ -188,7 +225,7 @@ def assign_spanning_parent(ms: MapState, kf) -> MapState:
     """Parent = strongest covisible KF created earlier (smaller kf_seq)."""
     wrow = ms.covis[kf] * (ms.kf_seq < ms.kf_seq[kf])
     parent = torch.where(wrow.max() > 0, torch.argmax(wrow), NO_KF)
-    return ms._replace(kf_parent=_put(ms.kf_parent, kf,
+    return ms._replace(kf_parent=set_at(ms.kf_parent, kf,
                                       parent.to(torch.int32)))
 
 
@@ -203,20 +240,20 @@ def add_keyframe(ms: MapState, q, t, agent, map_id, ts, agent_kf_id,
     kf = torch.argmax((~ms.kf_valid).to(torch.int32))
     F = feat_uv.shape[0]
     ms = ms._replace(
-        kf_q=_put(ms.kf_q, kf, q), kf_t=_put(ms.kf_t, kf, t),
-        kf_valid=_put(ms.kf_valid, kf, True),
-        kf_agent=_put(ms.kf_agent, kf, agent),
-        kf_map=_put(ms.kf_map, kf, map_id), kf_ts=_put(ms.kf_ts, kf, ts),
-        kf_agent_kf_id=_put(ms.kf_agent_kf_id, kf, agent_kf_id),
-        kf_seq=_put(ms.kf_seq, kf, ms.n_kf),
+        kf_q=set_at(ms.kf_q, kf, q), kf_t=set_at(ms.kf_t, kf, t),
+        kf_valid=set_at(ms.kf_valid, kf, True),
+        kf_agent=set_at(ms.kf_agent, kf, agent),
+        kf_map=set_at(ms.kf_map, kf, map_id), kf_ts=set_at(ms.kf_ts, kf, ts),
+        kf_agent_kf_id=set_at(ms.kf_agent_kf_id, kf, agent_kf_id),
+        kf_seq=set_at(ms.kf_seq, kf, ms.n_kf),
         kf_cam=(ms.kf_cam if cam_params is None
-                else _put(ms.kf_cam, kf, cam_params)),
-        kf_feat_uv=_put(ms.kf_feat_uv, kf, feat_uv),
-        kf_feat_level=_put(ms.kf_feat_level, kf, feat_level),
-        kf_feat_angle=_put(ms.kf_feat_angle, kf, feat_angle),
-        kf_feat_desc=_put(ms.kf_feat_desc, kf, feat_desc),
-        kf_feat_valid=_put(ms.kf_feat_valid, kf, feat_valid),
-        kf_feat_mp=_put(ms.kf_feat_mp, kf, NO_MP),
+                else set_at(ms.kf_cam, kf, cam_params)),
+        kf_feat_uv=set_at(ms.kf_feat_uv, kf, feat_uv),
+        kf_feat_level=set_at(ms.kf_feat_level, kf, feat_level),
+        kf_feat_angle=set_at(ms.kf_feat_angle, kf, feat_angle),
+        kf_feat_desc=set_at(ms.kf_feat_desc, kf, feat_desc),
+        kf_feat_valid=set_at(ms.kf_feat_valid, kf, feat_valid),
+        kf_feat_mp=set_at(ms.kf_feat_mp, kf, NO_MP),
         n_kf=ms.n_kf + 1,
     )
     mp = torch.clamp(feat_mp, min=0).long()
@@ -227,3 +264,180 @@ def add_keyframe(ms: MapState, q, t, agent, map_id, ts, agent_kf_id,
     ms = update_covis_for_kf(ms, kf)
     ms = assign_spanning_parent(ms, kf)
     return ms, kf.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# map-point maintenance
+# ---------------------------------------------------------------------------
+
+def _mp_stats(ms: MapState, pi: torch.Tensor, scale_factors):
+    """Distinctive descriptor, normal, depth bounds and reference KF of the
+    points ``pi [C]`` from their observations (reference
+    ``MapPoint::ComputeDistinctiveDescriptors`` + ``UpdateNormalAndDepth``).
+    Returns (desc, normal, min_dist, max_dist, ref_kf, n_ok)."""
+    C = pi.shape[0]
+    Mo = ms.mp_obs_kf.shape[1]
+    dev = pi.device
+    obs_kf, obs_feat = ms.mp_obs_kf[pi], ms.mp_obs_feat[pi]
+    obs_ok = ((torch.arange(Mo, device=dev)[None, :] < ms.mp_nobs[pi][:, None])
+              & (obs_kf >= 0))
+    kf = torch.clamp(obs_kf, min=0).long()
+    obs_ok = obs_ok & ms.kf_valid[kf]
+    feat = torch.clamp(obs_feat, min=0).long()
+
+    # median pairwise Hamming distance inside each point's observations;
+    # the observation with the lowest median gives the descriptor
+    descs = ms.kf_feat_desc[kf, feat]                      # [C, M, 32]
+    pair = M.hamming_matrix(descs, descs)                  # [C, M, M]
+    big = 1 << 15
+    pair = torch.where(obs_ok[:, :, None] & obs_ok[:, None, :], pair, big)
+    sorted_pair = torch.sort(pair, dim=-1).values
+    n_ok = obs_ok.sum(-1)
+    med_idx = torch.clamp(torch.div(n_ok - 1, 2, rounding_mode="floor"),
+                          0, Mo - 1)
+    med = torch.take_along_dim(
+        sorted_pair, med_idx[:, None, None].expand(C, Mo, 1), -1)[..., 0]
+    med = torch.where(obs_ok, med, big)
+    rows = torch.arange(C, device=dev)
+    new_desc = descs[rows, torch.argmin(med, -1)]
+
+    centre = -lie.quat_rotate(lie.quat_conj(ms.kf_q[kf]), ms.kf_t[kf])
+    vec = ms.mp_pos[pi][:, None, :] - centre
+    dist = torch.linalg.vector_norm(vec, dim=-1)
+    dirs = vec / torch.clamp(dist[..., None], min=1e-9)
+    normal = torch.where(obs_ok[..., None], dirs, 0.0).sum(1)
+    normal = normal / torch.clamp(
+        torch.linalg.vector_norm(normal, dim=-1, keepdim=True), min=1e-9)
+
+    # the first valid observation is the reference
+    first = torch.argmax(obs_ok.to(torch.int32), -1)
+    ref_kf = obs_kf[rows, first]
+    ref_feat = obs_feat[rows, first]
+    ref_level = ms.kf_feat_level[torch.clamp(ref_kf, min=0).long(),
+                                 torch.clamp(ref_feat, min=0).long()]
+    max_dist = dist[rows, first] * scale_factors[
+        torch.clamp(ref_level, min=0).long()]
+    min_dist = max_dist / scale_factors[-1]
+    return new_desc, normal, min_dist, max_dist, ref_kf, n_ok
+
+
+def _write_stats(ms: MapState, pi, upd, stats) -> MapState:
+    desc, normal, min_dist, max_dist, ref_kf, _ = stats
+    w = torch.where(upd, pi, ms.mp_valid.shape[0])
+    return ms._replace(
+        mp_desc=set_rows(ms.mp_desc, w, desc),
+        mp_normal=set_rows(ms.mp_normal, w, normal),
+        mp_min_dist=set_rows(ms.mp_min_dist, w, min_dist),
+        mp_max_dist=set_rows(ms.mp_max_dist, w, max_dist),
+        mp_ref_kf=set_rows(ms.mp_ref_kf, w, ref_kf))
+
+
+def refresh_mp_stats(ms: MapState, mp_mask, scale_factors) -> MapState:
+    """Recompute descriptor, normal, depth bounds and reference KF of the
+    masked points that have an observation.  The masked rows are gathered
+    (one host read of their count) and only they are computed; the rest of
+    the arena keeps its values, as in the reference."""
+    pi = torch.nonzero(mp_mask)[:, 0]
+    stats = _mp_stats(ms, pi, scale_factors)
+    return _write_stats(ms, pi, stats[5] > 0, stats)
+
+
+def refresh_mp_stats_compact(ms: MapState, idx, scale_factors) -> MapState:
+    """``refresh_mp_stats`` for a compact index batch ``idx [C]`` (-1 =
+    padding); only live points are written."""
+    pi = torch.clamp(idx, min=0).long()
+    stats = _mp_stats(ms, pi, scale_factors)
+    return _write_stats(ms, pi, (idx >= 0) & (stats[5] > 0)
+                        & ms.mp_valid[pi], stats)
+
+
+def compact_indices(mask: torch.Tensor, cap: int) -> torch.Tensor:
+    """First ``cap`` set indices of ``mask`` (stable), -1-padded [cap]."""
+    order = torch.argsort((~mask).to(torch.int8), stable=True)
+    sel = order[:cap]
+    return torch.where(mask[sel], sel, -1).to(torch.int32)
+
+
+def remove_map_points(ms: MapState, kill_mask) -> MapState:
+    """SetBadFlag for a batch of points: clear forward links, reverse
+    table and validity."""
+    fmp = ms.kf_feat_mp
+    hit = (fmp >= 0) & kill_mask[torch.clamp(fmp, min=0).long()]
+    return ms._replace(
+        kf_feat_mp=torch.where(hit, NO_MP, fmp),
+        mp_valid=ms.mp_valid & ~kill_mask,
+        mp_nobs=torch.where(kill_mask, 0, ms.mp_nobs),
+        mp_obs_kf=torch.where(kill_mask[:, None], NO_KF, ms.mp_obs_kf),
+        mp_obs_feat=torch.where(kill_mask[:, None], -1, ms.mp_obs_feat))
+
+
+def replace_map_points(ms: MapState, src, dst, ok) -> MapState:
+    """MapPoint::Replace for batches: redirect every forward link from
+    ``src[i]`` to ``dst[i]`` and kill src, carrying its found/visible
+    counts over.  Reverse tables are left to ``rebuild_reverse_obs``."""
+    P = ms.mp_valid.shape[0]
+    dev = ms.mp_valid.device
+    src, dst = src.long(), dst.long()
+    w = torch.where(ok, src, P)
+    lut = set_rows(torch.arange(P, dtype=torch.int32, device=dev), w,
+                    dst.to(torch.int32))
+    fmp = ms.kf_feat_mp
+    fmp = torch.where(fmp >= 0, lut[torch.clamp(fmp, min=0).long()], fmp)
+    kill = set_rows(torch.zeros(P, dtype=torch.bool, device=dev), w, True)
+    to = torch.where(ok, dst, P)
+    srcc = torch.clamp(src, 0, P - 1)
+
+    def carry(x):
+        y = torch.cat([x, x[:1]])
+        y.index_add_(0, to, torch.where(ok, x[srcc], 0.0))
+        return y[:P]
+
+    return ms._replace(kf_feat_mp=fmp, mp_valid=ms.mp_valid & ~kill,
+                       mp_found=carry(ms.mp_found),
+                       mp_visible=carry(ms.mp_visible),
+                       mp_nobs=torch.where(kill, 0, ms.mp_nobs))
+
+
+def rebuild_reverse_obs(ms: MapState) -> MapState:
+    """Rebuild the mp_obs_* tables from the forward kf_feat_mp table: each
+    point's observations in (kf, feature) order, capped at M."""
+    K, F = ms.kf_feat_mp.shape
+    P, Mo = ms.mp_obs_kf.shape
+    dev = ms.kf_feat_mp.device
+    flat_mp = ms.kf_feat_mp.reshape(-1).long()
+    flat_kf = torch.arange(K, device=dev).repeat_interleave(F)
+    flat_feat = torch.arange(F, device=dev).repeat(K)
+    ok = ((flat_mp >= 0) & ms.kf_valid[flat_kf]
+          & ms.mp_valid[torch.clamp(flat_mp, min=0)])
+    tgt = torch.where(ok, flat_mp, P)                  # P = scratch row
+    rank = _rank_in_runs(tgt)
+    keep = ok & (rank < Mo)
+    row = torch.where(keep, tgt, P)
+    col = torch.where(keep, rank, 0)
+    obs_kf = torch.full((P + 1, Mo), NO_KF, dtype=torch.int32, device=dev)
+    obs_kf[row, col] = flat_kf.to(torch.int32)
+    obs_feat = torch.full((P + 1, Mo), -1, dtype=torch.int32, device=dev)
+    obs_feat[row, col] = flat_feat.to(torch.int32)
+    nobs = torch.zeros(P + 1, dtype=torch.int32, device=dev)
+    nobs.index_add_(0, row, keep.to(torch.int32))
+    return ms._replace(mp_obs_kf=obs_kf[:P], mp_obs_feat=obs_feat[:P],
+                       mp_nobs=torch.clamp(nobs[:P], max=Mo))
+
+
+def remove_keyframe(ms: MapState, kf) -> MapState:
+    """KeyFrame::SetBadFlag: drop the KF and its observations, reconnect
+    its children to its parent, clear its covisibility, drop loop edges
+    touching it, then rebuild the reverse observations."""
+    covis = ms.covis.clone()
+    covis[kf, :] = 0
+    covis[:, kf] = 0
+    parent = ms.kf_parent[kf]
+    hit = ((ms.loop_i == kf) | (ms.loop_j == kf)) & ms.loop_valid
+    ms = ms._replace(
+        kf_valid=set_at(ms.kf_valid, kf, False),
+        kf_seq=set_at(ms.kf_seq, kf, BIG_SEQ),
+        kf_feat_mp=set_at(ms.kf_feat_mp, kf, NO_MP),
+        covis=covis,
+        kf_parent=torch.where(ms.kf_parent == kf, parent, ms.kf_parent),
+        loop_valid=ms.loop_valid & ~hit)
+    return rebuild_reverse_obs(ms)

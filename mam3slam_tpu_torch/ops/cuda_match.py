@@ -36,7 +36,8 @@ def unpack_bits(desc: torch.Tensor) -> torch.Tensor:
 
 
 def hamming_matrix(desc_q: torch.Tensor, desc_t: torch.Tensor) -> torch.Tensor:
-    """[Q, 32], [M, 32] packed descriptors -> [Q, M] int32 distances.
+    """[..., Q, 32], [..., M, 32] packed descriptors -> [..., Q, M] int32
+    distances (leading axes broadcast).
 
     Exact: 0/1 products summed in f32 stay integers <= 256 (TF32 off)."""
     bq = unpack_bits(desc_q)
@@ -44,11 +45,11 @@ def hamming_matrix(desc_q: torch.Tensor, desc_t: torch.Tensor) -> torch.Tensor:
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        dot = bq @ bt.T
+        dot = bq @ bt.transpose(-1, -2)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
-    return (bq.sum(-1)[:, None] + bt.sum(-1)[None, :] - 2.0 * dot).to(
-        torch.int32)
+    return (bq.sum(-1)[..., :, None] + bt.sum(-1)[..., None, :]
+            - 2.0 * dot).to(torch.int32)
 
 
 def best_two(d: torch.Tensor):

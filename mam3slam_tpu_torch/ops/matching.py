@@ -2,9 +2,11 @@
 
 Port of ``mam3slam_tpu.ops.matching``: dense masked matching over packed
 u8[32] descriptors, the 30-bin rotation-consistency histogram, one-to-one
-resolution of duplicate claims, and the two search routines of the
-tracking path.  The best-two searches run in the kernels of
-``ops/cuda_match.py``.
+resolution of duplicate claims, and the search routines of tracking
+(projection, brute force: the kernels of ``ops/cuda_match.py``) and of
+initialisation and mapping (windowed initial matching, epipolar search:
+plain PyTorch, as in the reference, whose masks these kernels do not
+take).
 """
 
 from __future__ import annotations
@@ -123,3 +125,66 @@ def search_by_brute_force(desc_q, valid_q, angle_q, desc_t, valid_t, angle_t,
         res = res._replace(
             ok=rotation_consistency_mask(angle_q, angle_t, res.idx, res.ok))
     return resolve_duplicates(res, desc_t.shape[0])
+
+
+def search_for_initialization(uv1, desc1, angle1, valid1,
+                              uv2, desc2, angle2, valid2,
+                              window: float = 100.0, ratio: float = 0.9,
+                              check_rotation: bool = True) -> MatchResult:
+    """Windowed first-to-second-frame matching for monocular
+    initialisation (reference SearchForInitialization): a ``window``-pixel
+    radius and no level window, TH_LOW, ratio and rotation tests."""
+    ham = hamming_matrix(desc1, desc2)
+    radius = torch.full((uv1.shape[0],), window, dtype=uv1.dtype,
+                        device=uv1.device)
+    mask = (radius_mask(uv1, uv2, radius)
+            & valid1[:, None] & valid2[None, :])
+    res = best_in_mask(ham, mask, TH_LOW)
+    res = res._replace(ok=_ratio_ok(res, ratio))
+    if check_rotation:
+        res = res._replace(
+            ok=rotation_consistency_mask(angle1, angle2, res.idx, res.ok))
+    return resolve_duplicates(res, uv2.shape[0])
+
+
+def epipolar_distance_sq(uv1, uv2, F12) -> torch.Tensor:
+    """Squared distance of every kp2 to the epipolar line of every kp1:
+    uv1 [N, 2], uv2 [..., M, 2], F12 [..., 3, 3] with x2^T F12 x1 = 0
+    -> [..., N, M]."""
+    x1 = torch.cat([uv1, torch.ones_like(uv1[:, :1])], dim=-1)
+    lines = x1 @ F12.transpose(-1, -2)                     # [..., N, 3]
+    a, b, c = lines[..., 0:1], lines[..., 1:2], lines[..., 2:3]
+    num = a * uv2[..., None, :, 0] + b * uv2[..., None, :, 1] + c
+    return (num * num) / torch.clamp(a * a + b * b, min=1e-12)
+
+
+def search_for_triangulation(uv1, desc1, level1, valid1,
+                             uv2, desc2, level2, valid2,
+                             F12, sigma2_per_level,
+                             max_dist: int = TH_LOW,
+                             epi_chi2: float = 3.84) -> MatchResult:
+    """Epipolar-constrained matching for new map points (reference
+    SearchForTriangulation): a candidate lies within a level-scaled band
+    of the epipolar line.  The second frame may carry a leading batch
+    axis (``uv2 [B, M, 2]``, ``F12 [B, 3, 3]``, ...): each of the B
+    frames is searched on its own and the results are [B, N]."""
+    batched = F12.dim() == 3
+    if not batched:
+        uv2, desc2, level2, valid2, F12 = (
+            x[None] for x in (uv2, desc2, level2, valid2, F12))
+    B, T = uv2.shape[:2]
+    N = uv1.shape[0]
+    ham = hamming_matrix(desc1, desc2)                     # [B, N, T]
+    epi2 = epipolar_distance_sq(uv1, uv2, F12)
+    sig2 = sigma2_per_level[level2.long()]
+    mask = ((epi2 < epi_chi2 * sig2[:, None, :])
+            & valid1[None, :, None] & valid2[:, None, :])
+    res = best_in_mask(ham.reshape(B * N, T), mask.reshape(B * N, T),
+                       max_dist)
+    # one-to-one within each frame: offset the targets by frame
+    off = (torch.arange(B, dtype=torch.int32, device=uv1.device)
+           * T).repeat_interleave(N)
+    res = resolve_duplicates(res._replace(idx=res.idx + off), B * T)
+    res = MatchResult(*(x.reshape(B, N) for x in
+                        res._replace(idx=res.idx - off)))
+    return res if batched else MatchResult(*(x[0] for x in res))

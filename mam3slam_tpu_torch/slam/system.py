@@ -1,17 +1,24 @@
-"""The per-frame tracking programs of the SLAM system.
+"""SLAM system: the programs of tracking and local mapping, and the
+synchronous multi-agent ``SlamSystem`` around them.
 
-Port of ``mam3slam_tpu.slam.system``'s ``SlamConfig``, tracking-state
-constants and the tracking part of ``_compiled``: ``tracking_programs``
-returns the functions ``SlamSystem`` calls on every frame, with the same
-arguments and return tuples (the packed ``vec`` and the device-resident
-chain state included).  PyTorch runs them eagerly; the widened retry of
-``track_frame_step`` is a host branch on the coarse stage's inlier count
-(one device-to-host read per frame).
+Port of ``mam3slam_tpu.slam.system``: ``SlamConfig``, the tracking-state
+constants, ``programs`` (the reference's ``_compiled``: the same functions
+with the same arguments and return tuples, the packed ``vec``, the
+device-resident chain state and the packed culling decision included),
+and ``SlamSystem``'s synchronous state machine: monocular initialisation,
+tracking, keyframe decisions and one local-mapping epoch per keyframe, for
+several agents in one shared arena.  PyTorch runs the programs eagerly;
+the host reads one packed vector per tracked frame and one packed array
+per mapping epoch, as the reference does.  The widened tracking retry is
+a host branch on the coarse stage's inlier count.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import functools
+import time
+from dataclasses import dataclass, field
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -21,6 +28,9 @@ from mam3slam_tpu_torch.geometry import lie
 from mam3slam_tpu_torch.mapstate import state as S
 from mam3slam_tpu_torch.ops import matching as M
 from mam3slam_tpu_torch.slam import steps
+from mam3slam_tpu_torch.solvers import ba_window as bw
+from mam3slam_tpu_torch.solvers import twoview
+from mam3slam_tpu_torch.utils.timing import Timers
 
 NO_IMAGES_YET = 0
 NOT_INITIALIZED = 1
@@ -29,10 +39,38 @@ RECENTLY_LOST = 3
 LOST = 4
 
 
+def _se3_compose_np(q1, t1, q2, t2):
+    """numpy a*b SE3 compose (wxyz quaternions), float32."""
+    aw, ax, ay, az = q1
+    bw_, bx, by, bz = q2
+    q = np.array([aw * bw_ - ax * bx - ay * by - az * bz,
+                  aw * bx + ax * bw_ + ay * bz - az * by,
+                  aw * by - ax * bz + ay * bw_ + az * bx,
+                  aw * bz + ax * by - ay * bx + az * bw_], np.float32)
+    q /= max(np.linalg.norm(q), 1e-12)
+    return q, (_quat_rotate_np(q1, t2) + t1).astype(np.float32)
+
+
+def _quat_rotate_np(q, v):
+    u = np.asarray(q[1:])
+    uv = np.cross(u, v)
+    return np.asarray(v + 2.0 * (q[0] * uv + np.cross(u, uv)), np.float32)
+
+
+def _se3_inverse_np(q, t):
+    qc = np.array([q[0], -q[1], -q[2], -q[3]], np.float32)
+    return qc, -_quat_rotate_np(qc, t)
+
+
+class MapCapacityError(RuntimeError):
+    """Raised on keyframe-arena or atlas map-slot exhaustion."""
+
+
 @dataclass(frozen=True)
 class SlamConfig:
-    """The configuration fields the tracking programs read (names and
-    defaults of the reference's SlamConfig)."""
+    """Names and defaults of the reference's SlamConfig.  The motion
+    search fields, the IMU window and the CG iteration count are read by
+    paths not ported yet."""
 
     width: int
     height: int
@@ -43,8 +81,27 @@ class SlamConfig:
     max_mp: int = 24576
     n_feat: int = 768
     max_obs: int = 16
+    # tracking thresholds (reference Tracking.cc)
+    min_init_matches: int = 100
+    motion_search_radius: float = 15.0
+    min_motion_matches: int = 20
     min_track_inliers: int = 30
     min_track_inliers_lost: int = 10
+    kf_max_interval: int = 20
+    kf_min_interval: int = 3
+    kf_ref_ratio: float = 0.9
+    recently_lost_frames: int = 60
+    imu_init_window_s: float = 2.0
+    # mapping
+    n_triangulate_neighbors: int = 8
+    lba_window: int = 16
+    lba_iters: int = 6
+    lba_polish_iters: int = 2
+    lba_cg_iters: int = 30
+    # dense window-BA caps: free cameras beyond lba_cam_cap and window
+    # points beyond lba_pt_cap stay fixed
+    lba_cam_cap: int = 24
+    lba_pt_cap: int = 8192
 
     @property
     def scale_factors(self) -> np.ndarray:
@@ -55,6 +112,10 @@ class SlamConfig:
     def inv_sigma2(self) -> np.ndarray:
         return (1.0 / self.scale_factors ** 2).astype(np.float32)
 
+    @property
+    def sigma2(self) -> np.ndarray:
+        return (self.scale_factors ** 2).astype(np.float32)
+
     def map_config(self) -> S.MapConfig:
         return S.MapConfig(max_kf=self.max_kf, max_mp=self.max_mp,
                            n_feat=self.n_feat, max_obs=self.max_obs,
@@ -62,24 +123,43 @@ class SlamConfig:
                            scale_factor=self.scale_factor)
 
 
-def tracking_programs(cfg: SlamConfig, kind: int) -> dict:
-    """The tracking functions closed over a static config and camera kind:
-    ``match_and_pose``, ``local_mp_mask``, ``track_frame_step``,
-    ``track_ref_kf`` and ``update_found_visible``."""
+def _nanmedian(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Median of ``x[mask]`` as ``jnp.nanmedian`` takes it (the two middle
+    values averaged for an even count, NaN for an empty mask), with no
+    host read."""
+    n = mask.sum()
+    v = torch.sort(torch.where(mask, x, float("inf"))).values
+    last = x.shape[0] - 1
+    lo = v[torch.clamp(torch.div(n - 1, 2, rounding_mode="floor"), 0, last)]
+    hi = v[torch.clamp(torch.div(n, 2, rounding_mode="floor"), 0, last)]
+    med = torch.where(n % 2 == 1, lo, 0.5 * lo + 0.5 * hi)
+    return torch.where(n > 0, med, float("nan"))
+
+
+@functools.lru_cache(maxsize=None)
+def programs(cfg: SlamConfig, kind: int) -> dict:
+    """The programs closed over a static config and camera kind (the
+    reference's ``_compiled``): tracking (``match_and_pose``,
+    ``local_mp_mask``, ``track_frame_step``, ``track_ref_kf``,
+    ``update_found_visible``), initialisation (``init_match``,
+    ``reconstruct``, ``create_initial_map``, ``initial_gba_and_rescale``)
+    and mapping (``add_kf_step``, ``cull_map_points``,
+    ``triangulate_multi_step``, ``local_ba``, ``cull_pack``,
+    ``remove_kf``, ``mapping_epoch``)."""
     W, H = float(cfg.width), float(cfg.height)
     per_device = {}
 
     def consts(device):
-        """(scale factors, inverse sigma^2 per level) on ``device``."""
+        """(scale factors, 1/sigma^2, sigma^2 per level) on ``device``."""
         if device not in per_device:
-            per_device[device] = (
-                torch.tensor(cfg.scale_factors, device=device),
-                torch.tensor(cfg.inv_sigma2, device=device))
+            per_device[device] = tuple(
+                torch.tensor(x, device=device) for x in
+                (cfg.scale_factors, cfg.inv_sigma2, cfg.sigma2))
         return per_device[device]
 
     def match_and_pose(ms, frame, q0, t0, cam_params, mp_mask, th_radius,
                        max_dist, ratio):
-        sf, is2 = consts(ms.mp_pos.device)
+        sf, is2, _ = consts(ms.mp_pos.device)
         cam = cam_mod.Camera(cam_params, kind)
         feat_mp, n, visible = steps.match_map_to_frame(
             ms, frame, q0, t0, cam, W, H, mp_mask, sf,
@@ -124,7 +204,7 @@ def tracking_programs(cfg: SlamConfig, kind: int) -> dict:
         found/visible deltas -> velocity and ref-KF-relative pose.
         Returns (ms2, feat_mp, inlier, visible, vec, chain)."""
         dev = ms.mp_pos.device
-        sf, is2 = consts(dev)
+        sf, is2, _ = consts(dev)
         cam = cam_mod.Camera(cam_params, kind)
         has_vel = torch.as_tensor(has_vel, device=dev)
         use_ext = torch.as_tensor(use_ext, device=dev)
@@ -179,7 +259,7 @@ def tracking_programs(cfg: SlamConfig, kind: int) -> dict:
         against the reference KF's map-point features, then pose
         optimisation from the given pose.
         Returns (feat_mp, q, t, inlier, n_in, n_matches)."""
-        _, is2 = consts(ms.mp_pos.device)
+        _, is2, _ = consts(ms.mp_pos.device)
         cam = cam_mod.Camera(cam_params, kind)
         kf_mp = ms.kf_feat_mp[ref_kf]
         has_r = ms.kf_feat_valid[ref_kf] & (kf_mp >= 0)
@@ -194,10 +274,620 @@ def tracking_programs(cfg: SlamConfig, kind: int) -> dict:
                                               cam, is2)
         return feat_mp, q, t, inlier, n_in, ok.to(torch.int32).sum()
 
+    # ---- initialisation
+
+    def init_match(frame1, frame2):
+        return M.search_for_initialization(
+            frame1.uv, frame1.desc, frame1.angle, frame1.valid,
+            frame2.uv, frame2.desc, frame2.angle, frame2.valid,
+            window=100.0, ratio=0.9)
+
+    def reconstruct(uv1, uv2, valid, Kmat, probe):
+        return twoview.reconstruct_two_views(uv1, uv2, valid, Kmat, probe)
+
+    def create_initial_map(ms, frame1, frame2, q2, t2, mp_src_feat1,
+                           mp_src_feat2, mp_ok, X, cam_params, map_id,
+                           agent, ts1, ts2):
+        """Two keyframes + the triangulated points + wiring (reference
+        Tracking::CreateInitialMapMonocular).  Returns (ms, kf1, kf2)."""
+        dev = ms.mp_pos.device
+        none = torch.full_like(frame1.level, S.NO_MP)
+        ms, kf1 = S.add_keyframe(
+            ms, lie.quat_identity(device=dev), torch.zeros(3, device=dev),
+            agent, map_id, ts1, 0, frame1.uv, frame1.level, frame1.angle,
+            frame1.desc, frame1.valid, none, cam_params=cam_params)
+        ms, kf2 = S.add_keyframe(
+            ms, q2, t2, agent, map_id, ts2, 1, frame2.uv, frame2.level,
+            frame2.angle, frame2.desc, frame2.valid, none,
+            cam_params=cam_params)
+        ms, _ = steps.add_triangulated_points(ms, kf1, kf2, mp_ok, X,
+                                              mp_src_feat1, mp_src_feat2,
+                                              map_id)
+        ms = S.update_covis_for_kf(ms, kf2)
+        ms = S.update_covis_for_kf(ms, kf1)
+        ms = S.refresh_mp_stats(ms, ms.mp_valid, consts(dev)[0])
+        ms = ms._replace(map_valid=S.set_at(ms.map_valid, map_id, True))
+        return ms, kf1, kf2
+
+    def initial_gba_and_rescale(ms, kf1, map_id):
+        """20-iteration BA of the new two-KF map, then inverse median depth
+        normalisation in the first KF's frame, scoped to ``map_id``.
+        Returns (ms, ok)."""
+        sf, is2, _ = consts(ms.mp_pos.device)
+        in_map_kf = ms.kf_valid & (ms.kf_map == map_id)
+        in_map_mp = ms.mp_valid & (ms.mp_map == map_id)
+        prob = steps.build_window_problem(
+            ms, S.set_at(in_map_kf, kf1, False), is2, 4, cfg.n_feat)
+        ms = steps.apply_window_result(
+            ms, prob, bw.run_window_ba_dense(prob, kind, iters=20))
+        Xc = lie.quat_rotate(ms.kf_q[kf1][None], ms.mp_pos) + ms.kf_t[kf1]
+        med = _nanmedian(Xc[:, 2], in_map_mp)
+        inv = 1.0 / torch.clamp(med, min=1e-6)
+        ms = ms._replace(
+            mp_pos=torch.where(in_map_mp[:, None], ms.mp_pos * inv,
+                               ms.mp_pos),
+            kf_t=torch.where(in_map_kf[:, None], ms.kf_t * inv, ms.kf_t),
+            mp_min_dist=torch.where(in_map_mp, ms.mp_min_dist * inv,
+                                    ms.mp_min_dist),
+            mp_max_dist=torch.where(in_map_mp, ms.mp_max_dist * inv,
+                                    ms.mp_max_dist))
+        ms = S.refresh_mp_stats(ms, in_map_mp, sf)
+        return ms, (med > 1e-3) & (in_map_mp.sum() > 50)
+
+    # ---- local mapping
+
+    def add_kf_step(ms, frame, q, t, feat_mp, agent, map_id, ts,
+                    agent_kf_id, cam_params):
+        ms, kf = S.add_keyframe(ms, q, t, agent, map_id, ts, agent_kf_id,
+                                frame.uv, frame.level, frame.angle,
+                                frame.desc, frame.valid, feat_mp,
+                                cam_params=cam_params)
+        P = ms.mp_valid.shape[0]
+        touched = S.set_rows(
+            torch.zeros(P, dtype=torch.bool, device=feat_mp.device),
+            torch.where(feat_mp >= 0, feat_mp, P).long(), True)
+        ms = S.refresh_mp_stats_compact(
+            ms, S.compact_indices(touched, cfg.n_feat),
+            consts(feat_mp.device)[0])
+        return ms, kf
+
+    def cull_map_points(ms, current_kf):
+        """MapPointCulling of the points the current KF's agent created,
+        with recency counted in that agent's own KF ids.
+        Returns (ms, n_culled)."""
+        same_agent = ms.mp_first_agent == ms.kf_agent[current_kf]
+        ratio = ms.mp_found / torch.clamp(ms.mp_visible, min=1.0)
+        age = ms.kf_agent_kf_id[current_kf] - ms.mp_first_agent_kf
+        young_dead = (age >= 2) & (age <= 4) & (ms.mp_nobs <= 2)
+        weak = (ratio < 0.25) & (ms.mp_visible >= 4)
+        kill = ms.mp_valid & same_agent & (weak | young_dead)
+        return S.remove_map_points(ms, kill), kill.to(torch.int32).sum()
+
+    def triangulate_multi_step(ms, kf, neighbors, neighbors_ok, map_id):
+        """CreateNewMapPoints against all neighbours at once; a feature
+        triangulated with several keeps the first (best-covisible) one.
+        Returns (ms, n_new, n_dropped)."""
+        s2 = consts(ms.mp_pos.device)[2]
+        ok, X, f1, f2 = steps.triangulate_with_neighbor(ms, kf, neighbors,
+                                                        kind, s2)
+        ok = ok & neighbors_ok[:, None]
+        first = torch.argmax(ok.to(torch.int32), 0)
+        any_ok = ok.any(0)
+        fi = torch.arange(ok.shape[1], device=ok.device)
+        ms, n_drop = steps.add_triangulated_points(
+            ms, kf, neighbors[first], any_ok, X[first, fi], f1,
+            f2[first, fi], map_id)
+        ms = S.update_covis_for_kf(ms, kf)
+        return ms, any_ok.to(torch.int32).sum(), n_drop
+
+    def _window_mask(ms, center_kf):
+        idx, _, ok = S.best_covisible(ms, center_kf, cfg.lba_window)
+        mask = torch.zeros_like(ms.kf_valid)
+        mask[torch.where(ok, idx, center_kf).long()] = True
+        mask[center_kf] = True
+        return mask & ms.kf_valid
+
+    def _map_anchors(ms, kf):
+        """The two oldest KFs (by kf_seq) of kf's map: its gauge."""
+        in_map = ms.kf_valid & (ms.kf_map == ms.kf_map[kf])
+        seq = torch.where(in_map, ms.kf_seq, S.BIG_SEQ)
+        a1 = torch.argmin(seq)
+        return a1, torch.argmin(S.set_at(seq, a1, S.BIG_SEQ))
+
+    def _lba_core(ms, opt_mask):
+        """Windowed BA on the dense solver: robust LM, a polish on the
+        inliers, write-back, and the outlier observations dropped with a
+        reverse-table repair.  Below a 0.4 inlier fraction the polish
+        keeps every edge and nothing is dropped.  Returns (ms, window
+        point mask, [free cameras, edges, final inliers])."""
+        is2 = consts(ms.mp_pos.device)[1]
+        prob = steps.build_window_problem(ms, opt_mask, is2,
+                                          cfg.lba_cam_cap, cfg.lba_pt_cap)
+        res = bw.run_window_ba_dense(prob, kind, iters=cfg.lba_iters)
+        n_valid = torch.clamp(prob.pm_valid.sum(), min=1).to(torch.float32)
+        healthy = res.pm_inlier.sum() / n_valid >= 0.4
+        polish = res.pm_inlier | (~healthy & prob.pm_valid)
+        res2 = bw.run_window_ba_dense(
+            prob._replace(cam_q=res.cam_q, cam_t=res.cam_t, pts=res.pts),
+            kind, iters=cfg.lba_polish_iters, pm_edge_mask=polish,
+            robust=True)
+        drop = (prob.pm_valid & ~res2.pm_inlier
+                & (res2.pm_inlier.sum() / n_valid >= 0.4))
+        ms = steps.apply_window_result(ms, prob, res2, drop_pm=drop)
+        ms = steps.repair_window_reverse_obs(ms, prob, drop)
+        stats = torch.stack([prob.cam_valid.sum(), prob.pm_valid.sum(),
+                             res2.pm_inlier.sum()])
+        return ms, steps.window_pt_mask(ms, prob), stats
+
+    def _local_ba(ms, center_kf):
+        """Window of the center KF and its covisibles, with its map's two
+        oldest KFs held fixed.  Returns (ms, window stats)."""
+        a1, a2 = _map_anchors(ms, center_kf)
+        opt_mask = _window_mask(ms, center_kf)
+        opt_mask[a1] = False
+        opt_mask[a2] = False
+        ms, _, stats = _lba_core(ms, opt_mask)
+        return ms, stats
+
+    def local_ba(ms, center_kf):
+        return _local_ba(ms, center_kf)[0]
+
+    def cull_pack(ms, kf, protected_extra):
+        """The host's KeyFrameCulling inputs as one [10, 12] array: per
+        top-10 covisible, (slot, eligible, redundant fraction, tracked
+        points, parent, pose relative to the parent q (4), t (3)).
+        Protected: kf itself, its map's two oldest KFs, loop-edge
+        endpoints and the slots in ``protected_extra``."""
+        K = ms.kf_valid.shape[0]
+        idx, _, ok = S.best_covisible(ms, kf, 10)
+        idxc = torch.clamp(idx, min=0).long()
+        frac, ntr = steps.keyframe_redundancy(ms, idxc)
+        a1, a2 = _map_anchors(ms, kf)
+        loop_ep = torch.zeros(K + 1, dtype=torch.bool, device=idx.device)
+        for ends in (ms.loop_i, ms.loop_j):
+            loop_ep[torch.where(ms.loop_valid, ends, K).long()] = True
+        prot = ((idx == kf) | (idx == a1) | (idx == a2) | loop_ep[idxc]
+                | (idx[:, None] == protected_extra[None, :]).any(1))
+        par = ms.kf_parent[idxc]
+        parc = torch.clamp(par, min=0).long()
+        T_cp = lie.se3_compose(
+            lie.SE3(ms.kf_q[idxc], ms.kf_t[idxc]),
+            lie.se3_inverse(lie.SE3(ms.kf_q[parc], ms.kf_t[parc])))
+        f32 = torch.float32
+        return torch.cat([
+            idx.to(f32)[:, None], (ok & ~prot).to(f32)[:, None],
+            frac[:, None], ntr.to(f32)[:, None], par.to(f32)[:, None],
+            T_cp.q, T_cp.t], dim=1)
+
+    def mapping_epoch(ms, kf, map_id, protected_extra):
+        """The per-KF LocalMapping body: point culling -> triangulation
+        against the best covisibles -> stat refresh -> fuse -> stat
+        refresh -> windowed BA.  Returns (ms, [11, 12]): row 0 holds the
+        counters (culled, new, dropped, fused) and the window BA's free
+        cameras, edges and final inliers (columns the reference leaves
+        zero), rows 1-10 the culling pack."""
+        sf = consts(ms.mp_pos.device)[0]
+        ms, n_culled = cull_map_points(ms, kf)
+        nb_idx, _, nb_ok = S.best_covisible(ms, kf,
+                                            cfg.n_triangulate_neighbors)
+        before = ms.mp_valid
+        ms, n_new, n_drop = triangulate_multi_step(ms, kf, nb_idx, nb_ok,
+                                                   map_id)
+        new_pts = ms.mp_valid & ~before
+        ms = S.refresh_mp_stats_compact(
+            ms, S.compact_indices(new_pts, cfg.n_feat), sf)
+        ms, n_fused, touched = steps.fuse_into_kf(
+            ms, kf, local_mp_mask(ms, kf, 16), kind, W, H, sf)
+        ms = S.rebuild_reverse_obs(ms)
+        ms = S.update_covis_for_kf(ms, kf)
+        ms = S.refresh_mp_stats_compact(
+            ms, S.compact_indices(touched | new_pts, 3 * cfg.n_feat), sf)
+        ms, lba = _local_ba(ms, kf)
+        counts = torch.cat([torch.stack([n_culled, n_new, n_drop, n_fused]),
+                            lba]).to(torch.float32)
+        row0 = torch.cat([counts, torch.zeros(5, device=counts.device)])
+        return ms, torch.cat([row0[None],
+                              cull_pack(ms, kf, protected_extra)])
+
     return {
         "match_and_pose": match_and_pose,
         "local_mp_mask": local_mp_mask,
         "track_frame_step": track_frame_step,
         "track_ref_kf": track_ref_kf,
         "update_found_visible": update_found_visible,
+        "init_match": init_match,
+        "reconstruct": reconstruct,
+        "create_initial_map": create_initial_map,
+        "initial_gba_and_rescale": initial_gba_and_rescale,
+        "add_kf_step": add_kf_step,
+        "cull_map_points": cull_map_points,
+        "triangulate_multi_step": triangulate_multi_step,
+        "local_ba": local_ba,
+        "cull_pack": cull_pack,
+        "remove_kf": S.remove_keyframe,
+        "mapping_epoch": mapping_epoch,
     }
+
+
+@dataclass
+class AgentState:
+    """Per-agent tracking state (the reference's AgentState without its
+    IMU and pipelining fields)."""
+
+    agent_id: int
+    cam: cam_mod.Camera
+    state: int = NO_IMAGES_YET
+    map_id: int = 0
+    q: Optional[np.ndarray] = None        # current T_cw (host copy)
+    t: Optional[np.ndarray] = None
+    vel_q: Optional[np.ndarray] = None    # constant-velocity model
+    vel_t: Optional[np.ndarray] = None
+    # ref-KF-relative pose of the current frame from the tracking step
+    last_rel: Optional[tuple] = None
+    # device-resident (q, t, vel_q, vel_t, has_vel) for the next frame's
+    # prediction; None: the next frame uploads the host pose
+    dev_chain: Optional[tuple] = None
+    init_frame: Optional[steps.FrameObs] = None
+    init_ts: float = 0.0
+    ref_kf: int = -1
+    ref_kf_tracked: int = 0
+    frames_since_kf: int = 0
+    next_agent_kf_id: int = 0
+    frames_lost: int = 0
+    trajectory: List = field(default_factory=list)  # (ts, ref, q, t, state)
+    times_ms: List = field(default_factory=list)
+
+
+class SlamSystem:
+    """Shared map arena + N agents, synchronous: each keyframe runs its
+    local-mapping epoch before ``track`` returns (the reference with
+    ``async_mapping=False`` and no pipelining).  Tensors live on the
+    device of ``cam.params``."""
+
+    def __init__(self, cfg: SlamConfig, cam: cam_mod.Camera, seed: int = 0):
+        self.cfg = cfg
+        self.cam = cam
+        self.device = cam.params.device
+        self.ms = S.init_map_state(cfg.map_config(), self.device)
+        self.fns = programs(cfg, cfg.cam_kind)
+        self.agents: List[AgentState] = []
+        # the RANSAC draws of two-view initialisation
+        self.gen = torch.Generator().manual_seed(seed)
+        self.events: List[str] = []
+        self.mp_dropped = 0      # triangulations dropped on arena overflow
+        self.server = None       # no place-recognition server in the port
+        self.timers = Timers()
+        # culled KF -> (parent, q_rel, t_rel): trajectory rows that name a
+        # culled KF resolve through its live ancestors
+        self.culled_kf = {}
+        self.kf_culled = 0       # keyframes removed by KeyFrameCulling
+        # per mapping epoch: (agent, map, row 0 of the packed result)
+        self.epochs: List[tuple] = []
+
+    def add_agent(self, cam: Optional[cam_mod.Camera] = None) -> int:
+        """Register an agent (optionally with its own intrinsics, same
+        camera kind) in a fresh map slot."""
+        a = AgentState(agent_id=len(self.agents),
+                       cam=self.cam if cam is None else cam)
+        a.map_id = self._alloc_map_id()
+        self.agents.append(a)
+        return a.agent_id
+
+    def _alloc_map_id(self) -> int:
+        """Lowest atlas map slot neither live nor held by an agent."""
+        used = {a.map_id for a in self.agents if a.map_id >= 0}
+        mv = self.ms.map_valid.cpu().numpy()
+        for m in range(mv.shape[0]):
+            if not mv[m] and m not in used:
+                return m
+        raise MapCapacityError(
+            f"atlas exhausted: all {mv.shape[0]} map slots live "
+            f"(raise MapConfig.max_maps)")
+
+    def _tensor(self, x) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+
+    # ------------------------------------------------------------------
+    def track(self, agent_id: int, frame: steps.FrameObs, ts: float):
+        """Process one frame of one agent (reference Tracking::Track);
+        returns (state, (q, t) of T_cw or None)."""
+        t0 = time.perf_counter()
+        a = self.agents[agent_id]
+        if a.state in (NO_IMAGES_YET, NOT_INITIALIZED):
+            a.last_rel = None
+            self._monocular_initialization(a, frame, ts)
+        else:
+            self._track_frame(a, frame, ts)
+        self._post_frame(a, frame, ts, t0)
+        return a.state, (a.q, a.t) if a.q is not None else None
+
+    def _post_frame(self, a: AgentState, frame, ts, t0):
+        a.times_ms.append((time.perf_counter() - t0) * 1e3)
+        if a.q is not None:
+            self._record_trajectory(a, ts)
+
+    # ------------------------------------------------------------------
+    def _monocular_initialization(self, a: AgentState, frame, ts):
+        cfg = self.cfg
+        if a.init_frame is None or a.state == NO_IMAGES_YET:
+            a.init_frame, a.init_ts = frame, ts
+            a.state = NOT_INITIALIZED
+            return
+        res = self.fns["init_match"](a.init_frame, frame)
+        if int(res.ok.sum()) < cfg.min_init_matches:
+            a.init_frame, a.init_ts = frame, ts   # re-anchor
+            return
+        # row i of frame 1 is matched to row idx[i] of frame 2
+        uv1 = a.init_frame.uv
+        uv2 = frame.uv[torch.clamp(res.idx, min=0).long()]
+        if a.cam.kind == cam_mod.KANNALA_BRANDT8:
+            # the two-view machinery is pinhole geometry
+            uv1 = cam_mod.undistort_points(a.cam, uv1)
+            uv2 = cam_mod.undistort_points(a.cam, uv2)
+        probe = torch.rand((200, 8), generator=self.gen).to(self.device)
+        rec = self.fns["reconstruct"](uv1, uv2, res.ok, a.cam.K(), probe)
+        if not bool(rec.ok):
+            return
+        self._kf_capacity_check(2)
+        ms, kf1, kf2 = self.fns["create_initial_map"](
+            self.ms, a.init_frame, frame, lie.quat_from_matrix(rec.R21),
+            rec.t21, torch.arange(cfg.n_feat, dtype=torch.int32,
+                                  device=self.device),
+            torch.clamp(res.idx, min=0), rec.is_triangulated & res.ok,
+            rec.points3d, a.cam.params, a.map_id, a.agent_id,
+            float(a.init_ts), float(ts))
+        ms, ok = self.fns["initial_gba_and_rescale"](ms, kf1, a.map_id)
+        if not bool(ok):
+            return
+        self.ms = ms
+        kf2 = int(kf2)
+        a.state = OK
+        a.ref_kf = kf2
+        a.q = self.ms.kf_q[kf2].cpu().numpy()
+        a.t = self.ms.kf_t[kf2].cpu().numpy()
+        a.vel_q, a.vel_t = None, None
+        a.next_agent_kf_id = 2
+        a.frames_since_kf = 0
+        a.ref_kf_tracked = int((self.ms.kf_feat_mp[kf2] >= 0).sum())
+        self.events.append(f"INIT agent={a.agent_id} map={a.map_id} "
+                           f"kfs=({int(kf1)},{kf2}) "
+                           f"mps={int(self.ms.mp_valid.sum())}")
+
+    # ------------------------------------------------------------------
+    def _track_frame(self, a: AgentState, frame, ts):
+        # the chain state stays on the device between frames unless the
+        # host pose diverged from it
+        if a.dev_chain is not None:
+            q_last, t_last, vel_q, vel_t, has_vel = a.dev_chain
+        else:
+            q_last, t_last = self._tensor(a.q), self._tensor(a.t)
+            has_vel = a.vel_q is not None
+            vel_q = self._tensor(a.vel_q if has_vel else [1, 0, 0, 0])
+            vel_t = self._tensor(a.vel_t if has_vel else np.zeros(3))
+        ms = self.ms
+        (ms2, feat_mp, inlier, visible, vec,
+         a.dev_chain) = self.fns["track_frame_step"](
+            ms, frame, max(a.ref_kf, 0), vel_q, vel_t, has_vel, q_last,
+            t_last, self._tensor([1, 0, 0, 0]), self._tensor(np.zeros(3)),
+            False, a.cam.params)
+        self._finish_frame(a, dict(
+            ms=ms, ms2=ms2, feat_mp=feat_mp, inlier=inlier, frame=frame,
+            vec=vec, ts=ts, ref_kf=max(a.ref_kf, 0)))
+
+    def _finish_frame(self, a: AgentState, pend):
+        cfg = self.cfg
+        ms, frame = pend["ms"], pend["frame"]
+        q_last, t_last = a.q, a.t
+        feat_mp, inlier = pend["feat_mp"], pend["inlier"]
+        vec = pend["vec"].cpu().numpy()       # the frame's one host read
+        q, t = vec[0:4], vec[4:7]
+        vel_q, vel_t = vec[7:11], vec[11:14]
+        q_rel, t_rel = vec[14:18], vec[18:21]
+        n_in = int(vec[21])
+        q_pred, t_pred = vec[24:28], vec[28:31]
+
+        if (n_in < cfg.min_track_inliers_lost and a.ref_kf >= 0
+                and a.state == OK):
+            # TrackReferenceKeyFrame fallback from the last pose
+            feat_mp_r, q_r, t_r, inlier_r, n_r, n_bow = self.fns[
+                "track_ref_kf"](ms, frame, pend["ref_kf"],
+                                self._tensor(q_last), self._tensor(t_last),
+                                a.cam.params)
+            if int(n_bow) >= 15 and int(n_r) > n_in and int(n_r) >= 10:
+                feat_mp, inlier = feat_mp_r, inlier_r
+                q, t = q_r.cpu().numpy(), t_r.cpu().numpy()
+                n_in = int(n_r)
+                a.dev_chain = None   # the host pose left the chain
+                vel_q, vel_t = _se3_compose_np(q, t,
+                                               *_se3_inverse_np(q_last,
+                                                                t_last))
+                rq = ms.kf_q[pend["ref_kf"]].cpu().numpy()
+                rt = ms.kf_t[pend["ref_kf"]].cpu().numpy()
+                q_rel, t_rel = _se3_compose_np(q, t,
+                                               *_se3_inverse_np(rq, rt))
+
+        # no structural change since the snapshot: keep the found/visible
+        # deltas the step applied
+        if self.ms is ms:
+            self.ms = pend["ms2"]
+
+        threshold = (cfg.min_track_inliers if a.state == OK
+                     else cfg.min_track_inliers_lost)
+        if n_in < threshold:
+            if a.state == OK:
+                a.state = RECENTLY_LOST
+                a.frames_lost = 0
+            else:
+                a.frames_lost += 1
+            if a.state == RECENTLY_LOST and self._relocalize(a, frame):
+                a.state = OK
+                a.frames_since_kf += 1
+                return
+            if a.frames_lost > cfg.recently_lost_frames:
+                a.state = LOST
+                self._create_map_in_atlas(a)
+                return
+            # keep the predicted pose; velocity unchanged
+            a.q, a.t = q_pred, t_pred
+            a.frames_since_kf += 1
+            return
+
+        if a.state == RECENTLY_LOST:
+            a.state = OK
+        a.vel_q, a.vel_t = vel_q, vel_t
+        a.q, a.t = q, t
+        a.last_rel = (q_rel, t_rel, pend["ref_kf"])
+        a.frames_since_kf += 1
+        if self._need_new_keyframe(a, n_in):
+            self._create_keyframe(a, frame, feat_mp, inlier, pend["ts"])
+
+    def _relocalize(self, a: AgentState, frame) -> bool:
+        """Tracking::Relocalization needs the place-recognition server;
+        without one it fails, as in the reference."""
+        return False
+
+    def _create_map_in_atlas(self, a: AgentState):
+        """Tracking::CreateMapInAtlas: the agent starts a fresh map; the
+        old one stays in the atlas."""
+        a.map_id = self._alloc_map_id()
+        a.state = NOT_INITIALIZED
+        a.init_frame = None
+        a.q = a.t = None
+        a.vel_q = a.vel_t = None
+        a.dev_chain = None
+        a.ref_kf = -1
+        a.frames_lost = 0
+        self.events.append(f"NEWMAP agent={a.agent_id} map={a.map_id}")
+
+    # ------------------------------------------------------------------
+    def _need_new_keyframe(self, a: AgentState, n_in: int) -> bool:
+        """Reference NeedNewKeyFrame, monocular core: interval bounds and
+        the tracked-vs-reference ratio (the refused-insertion condition
+        needs asynchronous mapping, which refuses insertions)."""
+        cfg = self.cfg
+        if a.state != OK:
+            return False
+        weak = n_in < cfg.kf_ref_ratio * max(a.ref_kf_tracked, 1)
+        c1 = a.frames_since_kf >= cfg.kf_max_interval
+        c2 = a.frames_since_kf >= cfg.kf_min_interval and weak
+        return (c1 or c2) and n_in > 15
+
+    def _kf_capacity_check(self, need: int = 1):
+        n_live = int(self.ms.kf_valid.sum())
+        if n_live + need > self.cfg.max_kf:
+            raise MapCapacityError(
+                f"keyframe arena exhausted: {n_live} live + {need} needed "
+                f"> max_kf={self.cfg.max_kf} (raise SlamConfig.max_kf)")
+
+    def _create_keyframe(self, a: AgentState, frame, feat_mp, inlier, ts):
+        self._kf_capacity_check(1)
+        feat_mp_in = torch.where(inlier, feat_mp, S.NO_MP)
+        ms, kf = self.fns["add_kf_step"](
+            self.ms, frame, self._tensor(a.q), self._tensor(a.t), feat_mp_in,
+            a.agent_id, a.map_id, float(ts), a.next_agent_kf_id,
+            a.cam.params)
+        kf = int(kf)
+        self.ms = ms
+        a.next_agent_kf_id += 1
+        a.frames_since_kf = 0
+        a.ref_kf = kf
+        a.last_rel = (np.array([1, 0, 0, 0], np.float32),
+                      np.zeros(3, np.float32), kf)
+        a.ref_kf_tracked = int((feat_mp_in >= 0).sum())
+        self._local_mapping(a, kf)
+
+    def _protected_refs(self) -> torch.Tensor:
+        """KF slots culling never removes: every agent's reference KF."""
+        return torch.tensor([a.ref_kf for a in self.agents] + [-1],
+                            dtype=torch.int32, device=self.device)
+
+    def _local_mapping(self, a: AgentState, kf: int):
+        """LocalMapping::Run for one keyframe: the mapping epoch, one read
+        of its packed result, then the host's KeyFrameCulling loop (at
+        most two removals, re-scored after each)."""
+        t0 = time.perf_counter()
+        ms, packed = self.fns["mapping_epoch"](self.ms, kf, a.map_id,
+                                               self._protected_refs())
+        pk_all = packed.cpu().numpy()
+        self.epochs.append((a.agent_id, a.map_id, pk_all[0]))
+        n_drop = int(pk_all[0, 2])
+        if n_drop:
+            if self.mp_dropped == 0:
+                self.events.append(
+                    f"MP_ARENA_FULL agent={a.agent_id} dropping "
+                    f"triangulations (raise SlamConfig.max_mp)")
+            self.mp_dropped += n_drop
+        pk = pk_all[1:]
+        culled = 0
+        while culled < 2:
+            cand_j = next((j for j in range(pk.shape[0])
+                           if pk[j, 1] > 0.5 and pk[j, 2] >= 0.9
+                           and int(pk[j, 3]) > 20), -1)
+            if cand_j < 0:
+                break
+            cand = int(pk[cand_j, 0])
+            parent = int(pk[cand_j, 4])
+            if parent >= 0:
+                q_cp = pk[cand_j, 5:9].astype(np.float32)
+                t_cp = pk[cand_j, 9:12].astype(np.float32)
+                self.culled_kf[cand] = (parent, q_cp, t_cp)
+                # re-reference trajectory rows onto the parent now: the
+                # culled slot is recycled
+                for ag in self.agents:
+                    for i, row in enumerate(ag.trajectory):
+                        if row[1] == cand:
+                            q_n, t_n = _se3_compose_np(row[2], row[3], q_cp,
+                                                       t_cp)
+                            ag.trajectory[i] = (row[0], parent, q_n, t_n,
+                                                row[4])
+            ms = self.fns["remove_kf"](ms, cand)
+            culled += 1
+            self.kf_culled += 1
+            if culled < 2:   # re-score on the post-removal state
+                pk = self.fns["cull_pack"](
+                    ms, kf, self._protected_refs()).cpu().numpy()
+        self.ms = ms
+        self.timers.add(f"LM_{a.agent_id}", (time.perf_counter() - t0) * 1e3)
+
+    # ------------------------------------------------------------------
+    def _record_trajectory(self, a: AgentState, ts):
+        """Store the pose relative to the reference KF, so later map
+        corrections carry over."""
+        if a.last_rel is not None:
+            q_rel, t_rel, ref = a.last_rel
+        else:
+            ref = a.ref_kf
+            rq = self.ms.kf_q[ref].cpu().numpy()
+            rt = self.ms.kf_t[ref].cpu().numpy()
+            q_rel, t_rel = _se3_compose_np(a.q, a.t,
+                                           *_se3_inverse_np(rq, rt))
+        a.trajectory.append((ts, ref, np.asarray(q_rel), np.asarray(t_rel),
+                             a.state))
+
+    def resolve_ref(self, ref, q_rel, t_rel):
+        """Walk culled ancestors until a live reference KF; returns (ref,
+        (q, t) relative to it)."""
+        kf_valid = self.ms.kf_valid.cpu().numpy()
+        seen = 0
+        while ref >= 0 and not kf_valid[ref] and seen < 64:
+            ent = self.culled_kf.get(ref)
+            if ent is None:
+                break
+            parent, q_cp, t_cp = ent
+            q_rel, t_rel = _se3_compose_np(q_rel, t_rel, q_cp, t_cp)
+            ref = parent
+            seen += 1
+        return ref, (q_rel, t_rel)
+
+    def trajectory_world(self, agent_id: int):
+        """Camera-to-world trajectory (TUM convention, Twc): rows (ts, q,
+        t, state)."""
+        kf_q = self.ms.kf_q.cpu().numpy()
+        kf_t = self.ms.kf_t.cpu().numpy()
+        out = []
+        for ts, ref, q_rel, t_rel, state in self.agents[agent_id].trajectory:
+            ref2, (q_r, t_r) = self.resolve_ref(ref, q_rel, t_rel)
+            q_cw, t_cw = _se3_compose_np(q_r, t_r, kf_q[ref2], kf_t[ref2])
+            q_wc, t_wc = _se3_inverse_np(q_cw, t_cw)
+            out.append((ts, q_wc, t_wc, state))
+        return out

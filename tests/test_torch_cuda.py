@@ -57,6 +57,29 @@ def test_match_kernels_equal_plain(dev):
         assert torch.equal(g, p)
 
 
+def test_masked_match_at_fuse_shape_equals_plain(dev):
+    """The mapping epoch's fuse: all 24576 arena points as queries, most
+    of them not visible, against one keyframe's 1024 features."""
+    rng = np.random.default_rng(4)
+    Q, F = 24576, 1024
+    dt = rng.integers(0, 256, (F, 32), dtype=np.uint8)
+    tuv = rng.uniform(0, 752, (F, 2)).astype(np.float32)
+    tl = rng.integers(0, 8, F).astype(np.int32)
+    dq = rng.integers(0, 256, (Q, 32), dtype=np.uint8)
+    quv = rng.uniform(0, 752, (Q, 2)).astype(np.float32)
+    ql = rng.integers(0, 8, Q).astype(np.int32)
+    dq[:500], quv[:500], ql[:500] = dt[:500], tuv[:500] + 1.0, tl[:500]
+    vis = rng.random(Q) < 0.1
+    vis[:500] = True
+    rad = (3.0 * 1.2 ** ql).astype(np.float32)
+    args = [torch.tensor(x, device=dev) for x in (
+        dq, quv, rad, ql, vis, dt, tuv, tl, rng.random(F) > 0.02)]
+    got = _counted("masked_match", lambda: CM.fused_masked_match(*args))
+    for g, p in zip(got, CM.fused_masked_match_plain(*args)):
+        assert torch.equal(g, p)
+    assert int((got[1][:500] == 0).sum()) >= 450
+
+
 def test_describe_kernel_matches_plain(dev):
     rng = np.random.default_rng(2)
     cfg = O.OrbConfig(120, 160, n_features=100, n_levels=3)

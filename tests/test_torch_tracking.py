@@ -47,7 +47,7 @@ def run():
     tcfg = tsys.SlamConfig(width=W, height=H, n_feat=N_FEAT, max_kf=64,
                            max_mp=4096, n_levels=4)
     return dict(sys=sys_, ms=sys_.ms, frame=frame, ref_kf=int(a.ref_kf),
-                chain=chain, cam=cam, fns=tsys.tracking_programs(tcfg, 0),
+                chain=chain, cam=cam, fns=tsys.programs(tcfg, 0),
                 ms_t=convert.map_state_from_numpy(_np(sys_.ms)),
                 frame_t=convert.frame_from_numpy(_np(frame)))
 
