@@ -11,9 +11,11 @@ raises (exit code != 0) and no result line is printed:
 2. Build: compiles ``mam3slam_tpu_torch/csrc/*.cu`` with nvcc.
 3. Kernels vs their plain PyTorch versions on the card, at the shapes of
    the tracking path (EuRoC monocular: 752x480, 8 levels, 1000 features;
-   4096 projected map points x 1024 features) and of the mapping path's
-   fuse (the whole 24576-point arena as queries, most not visible), with
-   median CUDA-event times of both.
+   4096 projected map points x 1024 features), of the mapping path's
+   fuse (the whole 24576-point arena as queries, most not visible) and of
+   the loop server (the Sim3-guided search over the arena at radii
+   8 x 1.2^level and 5 x 1.2^level; 1024 x 1024 best-two with partial
+   masks on both sides), with median CUDA-event times of both.
 4. Tracking: a room scene is rendered at EuRoC cam0 intrinsics, a map of
    32 keyframes is seeded from the scene's true depth in one shared arena
    (512 KF / 24576 MP), and two agents track interleaved arcs through
@@ -34,6 +36,21 @@ raises (exit code != 0) and no result line is printed:
    and the describe, masked-match and pose kernels must have launched
    with no plain version called.  Prints the init, per-frame and
    mapping-epoch times and the keyframes culled.
+6. Loop server: ``SlamSystem`` + ``LoopServer`` at the same point with
+   the ``SlamConfig`` and ``ServerConfig`` defaults, on another room
+   (seed 3), on the orbit of the reference's rendered merge and loop
+   tests at 0.8 deg per frame.  6a: two agents, 263 interleaved frames
+   each on arcs 0..210 and 150..360 deg (bob +0.05): a MERGE event, one
+   map holding both
+   agents and every live keyframe, >= 95% of frames OK after init and
+   the ATE bound per agent, forward and reverse observations agreeing;
+   then agent 1 sees 3 blank frames and 10 frames from the middle of
+   agent 0's arc, and must log a RELOC event and end OK.  Prints the
+   time of one global BA at the arena caps.  6b: a fresh system, one
+   agent over 526 frames on 0..420 deg: a LOOP event, a global BA run,
+   >= 95% OK and the ATE bound.  Prints the server's PR / LC / MM times;
+   all four kernels must have launched in phase 6 with no plain version
+   called.
 
 It prints a JSON line of per-kernel results, the nvidia-smi line, and as
 its last line ``{"ok": true, "device": {...}}``.
@@ -71,6 +88,29 @@ MIN_OK_FRAC = 0.9
 MAX_ATE_FRAC = (1.5 * 0.0476, 1.5 * 0.0461)
 MIN_MAP_KF, MIN_MAP_MP = 8, 2000
 SLAM_KERNELS = ("orb_desc", "masked_match", "pose_opt")
+# phase 6: the room and orbit of the reference's rendered merge and loop
+# tests, sampled at 0.8 deg per frame as in phase 5 (at the reference
+# tests' 1.5 deg per frame the EuRoC point loses track in both packages),
+# with the overlaps widened to 60 deg so that a hypothesis sees the 3
+# keyframes it needs at the default keyframe interval (20 frames)
+SERVER_SCENE_SEED = 3
+MERGE_FRAMES = 263
+MERGE_ARCS = ((0.0, 210.0, 0.05), (150.0, 360.0, 0.05))
+LOOP_FRAMES = 526
+LOOP_ARC = (0.0, 420.0, 0.05)
+# relocalization: blank frames, then frames from the middle of agent
+# 0's arc (agent 1's arc ends where agent 0's starts, so frames from
+# its start are re-tracked by the motion model without a RELOC)
+RELOC_BLANK, RELOC_FRAMES, RELOC_START = 3, 10, MERGE_FRAMES // 2
+SERVER_MIN_OK_FRAC = 0.95
+# ATE bound per agent as a fraction of its arc's span: the reference
+# tests' 1%, except for agent 0 of the merge, whose trajectory the merge
+# moves into agent 1's map: 1.5x the 1.488% that the reference
+# SlamSystem + LoopServer reaches there, every frame OK, in the half-size
+# rehearsal on the same rendered frames (tools/chip_rehearsal.py, its
+# output in tools/chip_rehearsal_6a.log)
+MERGE_MAX_ATE_FRAC = (1.5 * 0.01488, 0.01)
+LOOP_MAX_ATE_FRAC = (0.01,)
 
 KERNELS = {  # launch-counter name -> (source, replaced Pallas kernel)
     "orb_desc": ("mam3slam_tpu_torch/csrc/orb_desc.cu",
@@ -230,6 +270,44 @@ def check_kernels(dev, scene, cam_r, orb_cfg, n_arena: int) -> dict:
         err=err, ms=median_ms(lambda: CM.min_hamming2(*hargs)),
         plain_ms=median_ms(lambda: CM.min_hamming2_plain(*hargs)))
 
+    # the loop server's BoW-space matching and relocalization: only
+    # features that carry a map point take part, on both sides
+    hq, ht = rng.random(F) < 0.6, rng.random(F) < 0.6
+    hmargs = (T(dq[:F]), T(hq), T(dt), T(ht))
+    k = CM.min_hamming2(*hmargs)
+    p = CM.min_hamming2_plain(*hmargs)
+    err = max((a - b).abs().max().item() for a, b in zip(k, p))
+    log("kernel", name="min_hamming2_masked", Q=F, M=F, q_valid=int(hq.sum()),
+        t_valid=int(ht.sum()), max_abs_err=err, tol="exact")
+    if err != 0:
+        raise AssertionError("min_hamming2 disagrees with its plain version "
+                             "with partial masks")
+    out["min_hamming2_masked"] = dict(
+        err=err, ms=median_ms(lambda: CM.min_hamming2(*hmargs)),
+        plain_ms=median_ms(lambda: CM.min_hamming2_plain(*hmargs)))
+
+    # the Sim3-guided projection search of loop and merge verification:
+    # the candidate window's points among the whole arena, radius
+    # th * 1.2^level with th = 8, then 5 through the optimised Sim3
+    svis = rng.random(Qa) < 0.15
+    svis[:600] = True
+    for th in (8, 5):
+        sargs = tuple(T(x) for x in (
+            aq, auv, (th * 1.2 ** alv).astype(np.float32), alv, svis, dt,
+            tuv, tl, tv))
+        k = CM.fused_masked_match(*sargs)
+        p = CM.fused_masked_match_plain(*sargs)
+        err = max((a - b).abs().max().item() for a, b in zip(k, p))
+        log("kernel", name=f"masked_match_sim3_th{th}", Q=Qa,
+            visible=int(svis.sum()), F=F, matched=int((k[1] <= 50).sum()),
+            max_abs_err=err, tol="exact")
+        if err != 0:
+            raise AssertionError("masked_match disagrees with its plain "
+                                 f"version at the Sim3 search, th={th}")
+        out[f"masked_match_sim3_th{th}"] = dict(
+            err=err, ms=median_ms(lambda: CM.fused_masked_match(*sargs)),
+            plain_ms=median_ms(lambda: CM.fused_masked_match_plain(*sargs)))
+
     # pose: N=1024 edges, 60 outliers, perturbed start
     n = 1024
     pts = np.stack([rng.uniform(-4, 4, n), rng.uniform(-3, 3, n),
@@ -382,14 +460,18 @@ def track_agents(dev, scene, cam_r, cam, orb_cfg, cfg, ms, trajs, n_kf,
 # phase 5: SLAM from no images, two agents in one arena
 # ---------------------------------------------------------------------------
 
-def run_slam(dev, scene, cam_r, cam, orb_cfg, cfg, arcs):
+def run_slam(dev, scene, cam_r, cam, orb_cfg, cfg, arcs, server_cfg=None):
     """Interleaved frames of one arc per agent through
-    ``SlamSystem.track`` only.  Per agent: the states, the host wall of
+    ``SlamSystem.track`` only, with a ``LoopServer`` of ``server_cfg``
+    attached when one is given.  Per agent: the states, the host wall of
     the frame that initialised (extract + track, synchronised) and of
     every OK frame that inserted no keyframe."""
     from mam3slam_tpu_torch.slam import system
+    from mam3slam_tpu_torch.slam.server import LoopServer
 
     sys_ = system.SlamSystem(cfg, cam, seed=0)
+    if server_cfg is not None:
+        sys_.server = LoopServer(sys_, server_cfg)
     agents = [dict(aid=sys_.add_agent(), states=[], init_ms=None,
                    track_ms=[]) for _ in arcs]
     for i in range(len(arcs[0])):
@@ -425,7 +507,8 @@ def ate_rmse(est: np.ndarray, gt: np.ndarray) -> float:
     return float(np.sqrt(((aligned - gt) ** 2).sum(1).mean()))
 
 
-def check_slam(sys_, agents, arcs, max_ate_frac=MAX_ATE_FRAC):
+def check_slam(sys_, agents, arcs, max_ate_frac=MAX_ATE_FRAC,
+               min_ok_frac=MIN_OK_FRAC):
     """The phase-5 gates (``max_ate_frac``: one bound per agent); returns
     per-agent results."""
     from mam3slam_tpu_torch.slam import system
@@ -459,7 +542,7 @@ def check_slam(sys_, agents, arcs, max_ate_frac=MAX_ATE_FRAC):
         log("slam", agent=a, frames=len(states), **r)
         if first_ok >= MAX_FIRST_OK:
             raise AssertionError(f"agent {a}: no init in {MAX_FIRST_OK}")
-        if ok_frac < MIN_OK_FRAC:
+        if ok_frac < min_ok_frac:
             raise AssertionError(f"agent {a}: {ok_frac:.3f} of frames OK")
         if ate >= max_ate_frac[a] * span:
             raise AssertionError(f"agent {a}: ATE {ate:.4f} >= "
@@ -497,6 +580,80 @@ def slam_times(sys_, agents, smi: str) -> None:
         epochs=len(epochs), epoch_ms_median=float(np.median(epochs)),
         epoch_ms_p90=float(np.percentile(epochs, 90)),
         kf_culled=sys_.kf_culled)
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the loop server (merge, relocalization, loop closure)
+# ---------------------------------------------------------------------------
+
+def blank_frame(orb_cfg, dev):
+    """A frame in which no feature was found (the camera occluded)."""
+    from mam3slam_tpu_torch.slam import steps
+
+    n = orb_cfg.capacity
+    return steps.FrameObs(
+        uv=torch.zeros(n, 2, device=dev),
+        level=torch.zeros(n, dtype=torch.int32, device=dev),
+        angle=torch.zeros(n, device=dev),
+        desc=torch.zeros(n, 32, dtype=torch.uint8, device=dev),
+        valid=torch.zeros(n, dtype=torch.bool, device=dev))
+
+
+def check_merge(sys_, agents, arcs, max_ate_frac) -> None:
+    """The 6a gates: a MERGE event, one map holding both agents and every
+    live keyframe, then the per-agent OK share and ATE of ``check_slam``
+    and its observation check."""
+    srv = sys_.server
+    log("server_events", events=srv.events, system=sys_.events)
+    if not any(e.startswith("MERGE") for e in srv.events):
+        raise AssertionError("no MERGE event")
+    ms = sys_.ms
+    maps = set(ms.kf_map[ms.kf_valid].cpu().tolist())
+    agent_maps = {sys_.agents[ag["aid"]].map_id for ag in agents}
+    if len(agent_maps) != 1 or maps != agent_maps:
+        raise AssertionError(f"agents in maps {agent_maps}, live keyframes "
+                             f"in maps {maps}")
+    check_slam(sys_, agents, arcs, max_ate_frac, SERVER_MIN_OK_FRAC)
+
+
+def relocalize(sys_, scene, cam_r, cam, orb_cfg, aid: int, arc,
+               ts0: float) -> None:
+    """RELOC_BLANK blank frames for agent ``aid``, then RELOC_FRAMES
+    frames of ``arc`` from RELOC_START: the agent must log a RELOC event
+    and be OK at the end."""
+    from mam3slam_tpu_torch.slam import system
+
+    dev = sys_.device
+    n_events = len(sys_.events)
+    for j in range(RELOC_BLANK):
+        sys_.track(aid, blank_frame(orb_cfg, dev), ts0 + j * DT)
+    lost = sys_.agents[aid].state
+    states = []
+    for j in range(RELOC_FRAMES):
+        R, t, _ = arc[RELOC_START + j]
+        states.append(sys_.track(aid, frame_of(scene.render(R, t, cam_r),
+                                               orb_cfg, cam),
+                                 ts0 + (RELOC_BLANK + j) * DT)[0])
+    relocs = [e for e in sys_.events[n_events:]
+              if e.startswith(f"RELOC agent={aid} ")]
+    log("reloc", agent=aid, state_after_blank=lost, states=states,
+        events=relocs)
+    if lost != system.RECENTLY_LOST:
+        raise AssertionError(f"agent {aid}: state {lost} after blank frames")
+    if not relocs or states[-1] != system.OK:
+        raise AssertionError(f"agent {aid} did not relocalize")
+
+
+def server_times(sys_, smi: str, path: str) -> None:
+    """Median and p90 ms of the server's PR (keyframe), LC (loop) and MM
+    (merge) series."""
+    out = {}
+    for k in ("PR", "LC", "MM"):
+        v = np.asarray(sys_.server.timers.series.get(k, []))
+        out[k] = (dict(n=len(v), median_ms=float(np.median(v)),
+                       p90_ms=float(np.percentile(v, 90)))
+                  if len(v) else dict(n=0))
+    log("server_time", path=path, card=repr(smi), **out)
 
 
 def sync(dev) -> None:
@@ -610,9 +767,63 @@ def main() -> int:
             or any(slam_plain.values())):
         raise AssertionError("the SLAM path did not run its kernels")
 
+    # 6. the loop server: 6a merge then relocalization, 6b loop closure
+    from mam3slam_tpu_torch.slam.server import ServerConfig
+
+    scene6 = render.RoomScene(seed=SERVER_SCENE_SEED, device=dev)
+    merge_arcs = [render.orbit_trajectory(MERGE_FRAMES, a0, a1, radius=2.5,
+                                          bob=b) for a0, a1, b in MERGE_ARCS]
+    loop_arc = render.orbit_trajectory(LOOP_FRAMES, *LOOP_ARC[:2],
+                                       radius=2.5, bob=LOOP_ARC[2])
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    sys6, agents6 = run_slam(dev, scene6, cam_r, cam, orb_cfg, cfg,
+                             merge_arcs, ServerConfig())
+    check_merge(sys6, agents6, merge_arcs, MERGE_MAX_ATE_FRAC)
+    relocalize(sys6, scene6, cam_r, cam, orb_cfg, agents6[1]["aid"],
+               merge_arcs[0], MERGE_FRAMES * DT)
+    torch.cuda.synchronize()
+    merge_launches = dict(_build.LAUNCHES)
+    merge_plain = dict(_build.PLAIN_CALLS)
+    log("counters", path="merge_reloc", launches=merge_launches,
+        plain_calls=merge_plain, seconds=time.perf_counter() - t0)
+    server_times(sys6, smi, "merge_reloc")
+    map6 = sys6.agents[0].map_id
+    log("global_ba", map_id=map6, card=repr(smi),
+        keyframes=int((sys6.ms.kf_valid & (sys6.ms.kf_map == map6)).sum()),
+        caps=(cfg.max_kf, cfg.max_mp),
+        ms=median_ms(lambda: sys6.fns["global_ba"](sys6.ms, map6), reps=1,
+                     warmup=1))
+    del sys6
+
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    sys6, agents6 = run_slam(dev, scene6, cam_r, cam, orb_cfg, cfg,
+                             [loop_arc], ServerConfig())
+    torch.cuda.synchronize()
+    loop_launches = dict(_build.LAUNCHES)
+    loop_plain = dict(_build.PLAIN_CALLS)
+    log("counters", path="loop", launches=loop_launches,
+        plain_calls=loop_plain, seconds=time.perf_counter() - t0)
+    log("server_events", events=sys6.server.events, system=sys6.events,
+        gba_runs=sys6.server.gba_runs)
+    if not any(e.startswith("LOOP") for e in sys6.server.events):
+        raise AssertionError("no LOOP event")
+    if not sys6.server.gba_runs:
+        raise AssertionError("no global BA after the loop")
+    check_slam(sys6, agents6, [loop_arc], LOOP_MAX_ATE_FRAC,
+               SERVER_MIN_OK_FRAC)
+    server_times(sys6, smi, "loop")
+    server_launches = {k: merge_launches.get(k, 0) + loop_launches.get(k, 0)
+                       for k in KERNELS}
+    if (any(n == 0 for n in server_launches.values()) or any(
+            merge_plain.values()) or any(loop_plain.values())):
+        raise AssertionError("the server path did not run every kernel")
+
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[k] + slam_launches.get(k, 0),
+         "launches": (launches[k] + slam_launches.get(k, 0)
+                      + server_launches[k]),
          "max_abs_err": kernels[k]["err"],
          "ms": kernels[k]["ms"], "plain_ms": kernels[k]["plain_ms"]}
         for k, (src, rep) in KERNELS.items()]}))

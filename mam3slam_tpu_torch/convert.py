@@ -2,7 +2,9 @@
 
 Every function takes numpy-convertible leaves (numpy arrays, or anything
 ``np.asarray`` accepts) and returns torch tensors on the given device;
-``to_numpy`` maps a tensor tree back to numpy arrays.
+``to_numpy`` maps a tensor tree back to numpy arrays.  The loop server's
+keyframe database (``kf_bow_words``, ``kf_bow_vals``) is numpy in both
+packages and carries over as it is.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ import torch
 
 from mam3slam_tpu_torch.geometry import cameras as cam_mod
 from mam3slam_tpu_torch.mapstate import state as S
+from mam3slam_tpu_torch.ops import bow
 from mam3slam_tpu_torch.slam import steps
 
 
@@ -27,8 +30,8 @@ def camera_from_numpy(params, kind: int, device=None) -> cam_mod.Camera:
 
 def from_numpy(cls, obj, device=None):
     """Any object with every field of the NamedTuple ``cls`` (a MapState,
-    FrameObs, WindowProblem, TwoViewResult, ...), by name -> ``cls`` of
-    tensors."""
+    FrameObs, WindowProblem, TwoViewResult, PGOEdges, ...), by name ->
+    ``cls`` of tensors."""
     return cls(*(tensor(getattr(obj, f), device) for f in cls._fields))
 
 
@@ -40,6 +43,15 @@ def frame_from_numpy(frame, device=None) -> steps.FrameObs:
 def map_state_from_numpy(ms, device=None) -> S.MapState:
     """Any object with every MapState field, by name -> MapState."""
     return from_numpy(S.MapState, ms, device)
+
+
+def vocabulary_from_numpy(voc, device=None) -> bow.Vocabulary:
+    """Any object with the Vocabulary fields -> Vocabulary."""
+    return bow.Vocabulary(
+        centroid_bits=tuple(tensor(c, device) for c in voc.centroid_bits),
+        idf=tensor(voc.idf, device), k=int(voc.k), depth=int(voc.depth),
+        leaf_map=None if voc.leaf_map is None
+        else tensor(voc.leaf_map, device))
 
 
 def to_numpy(tree):

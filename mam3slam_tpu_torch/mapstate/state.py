@@ -424,6 +424,15 @@ def rebuild_reverse_obs(ms: MapState) -> MapState:
                        mp_nobs=torch.clamp(nobs[:P], max=Mo))
 
 
+def add_loop_edge(ms: MapState, i, j) -> MapState:
+    """Record a loop/merge edge (KeyFrame::AddLoopEdge / AddMergeEdge) in
+    the first free slot; when all are taken, slot 0 is overwritten."""
+    slot = torch.argmax((~ms.loop_valid).to(torch.int32))
+    return ms._replace(loop_i=set_at(ms.loop_i, slot, int(i)),
+                       loop_j=set_at(ms.loop_j, slot, int(j)),
+                       loop_valid=set_at(ms.loop_valid, slot, True))
+
+
 def remove_keyframe(ms: MapState, kf) -> MapState:
     """KeyFrame::SetBadFlag: drop the KF and its observations, reconnect
     its children to its parent, clear its covisibility, drop loop edges

@@ -1,16 +1,17 @@
-"""SLAM system: the programs of tracking and local mapping, and the
-synchronous multi-agent ``SlamSystem`` around them.
+"""SLAM system: the programs of tracking, local mapping and the loop
+server, and the synchronous multi-agent ``SlamSystem`` around them.
 
 Port of ``mam3slam_tpu.slam.system``: ``SlamConfig``, the tracking-state
 constants, ``programs`` (the reference's ``_compiled``: the same functions
 with the same arguments and return tuples, the packed ``vec``, the
 device-resident chain state and the packed culling decision included),
 and ``SlamSystem``'s synchronous state machine: monocular initialisation,
-tracking, keyframe decisions and one local-mapping epoch per keyframe, for
-several agents in one shared arena.  PyTorch runs the programs eagerly;
-the host reads one packed vector per tracked frame and one packed array
-per mapping epoch, as the reference does.  The widened tracking retry is
-a host branch on the coarse stage's inlier count.
+tracking, relocalization, keyframe decisions, one local-mapping epoch per
+keyframe and then the optional ``LoopServer``'s epoch, for several agents
+in one shared arena.  PyTorch runs the programs eagerly; the host reads
+one packed vector per tracked frame and one packed array per mapping
+epoch, as the reference does.  The widened tracking retry is a host
+branch on the coarse stage's inlier count.
 """
 
 from __future__ import annotations
@@ -26,9 +27,11 @@ import torch
 from mam3slam_tpu_torch.geometry import cameras as cam_mod
 from mam3slam_tpu_torch.geometry import lie
 from mam3slam_tpu_torch.mapstate import state as S
+from mam3slam_tpu_torch.ops import bow
 from mam3slam_tpu_torch.ops import matching as M
 from mam3slam_tpu_torch.slam import steps
 from mam3slam_tpu_torch.solvers import ba_window as bw
+from mam3slam_tpu_torch.solvers import pnp
 from mam3slam_tpu_torch.solvers import twoview
 from mam3slam_tpu_torch.utils.timing import Timers
 
@@ -142,10 +145,11 @@ def programs(cfg: SlamConfig, kind: int) -> dict:
     reference's ``_compiled``): tracking (``match_and_pose``,
     ``local_mp_mask``, ``track_frame_step``, ``track_ref_kf``,
     ``update_found_visible``), initialisation (``init_match``,
-    ``reconstruct``, ``create_initial_map``, ``initial_gba_and_rescale``)
-    and mapping (``add_kf_step``, ``cull_map_points``,
+    ``reconstruct``, ``create_initial_map``, ``initial_gba_and_rescale``),
+    mapping (``add_kf_step``, ``cull_map_points``,
     ``triangulate_multi_step``, ``local_ba``, ``cull_pack``,
-    ``remove_kf``, ``mapping_epoch``)."""
+    ``remove_kf``, ``mapping_epoch``) and the loop server's (``fuse_step``,
+    ``refresh_stats``, ``welding_ba``, ``global_ba``)."""
     W, H = float(cfg.width), float(cfg.height)
     per_device = {}
 
@@ -432,6 +436,38 @@ def programs(cfg: SlamConfig, kind: int) -> dict:
     def local_ba(ms, center_kf):
         return _local_ba(ms, center_kf)[0]
 
+    def welding_ba(ms, center_kf, adjust_side):
+        """Merge-welding BA (the reference's merge overload of
+        LocalBundleAdjustment): the covisible window of the merging KF
+        restricted to ``adjust_side`` (the absorbed map) is optimised, the
+        merge target's keyframes observing its points stay fixed.
+        Returns (ms, optimised KF mask, optimised point mask)."""
+        opt_mask = _window_mask(ms, center_kf) & adjust_side
+        ms, pt_free, _ = _lba_core(ms, opt_mask)
+        return ms, opt_mask, pt_free
+
+    def global_ba(ms, map_id):
+        """Full-map BA (RunGlobalBundleAdjustment, 10 iterations) with the
+        map's oldest KF fixed, on the dense solver at the arena's caps."""
+        in_map = ms.kf_valid & (ms.kf_map == map_id)
+        anchor = torch.argmin(torch.where(in_map, ms.kf_seq, S.BIG_SEQ))
+        prob = steps.build_window_problem(
+            ms, S.set_at(in_map, anchor, False), consts(ms.mp_pos.device)[1],
+            cfg.max_kf, cfg.max_mp)
+        return steps.apply_window_result(
+            ms, prob, bw.run_window_ba_dense(prob, kind, iters=10))
+
+    def fuse_step(ms, kf, mp_mask):
+        """Fuse the masked points into ``kf``, then rebuild the reverse
+        observations and kf's covisibility.  Returns (ms, n_fused)."""
+        ms, n, _ = steps.fuse_into_kf(ms, kf, mp_mask, kind, W, H,
+                                      consts(ms.mp_pos.device)[0])
+        ms = S.rebuild_reverse_obs(ms)
+        return S.update_covis_for_kf(ms, kf), n
+
+    def refresh_stats(ms, mp_mask):
+        return S.refresh_mp_stats(ms, mp_mask, consts(ms.mp_pos.device)[0])
+
     def cull_pack(ms, kf, protected_extra):
         """The host's KeyFrameCulling inputs as one [10, 12] array: per
         top-10 covisible, (slot, eligible, redundant fraction, tracked
@@ -506,6 +542,10 @@ def programs(cfg: SlamConfig, kind: int) -> dict:
         "cull_pack": cull_pack,
         "remove_kf": S.remove_keyframe,
         "mapping_epoch": mapping_epoch,
+        "welding_ba": welding_ba,
+        "global_ba": global_ba,
+        "fuse_step": fuse_step,
+        "refresh_stats": refresh_stats,
     }
 
 
@@ -551,11 +591,11 @@ class SlamSystem:
         self.ms = S.init_map_state(cfg.map_config(), self.device)
         self.fns = programs(cfg, cfg.cam_kind)
         self.agents: List[AgentState] = []
-        # the RANSAC draws of two-view initialisation
+        # the RANSAC draws of two-view initialisation and relocalization
         self.gen = torch.Generator().manual_seed(seed)
         self.events: List[str] = []
         self.mp_dropped = 0      # triangulations dropped on arena overflow
-        self.server = None       # no place-recognition server in the port
+        self.server = None       # optional LoopServer (slam/server.py)
         self.timers = Timers()
         # culled KF -> (parent, q_rel, t_rel): trajectory rows that name a
         # culled KF resolve through its live ancestors
@@ -742,8 +782,63 @@ class SlamSystem:
             self._create_keyframe(a, frame, feat_mp, inlier, pend["ts"])
 
     def _relocalize(self, a: AgentState, frame) -> bool:
-        """Tracking::Relocalization needs the place-recognition server;
-        without one it fails, as in the reference."""
+        """Tracking::Relocalization: BoW candidates over ALL maps (the
+        reference disables the map filter, so an agent can re-enter
+        another agent's map), RANSAC PnP per candidate, then pose
+        refinement against the candidate's local map.  Needs the server's
+        vocabulary and keyframe database."""
+        srv = self.server
+        if srv is None or srv.voc is None or srv.kf_bow_words is None:
+            return False
+        ms = self.ms
+        words = bow.quantize(srv.voc, frame.desc)
+        uw, vals = bow.sparse_bow_row(
+            srv.voc, words.cpu().numpy(), frame.valid.cpu().numpy(),
+            srv.kf_bow_words.shape[1])
+        scores, shared = srv.score_database(
+            bow.dense_query(srv.voc, uw, vals))
+        reps, _, okc = bow.detect_candidates_grouped(
+            scores, shared, ms.kf_valid, ms.covis, n_out=5)
+        pk = torch.stack([reps, okc.to(torch.int32)]).cpu().numpy()
+        kf_valid = ms.kf_valid.cpu().numpy()
+        cands = []
+        for r, o in zip(*pk):
+            if not o:
+                break
+            if r not in cands and kf_valid[r]:
+                cands.append(int(r))
+        is2 = torch.as_tensor(self.cfg.inv_sigma2, device=self.device)
+        for cand in cands:
+            fmp = ms.kf_feat_mp[cand]
+            res = M.search_by_brute_force(
+                frame.desc, frame.valid, frame.angle, ms.kf_feat_desc[cand],
+                ms.kf_feat_valid[cand] & (fmp >= 0), ms.kf_feat_angle[cand])
+            if int(res.ok.sum()) < 15:
+                continue
+            mp = fmp[torch.clamp(res.idx, min=0).long()]
+            mpc = torch.clamp(mp, min=0).long()
+            probe = torch.rand((128, 6), generator=self.gen).to(self.device)
+            pr = pnp.ransac_pnp(ms.mp_pos[mpc], frame.uv,
+                                res.ok & (mp >= 0) & ms.mp_valid[mpc], a.cam,
+                                probe, is2[frame.level.long()])
+            if not bool(pr.ok):
+                continue
+            local_mask = self.fns["local_mp_mask"](ms, cand, 32)
+            _, _, q, t, _, n_in, _ = self.fns["match_and_pose"](
+                ms, frame, pr.q, pr.t, a.cam.params, local_mask, 4.0,
+                M.TH_HIGH, 0.9)
+            if int(n_in) < 30:
+                continue
+            old_map, new_map = a.map_id, int(ms.kf_map[cand])
+            a.q, a.t = q.cpu().numpy(), t.cpu().numpy()
+            a.vel_q = a.vel_t = None
+            a.dev_chain = None
+            a.ref_kf = cand
+            a.frames_lost = 0
+            a.map_id = new_map            # cross-map re-entry when it differs
+            self.events.append(f"RELOC agent={a.agent_id} kf={cand} map "
+                               f"{old_map} -> {new_map}")
+            return True
         return False
 
     def _create_map_in_atlas(self, a: AgentState):
@@ -795,6 +890,8 @@ class SlamSystem:
                       np.zeros(3, np.float32), kf)
         a.ref_kf_tracked = int((feat_mp_in >= 0).sum())
         self._local_mapping(a, kf)
+        if self.server is not None:
+            self.server.process_keyframe(a.agent_id, kf)
 
     def _protected_refs(self) -> torch.Tensor:
         """KF slots culling never removes: every agent's reference KF."""

@@ -1,0 +1,137 @@
+"""Sim3 pose-graph optimisation over the essential graph.
+
+Port of the Sim3 path of ``mam3slam_tpu.solvers.pgo`` (the reference's
+Optimizer::OptimizeEssentialGraph): keyframe poses are Sim3 vertices,
+edges carry relative Sim3 measurements, the residual of edge (i, j) is
+``log(m * S_i * S_j^-1)``.  Each LM step takes the per-edge 7x7 tangent
+jacobians by forward mode, assembles the dense [7K, 7K] normal system with
+accumulating scatters (one keyframe pair may carry several edges) and
+solves it by Cholesky; a step is kept only when it lowers the cost.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from mam3slam_tpu_torch.geometry import lie
+
+
+class PGOEdges(NamedTuple):
+    """Relative Sim3 measurements m on edges (i, j), consistent when
+    S_j = m * S_i."""
+
+    i: torch.Tensor       # [E] i32
+    j: torch.Tensor       # [E] i32
+    q: torch.Tensor       # [E, 4]
+    t: torch.Tensor       # [E, 3]
+    s: torch.Tensor       # [E]
+    w: torch.Tensor       # [E] information weight
+    valid: torch.Tensor   # [E] bool
+
+
+def edge_residual(q_i, t_i, s_i, q_j, t_j, s_j, q_m, t_m, s_m):
+    """log(S_m * S_i * S_j^-1) in R^7, batched."""
+    err = lie.sim3_compose(
+        lie.Sim3(q_m, t_m, s_m),
+        lie.sim3_compose(lie.Sim3(q_i, t_i, s_i),
+                         lie.sim3_inverse(lie.Sim3(q_j, t_j, s_j))))
+    return lie.sim3_log(err)
+
+
+def batched_jacfwd(f, x: torch.Tensor):
+    """(f(x), per-row jacobians [B, out, n]) of a row-wise function f(x
+    [B, n]) -> [B, out]: every row gets the same perturbation, and since
+    row b depends only on x[b], the jacobian of the shared perturbation
+    is each row's own."""
+    def g(d):
+        y = f(x + d)
+        return y, y
+
+    J, y = torch.func.jacfwd(g, has_aux=True)(
+        torch.zeros(x.shape[-1], dtype=x.dtype, device=x.device))
+    return y, J
+
+
+def optimize_essential_graph(q_kw, t_kw, s_kw, fixed, edges: PGOEdges,
+                             iters: int = 20, lam0: float = 1e-4):
+    """Damped Gauss-Newton (LM with accept/reject) over Sim3 vertices
+    (q, t, s) [K] world -> keyframe; ``fixed`` [K] bool.  Returns the
+    corrected (q, t, s)."""
+    K = q_kw.shape[0]
+    dev, dt = q_kw.device, q_kw.dtype
+    ei, ej = edges.i.long(), edges.j.long()
+    w = torch.where(edges.valid, edges.w, 0.0)
+    meas = (edges.q, edges.t, edges.s)
+
+    def cost_of(q, t, s):
+        r = edge_residual(q[ei], t[ei], s[ei], q[ej], t[ej], s[ej], *meas)
+        return (w * (r * r).sum(-1)).sum()
+
+    def perturbed(xi, q, t, s):
+        S = lie.sim3_compose(lie.sim3_exp(xi), lie.Sim3(q, t, s))
+        return S.q, S.t, S.s
+
+    eye7 = torch.eye(7, dtype=dt, device=dev)
+    diag = torch.arange(K, device=dev)
+    q, t, s = q_kw, t_kw, s_kw
+    lam = torch.tensor(lam0, dtype=dt, device=dev)
+    cost = cost_of(q, t, s)
+    for _ in range(iters):
+        Si = (q[ei], t[ei], s[ei])
+        Sj = (q[ej], t[ej], s[ej])
+        r, J = batched_jacfwd(lambda x: edge_residual(
+            *perturbed(x[:, :7], *Si), *perturbed(x[:, 7:], *Sj), *meas),
+            torch.zeros(ei.shape[0], 14, dtype=dt, device=dev))
+        Ji, Jj = J[..., :7], J[..., 7:]
+        Ji = Ji * (~fixed[ei])[:, None, None]
+        Jj = Jj * (~fixed[ej])[:, None, None]
+
+        Hij = torch.einsum("eki,ekj,e->eij", Ji, Jj, w)
+        H = torch.zeros(K, K, 7, 7, dtype=dt, device=dev)
+        H.index_put_((ei, ei), torch.einsum("eki,ekj,e->eij", Ji, Ji, w),
+                     accumulate=True)
+        H.index_put_((ej, ej), torch.einsum("eki,ekj,e->eij", Jj, Jj, w),
+                     accumulate=True)
+        H.index_put_((ei, ej), Hij, accumulate=True)
+        H.index_put_((ej, ei), Hij.transpose(-1, -2), accumulate=True)
+        g = torch.zeros(K, 7, dtype=dt, device=dev)
+        g.index_add_(0, ei, torch.einsum("eki,ek,e->ei", Ji, r, w))
+        g.index_add_(0, ej, torch.einsum("eki,ek,e->ei", Jj, r, w))
+
+        # fixed vertices get identity rows; LM damping on the diagonal
+        Hd = H[diag, diag]
+        damp = lam * torch.clamp(torch.diagonal(Hd, dim1=-2, dim2=-1),
+                                 min=1e-6) + 1e-8
+        H[diag, diag] = (Hd + torch.where(fixed[:, None, None], eye7, 0.0)
+                         + damp[..., None] * eye7)
+        L, info = torch.linalg.cholesky_ex(
+            H.permute(0, 2, 1, 3).reshape(7 * K, 7 * K))
+        dx = torch.cholesky_solve(-g.reshape(7 * K, 1), L).reshape(K, 7)
+        dx = torch.where((info == 0) & torch.isfinite(dx).all(), dx, 0.0)
+        dx = torch.where(fixed[:, None], 0.0, dx)
+
+        nq, nt, ns = perturbed(dx, q, t, s)
+        nq = lie.quat_normalize(nq)
+        new_cost = cost_of(nq, nt, ns)
+        accept = new_cost < cost
+        lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-7),
+                          torch.clamp(lam * 5.0, max=1e5))
+        q = torch.where(accept, nq, q)
+        t = torch.where(accept, nt, t)
+        s = torch.where(accept, ns, s)
+        cost = torch.where(accept, new_cost, cost)
+    return q, t, s
+
+
+def correct_points_by_ref(mp_pos, mp_ref_kf, mp_mask, q_old, t_old, s_old,
+                          q_new, t_new, s_new):
+    """Map points moved with their reference keyframe's Sim3 correction:
+    X' = S_new^-1(S_old(X)) for the masked points."""
+    ref = torch.clamp(mp_ref_kf, min=0).long()
+    S_old = lie.Sim3(q_old[ref], t_old[ref], s_old[ref])
+    S_new_inv = lie.sim3_inverse(lie.Sim3(q_new[ref], t_new[ref],
+                                          s_new[ref]))
+    moved = lie.sim3_apply(S_new_inv, lie.sim3_apply(S_old, mp_pos))
+    return torch.where(mp_mask[:, None], moved, mp_pos)

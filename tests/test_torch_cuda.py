@@ -80,6 +80,49 @@ def test_masked_match_at_fuse_shape_equals_plain(dev):
     assert int((got[1][:500] == 0).sum()) >= 450
 
 
+@pytest.mark.parametrize("th", [8.0, 5.0])
+def test_masked_match_at_sim3_search_equals_plain(dev, th):
+    """The loop server's Sim3-guided projection search: the candidate
+    window's points among all 24576 arena points, radius th * 1.2^level
+    (th 8, then 5 through the optimised Sim3), against one keyframe."""
+    rng = np.random.default_rng(5)
+    Q, F = 24576, 1024
+    dt = rng.integers(0, 256, (F, 32), dtype=np.uint8)
+    tuv = rng.uniform(0, 752, (F, 2)).astype(np.float32)
+    tl = rng.integers(0, 8, F).astype(np.int32)
+    dq = rng.integers(0, 256, (Q, 32), dtype=np.uint8)
+    quv = rng.uniform(0, 752, (Q, 2)).astype(np.float32)
+    ql = rng.integers(0, 8, Q).astype(np.int32)
+    dq[:500], ql[:500] = dt[:500], tl[:500]
+    quv[:500] = tuv[:500] + rng.uniform(-6, 6, (500, 2))
+    dq[500:550] = dt[450:500]                               # ties
+    vis = rng.random(Q) < 0.15
+    vis[:550] = True
+    args = [torch.tensor(x, device=dev) for x in (
+        dq, quv, (th * 1.2 ** ql).astype(np.float32), ql, vis, dt, tuv, tl,
+        rng.random(F) > 0.02)]
+    got = _counted("masked_match", lambda: CM.fused_masked_match(*args))
+    for g, p in zip(got, CM.fused_masked_match_plain(*args)):
+        assert torch.equal(g, p)
+    assert int((got[1][:500] == 0).sum()) >= 400
+
+
+def test_min_hamming2_with_partial_masks_equals_plain(dev):
+    """BoW-space matching in verification and relocalization: only the
+    features with a map point take part, on both sides."""
+    rng = np.random.default_rng(6)
+    n = 1024
+    dq = rng.integers(0, 256, (n, 32), dtype=np.uint8)
+    dt = rng.integers(0, 256, (n, 32), dtype=np.uint8)
+    dt[:300] = dq[:300]
+    dt[300:340] = dt[260:300]                               # ties
+    args = [torch.tensor(x, device=dev) for x in (
+        dq, rng.random(n) < 0.6, dt, rng.random(n) < 0.6)]
+    got = _counted("min_hamming2", lambda: CM.min_hamming2(*args))
+    for g, p in zip(got, CM.min_hamming2_plain(*args)):
+        assert torch.equal(g, p)
+
+
 def test_describe_kernel_matches_plain(dev):
     rng = np.random.default_rng(2)
     cfg = O.OrbConfig(120, 160, n_features=100, n_levels=3)
