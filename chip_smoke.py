@@ -8,14 +8,20 @@ raises (exit code != 0) and no result line is printed:
 
 1. Device: requires CUDA; prints the card's name and its
    ``nvidia-smi`` name / power limit.
-2. Build: compiles ``mam3slam_tpu_torch/csrc/*.cu`` with nvcc.
+2. Build: compiles ``mam3slam_tpu_torch/csrc/*.cu`` with nvcc, one
+   process per source, and prints ptxas's registers, shared memory and
+   spills per kernel.
 3. Kernels vs their plain PyTorch versions on the card, at the shapes of
    the tracking path (EuRoC monocular: 752x480, 8 levels, 1000 features;
    4096 projected map points x 1024 features), of the mapping path's
    fuse (the whole 24576-point arena as queries, most not visible) and of
    the loop server (the Sim3-guided search over the arena at radii
    8 x 1.2^level and 5 x 1.2^level; 1024 x 1024 best-two with partial
-   masks on both sides), with median CUDA-event times of both.
+   masks on both sides).  Per kernel and caller shape: the device time
+   per launch (torch.profiler), the median CUDA-event time of one call
+   of the wrapper and of the plain version, and the bound (the larger of
+   the operations and the bytes these inputs need over the H100's peak
+   rates) with its share of the device time.
 4. Tracking: a room scene is rendered at EuRoC cam0 intrinsics, a map of
    32 keyframes is seeded from the scene's true depth in one shared arena
    (512 KF / 24576 MP), and two agents track interleaved arcs through
@@ -23,7 +29,8 @@ raises (exit code != 0) and no result line is printed:
    pose/velocity state on the device; each runs ``track_ref_kf`` once.
    Every frame must keep >= 30 inliers and land within 1 cm / 0.2 deg of
    the pose that rendered it, and the four kernels' launch counters must
-   be > 0 with no plain version called.
+   be > 0 with no plain version called.  Prints the launches per tracked
+   frame.
 5. SLAM: one ``SlamSystem`` at the same EuRoC point with the
    ``SlamConfig`` defaults (512 KF / 24576 MP arena); two agents start
    from no images on their own rendered arcs of 200 frames (-10 to 150
@@ -35,7 +42,8 @@ raises (exit code != 0) and no result line is printed:
    epoch ran a window BA; forward and reverse observations must agree,
    and the describe, masked-match and pose kernels must have launched
    with no plain version called.  Prints the init, per-frame and
-   mapping-epoch times and the keyframes culled.
+   mapping-epoch times, the keyframes culled and the kernel launches per
+   frame and per mapping epoch.
 6. Loop server: ``SlamSystem`` + ``LoopServer`` at the same point with
    the ``SlamConfig`` and ``ServerConfig`` defaults, on another room
    (seed 3), on the orbit of the reference's rendered merge and loop
@@ -52,12 +60,16 @@ raises (exit code != 0) and no result line is printed:
    all four kernels must have launched in phase 6 with no plain version
    called.
 
-It prints a JSON line of per-kernel results, the nvidia-smi line, and as
-its last line ``{"ok": true, "device": {...}}``.
+It prints a JSON line of per-kernel results (``ms``: the median time of
+one wrapper call at the kernel's first caller shape; ``device_ms``: the
+device time per launch there; every caller shape's times and bound; the
+launches in phases 4-6 and per frame and epoch), the nvidia-smi line,
+and as its last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import statistics
@@ -112,6 +124,16 @@ SERVER_MIN_OK_FRAC = 0.95
 MERGE_MAX_ATE_FRAC = (1.5 * 0.01488, 0.01)
 LOOP_MAX_ATE_FRAC = (0.01,)
 
+# H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): f32 on the
+# CUDA cores (every SIMT op of a kernel is counted at this rate), int8 on
+# the tensor cores (the rate of a binary AND-popc product), HBM3
+F32_OPS = 67e12
+INT8_TC_OPS = 1979e12
+HBM_BYTES_PER_S = 3.35e12
+NO_LIBRARY = ("none: no single PyTorch call computes a masked or unmasked "
+              "best-two Hamming search, an LM pose solve, or IC angles with "
+              "rBRIEF")
+
 KERNELS = {  # launch-counter name -> (source, replaced Pallas kernel)
     "orb_desc": ("mam3slam_tpu_torch/csrc/orb_desc.cu",
                  "mam3slam_tpu/ops/pallas_orb_desc.py:177"),
@@ -153,6 +175,16 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def launches_now() -> collections.Counter:
+    from mam3slam_tpu_torch import _build
+    return collections.Counter(_build.LAUNCHES)
+
+
+def per(counts: collections.Counter, n: int) -> dict:
+    """Launches per kernel per unit (frame, epoch) over ``n`` units."""
+    return {k: v / n for k, v in sorted(counts.items())} if n else {}
+
+
 def rot_err(q: np.ndarray, q_ref: np.ndarray) -> float:
     d = abs(float(np.dot(q.astype(np.float64), q_ref.astype(np.float64))))
     return 2.0 * math.acos(min(d, 1.0))
@@ -167,7 +199,129 @@ def quat_of(R: np.ndarray) -> torch.Tensor:
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_kernels(dev, scene, cam_r, orb_cfg, n_arena: int) -> dict:
+def masked_work(a):
+    """Operations and bytes that the masked search needs on these inputs:
+    8 SIMT ops per (valid query, valid target) pair (2 level compares;
+    dx, dy, 2 mul, add, compare), 24 per pair inside the mask (8 XOR,
+    8 popc, 8 add); each valid query's 48-byte record and each valid
+    target's 44 bytes read once, every valid flag read, 12 bytes written
+    per query."""
+    from mam3slam_tpu_torch.ops import cuda_match as CM
+
+    dq, quv, rad, ql, qv, dt, tuv, tl, tv = a
+    mask = (CM.radius_mask(quv, tuv, rad) & CM.level_window_mask(ql, tl, 1, 1)
+            & qv[:, None] & tv[None, :])
+    nq, nqv, nt, ntv = len(qv), int(qv.sum()), len(tv), int(tv.sum())
+    return (8 * nqv * ntv + 24 * int(mask.sum()), F32_OPS,
+            nq + 48 * nqv + nt + 44 * ntv + 12 * nq)
+
+
+def best2_work(a):
+    """The unmasked search as a binary tensor-core product: 2 ops (AND,
+    popc-add) per bit of each (valid query, valid target) pair at the
+    int8 tensor-core rate; descriptors of the valid rows and every flag
+    read once, 12 bytes written per query."""
+    dq, qv, dt, tv = a
+    nq, nqv, nt, ntv = len(qv), int(qv.sum()), len(tv), int(tv.sum())
+    return (2 * 256 * nqv * ntv, INT8_TC_OPS,
+            nq + 32 * nqv + nt + 32 * ntv + 12 * nq)
+
+
+def describe_work(args, angle):
+    """Operations and bytes of describing the keypoints of ``args`` with
+    their ``angle``s: per keypoint 749 raw pixels of the r=15 circle (4
+    ops each for the two moments) and 512 blurred taps (8 ops each:
+    rotate, round, clamp, compare); each distinct f32 pixel that the
+    keypoints touch read once (neighbouring patches overlap), the 4 KB
+    pattern, 20 bytes of keypoint in and 36 out."""
+    from mam3slam_tpu_torch.ops import cuda_orb_desc as CO
+
+    raw, _, xy, lvl, hw = args
+    n = len(xy)
+    pixels = (CO.ic_taps(xy, lvl, raw.shape)[0].unique().numel()
+              + CO.brief_taps(xy, lvl, hw, angle, raw.shape).unique().numel())
+    return (n * (749 * 4 + 512 * 8), F32_OPS,
+            4 * pixels + CO.load_pattern().nbytes + n * (20 + 36))
+
+
+def pose_work(n_valid: int, n_in: int, n: int, rounds: int = 4,
+              iters: int = 5):
+    """Round 0 linearises and accumulates the valid edges iters + 1 times
+    (~150 f32 ops an edge and pass); each later round classifies the
+    valid edges at the pose its first evaluation linearises (projection
+    and chi2, ~35 ops, which an edge that stays active reuses) and
+    linearises and accumulates its active edges iters + 1 times; a last
+    chi2-only pass over the valid edges gives the inliers.  The active
+    sets of rounds 1-3 are counted as the ``n_in`` returned inliers.
+    Each edge's 25 bytes read once and its inlier flag written, 44 bytes
+    of pose and camera in, 32 out."""
+    lin, chi2 = 150, 35
+    ops = ((iters + 1) * n_valid * lin
+           + (rounds - 1) * ((iters + 1) * n_in * lin
+                             + (n_valid - n_in) * chi2)
+           + n_valid * chi2)
+    return ops, F32_OPS, 26 * n + 76
+
+
+def bound_ms(ops: float, rate: float, nbytes: float):
+    """The least time the card could take: the larger of operations over
+    their peak rate and bytes over the memory rate (ms, and which)."""
+    t_ops, t_bytes = ops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def device_ms(fn, reps: int = 20):
+    """Device time of one call of ``fn`` (which launches one kernel): the
+    CUDA self time of the kernels in torch.profiler's ``key_averages``
+    over ``reps`` calls; where the profiler shows no device time, CUDA
+    events around ``reps`` calls queued behind a sleep kernel, so that the
+    host's share of a call is not timed.  Returns (ms, timer, names)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not e.key.startswith(("Memcpy", "Memset"))]
+    us = sum(getattr(e, "self_device_time_total", None)
+             or getattr(e, "self_cuda_time_total", 0) for e in kern)
+    if sum(e.count for e in kern) == reps and us > 0:
+        return us / reps / 1e3, "profiler", [e.key[:48] for e in kern]
+    torch.cuda._sleep(100_000_000)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps, "events", []
+
+
+def measure(rows: list, kernel: str, caller: str, err: float, fn, plain_fn,
+            work) -> None:
+    """Time ``fn`` (device and wrapper-included) and ``plain_fn`` at one
+    caller's shape; ``work`` = (ops, peak ops/s, bytes) of these inputs."""
+    dev_ms, timer, names = device_ms(fn)
+    b_ms, b_by = bound_ms(*work)
+    row = dict(kernel=kernel, caller=caller, max_abs_err=err,
+               device_ms=dev_ms, timer=timer, wrapper_ms=median_ms(fn),
+               plain_ms=median_ms(plain_fn), bound_us=b_ms * 1e3,
+               bound_by=b_by, share=b_ms / dev_ms)
+    rows.append(row)
+    log("time", **row, launched=names)
+
+
+def check_kernels(dev, scene, cam_r, orb_cfg, n_arena: int) -> list:
+    """Each kernel against its plain version at each caller's shape, with
+    its device, wrapper-included and plain times and its bound; returns
+    one row per kernel and caller."""
     from mam3slam_tpu_torch.io import render
     from mam3slam_tpu_torch.geometry import lie
     from mam3slam_tpu_torch.ops import cuda_match as CM
@@ -176,7 +330,7 @@ def check_kernels(dev, scene, cam_r, orb_cfg, n_arena: int) -> dict:
     from mam3slam_tpu_torch.ops import orb as O
 
     rng = np.random.default_rng(0)
-    out = {}
+    rows = []
 
     def T(x):
         return torch.tensor(x, device=dev)
@@ -199,9 +353,27 @@ def check_kernels(dev, scene, cam_r, orb_cfg, n_arena: int) -> dict:
         tol="angle<=1e-4,identical>=0.99,max_bits<=2")
     if not (err <= 1e-4 and same >= 0.99 and int(bits.max()) <= 2):
         raise AssertionError("orb_desc disagrees with its plain version")
-    out["orb_desc"] = dict(err=err, ms=median_ms(lambda: CO.ic_brief(*args)),
-                           plain_ms=median_ms(
-                               lambda: CO.ic_brief_plain(*args)))
+    measure(rows, "orb_desc", "extraction 8x480x752, 1000 keypoints", err,
+            lambda: CO.ic_brief(*args), lambda: CO.ic_brief_plain(*args),
+            describe_work((stack, blur, xy[valid], lvl[valid], hws[valid]),
+                          ka[valid]))
+
+    def masked(caller: str, margs, **extra):
+        k = CM.fused_masked_match(*margs)
+        p = CM.fused_masked_match_plain(*margs)
+        err = max((a - b).abs().max().item() for a, b in zip(k, p))
+        log("kernel", name="masked_match", caller=caller,
+            Q=len(margs[0]), visible=int(margs[4].sum()),
+            matched=int((k[1] <= 50).sum()),
+            ties=int(((k[1] == k[2]) & (k[1] < CM.BIG)).sum()),
+            max_abs_err=err, tol="exact", **extra)
+        if err != 0:
+            raise AssertionError("masked_match disagrees with its plain "
+                                 f"version at the {caller} shape")
+        measure(rows, "masked_match", caller, err,
+                lambda: CM.fused_masked_match(*margs),
+                lambda: CM.fused_masked_match_plain(*margs),
+                masked_work(margs))
 
     # masked match: Q=4096 candidates x F=1024 features, planted matches
     # and exact ties (duplicated targets)
@@ -218,22 +390,12 @@ def check_kernels(dev, scene, cam_r, orb_cfg, n_arena: int) -> dict:
     tl = ql[np.arange(F) % Q]
     qv = rng.random(Q) > 0.05
     tv = rng.random(F) > 0.05
-    margs = tuple(T(x) for x in (dq, quv, rad, ql, qv, dt, tuv, tl, tv))
-    k = CM.fused_masked_match(*margs)
-    p = CM.fused_masked_match_plain(*margs)
-    err = max((a - b).abs().max().item() for a, b in zip(k, p))
-    log("kernel", name="masked_match", Q=Q, F=F,
-        matched=int((k[1] < CM.BIG).sum()),
-        ties=int(((k[1] == k[2]) & (k[1] < CM.BIG)).sum()),
-        max_abs_err=err, tol="exact")
-    if err != 0:
-        raise AssertionError("masked_match disagrees with its plain version")
-    out["masked_match"] = dict(
-        err=err, ms=median_ms(lambda: CM.fused_masked_match(*margs)),
-        plain_ms=median_ms(lambda: CM.fused_masked_match_plain(*margs)))
+    masked("tracking Q=4096 x F=1024",
+           tuple(T(x) for x in (dq, quv, rad, ql, qv, dt, tuv, tl, tv)))
 
     # masked match at the fuse shape: every arena point a query, ~10%
-    # visible (as after the frustum test), against one keyframe
+    # visible (as after the frustum test), against one keyframe; the
+    # planted matches include the tracking shape's ties
     Qa = n_arena
     aq = rng.integers(0, 256, (Qa, 32), dtype=np.uint8)
     auv = rng.uniform(0, W, (Qa, 2)).astype(np.float32)
@@ -244,47 +406,8 @@ def check_kernels(dev, scene, cam_r, orb_cfg, n_arena: int) -> dict:
     alv[:600] = tl[:600]
     avis = rng.random(Qa) < 0.1
     avis[:600] = True
-    fargs = tuple(T(x) for x in (aq, auv, arad, alv, avis, dt, tuv, tl, tv))
-    k = CM.fused_masked_match(*fargs)
-    p = CM.fused_masked_match_plain(*fargs)
-    err = max((a - b).abs().max().item() for a, b in zip(k, p))
-    log("kernel", name="masked_match_fuse", Q=Qa, visible=int(avis.sum()),
-        F=F, matched=int((k[1] <= 50).sum()), max_abs_err=err, tol="exact")
-    if err != 0:
-        raise AssertionError("masked_match disagrees with its plain version "
-                             "at the fuse shape")
-    out["masked_match_fuse"] = dict(
-        err=err, ms=median_ms(lambda: CM.fused_masked_match(*fargs)),
-        plain_ms=median_ms(lambda: CM.fused_masked_match_plain(*fargs)))
-
-    # unmasked best-two: 1024 x 1024, with duplicates
-    hargs = (T(dq[:F]), T(qv[:F]), T(dt), T(tv))
-    k = CM.min_hamming2(*hargs)
-    p = CM.min_hamming2_plain(*hargs)
-    err = max((a - b).abs().max().item() for a, b in zip(k, p))
-    log("kernel", name="min_hamming2", Q=F, M=F,
-        ties=int((k[1] == k[2]).sum()), max_abs_err=err, tol="exact")
-    if err != 0:
-        raise AssertionError("min_hamming2 disagrees with its plain version")
-    out["min_hamming2"] = dict(
-        err=err, ms=median_ms(lambda: CM.min_hamming2(*hargs)),
-        plain_ms=median_ms(lambda: CM.min_hamming2_plain(*hargs)))
-
-    # the loop server's BoW-space matching and relocalization: only
-    # features that carry a map point take part, on both sides
-    hq, ht = rng.random(F) < 0.6, rng.random(F) < 0.6
-    hmargs = (T(dq[:F]), T(hq), T(dt), T(ht))
-    k = CM.min_hamming2(*hmargs)
-    p = CM.min_hamming2_plain(*hmargs)
-    err = max((a - b).abs().max().item() for a, b in zip(k, p))
-    log("kernel", name="min_hamming2_masked", Q=F, M=F, q_valid=int(hq.sum()),
-        t_valid=int(ht.sum()), max_abs_err=err, tol="exact")
-    if err != 0:
-        raise AssertionError("min_hamming2 disagrees with its plain version "
-                             "with partial masks")
-    out["min_hamming2_masked"] = dict(
-        err=err, ms=median_ms(lambda: CM.min_hamming2(*hmargs)),
-        plain_ms=median_ms(lambda: CM.min_hamming2_plain(*hmargs)))
+    masked(f"fuse Q={Qa} x F={F}",
+           tuple(T(x) for x in (aq, auv, arad, alv, avis, dt, tuv, tl, tv)))
 
     # the Sim3-guided projection search of loop and merge verification:
     # the candidate window's points among the whole arena, radius
@@ -292,21 +415,31 @@ def check_kernels(dev, scene, cam_r, orb_cfg, n_arena: int) -> dict:
     svis = rng.random(Qa) < 0.15
     svis[:600] = True
     for th in (8, 5):
-        sargs = tuple(T(x) for x in (
-            aq, auv, (th * 1.2 ** alv).astype(np.float32), alv, svis, dt,
-            tuv, tl, tv))
-        k = CM.fused_masked_match(*sargs)
-        p = CM.fused_masked_match_plain(*sargs)
+        masked(f"sim3 search Q={Qa} x F={F}, r={th}x1.2^l",
+               tuple(T(x) for x in (aq, auv, (th * 1.2 ** alv).astype(
+                   np.float32), alv, svis, dt, tuv, tl, tv)))
+
+    # unmasked best-two: 1024 x 1024 with duplicates (track_ref_kf), then
+    # the loop server's BoW-space matching and relocalization: only
+    # features that carry a map point take part, on both sides
+    hq, ht = rng.random(F) < 0.6, rng.random(F) < 0.6
+    for caller, hargs in (
+            ("track_ref_kf 1024 x 1024", (T(dq[:F]), T(qv[:F]), T(dt),
+                                          T(tv))),
+            ("verification / relocalization 1024 x 1024, ~60% valid",
+             (T(dq[:F]), T(hq), T(dt), T(ht)))):
+        k = CM.min_hamming2(*hargs)
+        p = CM.min_hamming2_plain(*hargs)
         err = max((a - b).abs().max().item() for a, b in zip(k, p))
-        log("kernel", name=f"masked_match_sim3_th{th}", Q=Qa,
-            visible=int(svis.sum()), F=F, matched=int((k[1] <= 50).sum()),
-            max_abs_err=err, tol="exact")
+        log("kernel", name="min_hamming2", caller=caller,
+            q_valid=int(hargs[1].sum()), t_valid=int(hargs[3].sum()),
+            ties=int((k[1] == k[2]).sum()), max_abs_err=err, tol="exact")
         if err != 0:
-            raise AssertionError("masked_match disagrees with its plain "
-                                 f"version at the Sim3 search, th={th}")
-        out[f"masked_match_sim3_th{th}"] = dict(
-            err=err, ms=median_ms(lambda: CM.fused_masked_match(*sargs)),
-            plain_ms=median_ms(lambda: CM.fused_masked_match_plain(*sargs)))
+            raise AssertionError("min_hamming2 disagrees with its plain "
+                                 f"version at the {caller} shape")
+        measure(rows, "min_hamming2", caller, err,
+                lambda: CM.min_hamming2(*hargs),
+                lambda: CM.min_hamming2_plain(*hargs), best2_work(hargs))
 
     # pose: N=1024 edges, 60 outliers, perturbed start
     n = 1024
@@ -339,13 +472,12 @@ def check_kernels(dev, scene, cam_r, orb_cfg, n_arena: int) -> dict:
         tol="rot<2e-3rad,t<5e-3,agree>=0.99")
     if not (r_err < 2e-3 and t_err < 5e-3 and agree >= 0.99):
         raise AssertionError("pose_opt disagrees with its plain version")
-    out["pose_opt"] = dict(
-        err=max((kq[0] - pq).abs().max().item(), t_err),
-        ms=median_ms(lambda: CP.pose_optimization_pinhole(*pargs)),
-        plain_ms=median_ms(lambda: CP.pose_optimization_plain(*plain)))
-    for name, r in out.items():
-        log("time", name=name, kernel_ms=r["ms"], plain_ms=r["plain_ms"])
-    return out
+    measure(rows, "pose_opt", "tracking B=1 x N=1024, 4 rounds x 6",
+            max((kq[0] - pq).abs().max().item(), t_err),
+            lambda: CP.pose_optimization_pinhole(*pargs),
+            lambda: CP.pose_optimization_plain(*plain),
+            pose_work(int(valid.sum()), int(pn), n))
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -415,13 +547,15 @@ def track_agents(dev, scene, cam_r, cam, orb_cfg, cfg, ms, trajs, n_kf,
     """Interleaved tracking of one arc per agent (extract -> step, the
     map and each agent's pose/velocity chained on the device); at
     ``ref_frame`` each agent also runs track_ref_kf from its last pose.
-    Returns per-agent results and the final map."""
+    Returns per-agent results, the final map and the kernel launches per
+    tracked frame (extract + step)."""
     from mam3slam_tpu_torch.slam import system
 
     fns = system.programs(cfg, cam.kind)
     id_q = torch.tensor([1.0, 0, 0, 0], device=dev)
     z3 = torch.zeros(3, device=dev)
     res, chains = [], []
+    frame_launches = collections.Counter()
     for traj in trajs:
         q0 = quat_of(traj[0][0]).to(dev)
         chains.append((q0, torch.tensor(traj[0][1], device=dev), id_q, z3,
@@ -436,6 +570,7 @@ def track_agents(dev, scene, cam_r, cam, orb_cfg, cfg, ms, trajs, n_kf,
             q_last, t_last, vq, vt, has_vel = chains[a]
             ms_read = ms
             sync(dev)
+            n0 = launches_now()
             t0 = time.perf_counter()
             frame = frame_of(img, orb_cfg, cam)
             ms, _, _, _, vec, chains[a] = fns["track_frame_step"](
@@ -443,6 +578,7 @@ def track_agents(dev, scene, cam_r, cam, orb_cfg, cfg, ms, trajs, n_kf,
                 False, cam.params)
             vec = vec.cpu().numpy()
             res[a]["sec"].append(time.perf_counter() - t0)
+            frame_launches.update(launches_now() - n0)
             res[a]["n_in"].append(int(vec[21]))
             res[a]["t_err"].append(centre_err(vec[0:4], vec[4:7], C))
             res[a]["r_err"].append(rot_err(vec[0:4], q_true))
@@ -453,7 +589,7 @@ def track_agents(dev, scene, cam_r, cam, orb_cfg, cfg, ms, trajs, n_kf,
                 res[a]["ref"] = dict(n_in=int(n_r), n_matches=int(n_m),
                                      r_err=rot_err(q_r, q_true),
                                      t_err=centre_err(q_r, t_r, C))
-    return res, ms
+    return res, ms, per(frame_launches, len(trajs) * len(trajs[0]))
 
 
 # ---------------------------------------------------------------------------
@@ -465,11 +601,25 @@ def run_slam(dev, scene, cam_r, cam, orb_cfg, cfg, arcs, server_cfg=None):
     ``SlamSystem.track`` only, with a ``LoopServer`` of ``server_cfg``
     attached when one is given.  Per agent: the states, the host wall of
     the frame that initialised (extract + track, synchronised) and of
-    every OK frame that inserted no keyframe."""
+    every OK frame that inserted no keyframe.  Also the kernel launches
+    per such frame and per mapping epoch."""
     from mam3slam_tpu_torch.slam import system
     from mam3slam_tpu_torch.slam.server import LoopServer
 
     sys_ = system.SlamSystem(cfg, cam, seed=0)
+    # programs() is cached and shared: count this system's epochs alone
+    sys_.fns = dict(sys_.fns)
+    epoch_fn = sys_.fns["mapping_epoch"]
+    frame_launches = collections.Counter()
+    epoch_launches = collections.Counter()
+
+    def counted_epoch(*args):
+        n0 = launches_now()
+        out = epoch_fn(*args)
+        epoch_launches.update(launches_now() - n0)
+        return out
+
+    sys_.fns["mapping_epoch"] = counted_epoch
     if server_cfg is not None:
         sys_.server = LoopServer(sys_, server_cfg)
     agents = [dict(aid=sys_.add_agent(), states=[], init_ms=None,
@@ -481,6 +631,7 @@ def run_slam(dev, scene, cam_r, cam, orb_cfg, cfg, arcs, server_cfg=None):
             before = sys_.agents[ag["aid"]].state
             n_epochs = len(sys_.epochs)
             sync(dev)
+            n0 = launches_now()
             t0 = time.perf_counter()
             state, _ = sys_.track(ag["aid"], frame_of(img, orb_cfg, cam),
                                   ts=i * DT)
@@ -491,7 +642,11 @@ def run_slam(dev, scene, cam_r, cam, orb_cfg, cfg, arcs, server_cfg=None):
                 ag["init_ms"] = ms
             elif before == system.OK and len(sys_.epochs) == n_epochs:
                 ag["track_ms"].append(ms)
-    return sys_, agents
+                frame_launches.update(launches_now() - n0)
+    n_frames = sum(len(ag["track_ms"]) for ag in agents)
+    return sys_, agents, dict(per_frame=per(frame_launches, n_frames),
+                              per_epoch=per(epoch_launches,
+                                            len(sys_.epochs)))
 
 
 def ate_rmse(est: np.ndarray, gt: np.ndarray) -> float:
@@ -700,13 +855,16 @@ def main() -> int:
     _build.library()
     log("build", seconds=time.perf_counter() - t0,
         nvcc_seconds=_build.build_seconds, lib=_build.library_path())
+    for line in _build.build_log.splitlines():
+        if "ptxas info" in line or "bytes stack frame" in line:
+            log("ptxas", line=repr(line.strip()))
 
     # 3. kernels vs plain
     cam_r = render.RenderCam(W, H, FX, FY, CX, CY)
     scene = render.RoomScene(seed=5, device=dev)
     orb_cfg = O.OrbConfig(height=H, width=W, n_features=N_FEATURES)
-    kernels = check_kernels(dev, scene, cam_r, orb_cfg,
-                            system.SlamConfig(W, H).max_mp)
+    timed = check_kernels(dev, scene, cam_r, orb_cfg,
+                          system.SlamConfig(W, H).max_mp)
 
     # 4. tracking: map from the bob=+0.05 arc, agents on +0.05 / -0.05
     cfg = system.SlamConfig(width=W, height=H, n_feat=orb_cfg.capacity)
@@ -723,8 +881,9 @@ def main() -> int:
         raise AssertionError("map smaller than 24 KF / 10k points")
 
     _build.reset_counts()
-    res, ms = track_agents(dev, scene, cam_r, cam, orb_cfg, cfg, ms,
-                           [arc0, arc1], n_kf, ref_frame=N_ARC // 2)
+    res, ms, track_per_frame = track_agents(
+        dev, scene, cam_r, cam, orb_cfg, cfg, ms, [arc0, arc1], n_kf,
+        ref_frame=N_ARC // 2)
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
     plain = dict(_build.PLAIN_CALLS)
@@ -745,7 +904,8 @@ def main() -> int:
             raise AssertionError(f"agent {a} lost the true pose")
         if ref["t_err"] > MAX_T_ERR or ref["r_err"] > MAX_R_ERR:
             raise AssertionError(f"agent {a}: track_ref_kf off the pose")
-    log("counters", path="track", launches=launches, plain_calls=plain)
+    log("counters", path="track", launches=launches, plain_calls=plain,
+        per_tracked_frame=track_per_frame)
     if any(launches.get(k, 0) == 0 for k in KERNELS) or any(plain.values()):
         raise AssertionError("the main path did not run every kernel")
 
@@ -754,13 +914,14 @@ def main() -> int:
             for a0, a1, b in SLAM_ARCS]
     _build.reset_counts()
     t0 = time.perf_counter()
-    sys_, agents = run_slam(dev, scene, cam_r, cam, orb_cfg, cfg, arcs)
+    sys_, agents, slam_per = run_slam(dev, scene, cam_r, cam, orb_cfg, cfg,
+                                      arcs)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     slam_launches = dict(_build.LAUNCHES)
     slam_plain = dict(_build.PLAIN_CALLS)
     log("counters", path="slam", launches=slam_launches,
-        plain_calls=slam_plain, seconds=seconds)
+        plain_calls=slam_plain, seconds=seconds, **slam_per)
     check_slam(sys_, agents, arcs)
     slam_times(sys_, agents, smi)
     if (any(slam_launches.get(k, 0) == 0 for k in SLAM_KERNELS)
@@ -777,8 +938,8 @@ def main() -> int:
                                        radius=2.5, bob=LOOP_ARC[2])
     _build.reset_counts()
     t0 = time.perf_counter()
-    sys6, agents6 = run_slam(dev, scene6, cam_r, cam, orb_cfg, cfg,
-                             merge_arcs, ServerConfig())
+    sys6, agents6, _ = run_slam(dev, scene6, cam_r, cam, orb_cfg, cfg,
+                                merge_arcs, ServerConfig())
     check_merge(sys6, agents6, merge_arcs, MERGE_MAX_ATE_FRAC)
     relocalize(sys6, scene6, cam_r, cam, orb_cfg, agents6[1]["aid"],
                merge_arcs[0], MERGE_FRAMES * DT)
@@ -798,8 +959,8 @@ def main() -> int:
 
     _build.reset_counts()
     t0 = time.perf_counter()
-    sys6, agents6 = run_slam(dev, scene6, cam_r, cam, orb_cfg, cfg,
-                             [loop_arc], ServerConfig())
+    sys6, agents6, _ = run_slam(dev, scene6, cam_r, cam, orb_cfg, cfg,
+                                [loop_arc], ServerConfig())
     torch.cuda.synchronize()
     loop_launches = dict(_build.LAUNCHES)
     loop_plain = dict(_build.PLAIN_CALLS)
@@ -820,12 +981,24 @@ def main() -> int:
             merge_plain.values()) or any(loop_plain.values())):
         raise AssertionError("the server path did not run every kernel")
 
+    rows = {k: [r for r in timed if r["kernel"] == k] for k in KERNELS}
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": (launches[k] + slam_launches.get(k, 0)
                       + server_launches[k]),
-         "max_abs_err": kernels[k]["err"],
-         "ms": kernels[k]["ms"], "plain_ms": kernels[k]["plain_ms"]}
+         "max_abs_err": max(r["max_abs_err"] for r in rows[k]),
+         "ms": rows[k][0]["wrapper_ms"], "device_ms": rows[k][0]["device_ms"],
+         "plain_ms": rows[k][0]["plain_ms"],
+         "bound_ms": rows[k][0]["bound_us"] / 1e3,
+         "bound_by": rows[k][0]["bound_by"], "library_ms": None,
+         "library": NO_LIBRARY,
+         "launches_per_tracked_frame": track_per_frame.get(k, 0),
+         "launches_per_slam_frame": slam_per["per_frame"].get(k, 0),
+         "launches_per_epoch": slam_per["per_epoch"].get(k, 0),
+         "callers": [{c: r[c] for c in (
+             "caller", "device_ms", "timer", "wrapper_ms", "plain_ms",
+             "bound_us", "bound_by", "share", "max_abs_err")}
+             for r in rows[k]]}
         for k, (src, rep) in KERNELS.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,13 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-All ``csrc/*.cu`` files compile with ``nvcc`` into ONE shared library with
-a plain C interface (no PyTorch headers, so a build takes seconds), which
-is loaded with ``ctypes``.  The library lands in ``build/mam3slam_tpu_torch/``
-at the repository root, named by a hash of the sources and flags: the
-first kernel launch of a process builds it when it is missing, so a fresh
-checkout needs no separate build step.
+Each ``csrc/*.cu`` file compiles with its own ``nvcc`` process, all
+started together, and the objects link into ONE shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds), which
+is loaded with ``ctypes``.  ``build_log`` keeps ptxas's report of each
+kernel (registers, shared memory, spills).  The library lands in
+``build/mam3slam_tpu_torch/`` at the repository root, named by a hash of
+the sources and flags: the first kernel launch of a process builds it
+when it is missing, so a fresh checkout needs no separate build step.
 
 Every kernel wrapper adds one to ``LAUNCHES[name]`` where it launches its
 kernel, and every plain PyTorch version adds one to ``PLAIN_CALLS[name]``,
@@ -31,7 +33,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "mam3slam_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES: collections.Counter = collections.Counter()
 PLAIN_CALLS: collections.Counter = collections.Counter()
@@ -50,7 +52,8 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib = None
-build_seconds = None  # wall time of this process's nvcc run (None: cached)
+build_seconds = None  # wall time of this process's nvcc runs (None: cached)
+build_log = ""        # their ptxas reports
 
 
 def reset_counts() -> None:
@@ -98,18 +101,36 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
+def _run_all(cmds) -> str:
+    """Run the commands together and read every one's output to its end;
+    raise on the first that failed, else return their joined output."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    logs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, log in zip(cmds, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc failed:\n" + " ".join(cmd) + "\n" + log)
+    return "".join(logs)
+
+
 def _compile(out: str) -> None:
-    global build_seconds
+    global build_seconds, build_log
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in _sources() if s.endswith(".cu")]]
+    tmp = f"{out}.{os.getpid()}"
+    objs = {src: f"{tmp}.{os.path.basename(src)}.o"
+            for src in _sources() if src.endswith(".cu")}
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError("nvcc failed:\n" + " ".join(cmd) + "\n"
-                           + proc.stdout + proc.stderr)
-    os.replace(tmp, out)
+    try:
+        build_log = _run_all([[_nvcc(), *NVCC_FLAGS, "-c", src, "-o", obj]
+                              for src, obj in objs.items()])
+        _run_all([[_nvcc(), "-shared", *NVCC_FLAGS[:2], "-o", f"{tmp}.so",
+                   *objs.values()]])
+    finally:
+        for obj in objs.values():
+            if os.path.exists(obj):
+                os.remove(obj)
+    os.replace(f"{tmp}.so", out)
     build_seconds = time.perf_counter() - t0
 
 

@@ -4,36 +4,241 @@
 // Replace the Pallas TPU kernels mam3slam_tpu/ops/pallas_match.py:
 // fused_masked_match (body _match_kernel) and min_hamming2 (body
 // _minham2_kernel).  Plain PyTorch versions and semantics:
-// mam3slam_tpu_torch/ops/cuda_match.py.
+// mam3slam_tpu_torch/ops/cuda_match.py.  Both reproduce best_in_mask
+// exactly: the lowest index wins ties, d2 is the best over the other
+// targets (it may equal d1), and a query with no candidate gets
+// (0, BIG, BIG).  Distances are exact integers (XOR + __popc over 8 u32
+// words), not the MXU bit-matmul identity nor the Pallas kernel's packed
+// f32 keys / bf16 nibbles.
 //
-// What bounds it on the H100: the tracking step calls it at Q = 4096
-// candidates x M = 1024 features: 4.2 M candidate pairs, each 8 XOR +
-// 8 popc on 32-byte descriptors plus a radius/level test — about 0.1
-// GOP, and 160 KB of inputs that stay in L2/shared memory.  So it is
-// neither memory- nor compute-bound at this size: occupancy is.  One
-// thread per query gives 4096 threads = 32 blocks of 128, a quarter of
-// the 132 SMs, each thread walking all M targets serially.  Splitting the
-// targets of a query across a warp (and merging the best-two pairs) is
-// the next step and is left to a later change.
+// masked_match_kernel (fused_masked_match).
+// What bounds it on the H100: the callers pass Q = 4096 candidates
+// (tracking, 2-3 launches a frame) or Q = 24576 arena points of which
+// 10-17% are visible (the fuse, the server's Sim3 search) against the
+// frame's M = 1024 features.  The least work is a level and radius test
+// per (valid query, valid target) pair, ~8 ops (4.2 M pairs at Q = 4096:
+// ~0.5 us at the f32 CUDA-core peak), and 8 XOR + 8 popc for the < 1% of
+// pairs inside the mask; the inputs are 0.2-1.2 MB (0.1-0.4 us at
+// 3.35 TB/s).  Either way the bound is under a microsecond: launch
+// latency and filling the SMs decide the time.
+// Design: one block of 1024 threads per SM at most (a persistent grid
+// sized by the device's SM count), each block stages the whole target set in dynamic
+// shared memory once: descriptors word-major, u32[8][M], so lanes reading
+// neighbouring targets hit neighbouring banks, and one 16-byte record
+// (u, v, level, valid) per target, so the mask test is one 128-bit shared
+// load.  The staging repacks (transposes the descriptors, packs the
+// records), so it uses plain 16-byte global loads rather than cp.async or
+// a bulk TMA copy, which copy bytes as they are; at M = 1024 it is 48 KB
+// a block.  Larger M is staged in passes of kMaxTile targets whose
+// best-two results merge exactly.  The queries go in chunks of 32 to the
+// blocks in turn (chunk c to block c mod grid), so that valid queries
+// that sit together, as the visible points among recent arena slots do,
+// spread over the blocks.  A block reads its chunks' valid flags (one a
+// thread), compacts the valid queries in shared memory (a ballot per
+// warp, a prefix over the warps), and its warps take one valid query each
+// in turn: an invalid query costs one flag load.  A warp loads its query
+// in one round trip (lanes 0-11 load the descriptor words, u, v, radius
+// and level; shuffles share them).
+// Lane l tests targets l, l + 32, ... in ascending order: the level window
+// and the radius with __fmul_rn / __fadd_rn / __fsub_rn in the plain
+// version's order (dx^2 + dy^2 <= r^2; an FMA would flip candidates that
+// sit exactly on the radius), computed without branches so the shared
+// loads of later targets issue early, then the Hamming distance of the
+// survivors only.  Each lane keeps (d1, idx, d2); since its targets
+// come in ascending order, d < d1 is the lexicographic (d, j) < (d1, idx).
+// The lanes merge by a 5-step xor butterfly of
+//   merge(a, b) = (b.d1, b.idx) < (a.d1, a.idx)
+//                 ? (b.d1, b.idx, min(a.d1, b.d2))
+//                 : (a.d1, a.idx, min(a.d2, b.d1)),
+// which is exact whatever the order of the merge: an empty lane holds
+// (BIG, INT_MAX, BIG), and idx = 0 where d1 == BIG at the end.  No binary
+// tensor cores here: < 1% of pairs pass the mask.
 //
-// Design: one thread per query, targets staged through shared memory in
-// tiles of kTile and scanned in ascending index.  Distances are exact
-// integers (XOR + __popc over 8 u32 words), not the MXU bit-matmul
-// identity nor the Pallas kernel's packed f32 keys / bf16 nibbles.  The
-// update rule d < d1 -> (d2, d1, idx) = (d1, d, j); else d < d2 -> d2 = d,
-// from d1 = d2 = BIG, idx = 0, reproduces best_in_mask exactly: the
-// lowest index wins ties, d2 may equal d1, a query with no candidate gets
-// (0, BIG, BIG).  The radius test uses __fmul_rn / __fadd_rn so nvcc
-// cannot contract dx*dx + dy*dy into an FMA, which would flip candidates
-// that sit exactly on the radius.
+// best2_kernel (min_hamming2): one thread per query, the targets staged
+// through shared memory in tiles of kTile and scanned in ascending index,
+// each thread walking all M targets.
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
 
+constexpr int kBig = 1 << 20;
+
+// ---------------------------------------------------------------------------
+// masked_match_kernel
+// ---------------------------------------------------------------------------
+
+constexpr int kMatchThreads = 1024;
+constexpr int kMatchWarps = kMatchThreads / 32;
+constexpr int kMaxTile = 2048;  // targets per pass: 96 KB of shared memory
+
+struct __align__(16) TargetRec {
+  float u, v;
+  int level, valid;
+};
+
+constexpr size_t kBytesPerTarget = sizeof(TargetRec) + 8 * sizeof(uint32_t);
+
+// (d1, idx, d2) <- merge((d1, idx, d2), (od1, oidx, od2)); symmetric.
+__device__ __forceinline__ void merge_best2(int& d1, int& idx, int& d2,
+                                            int od1, int oidx, int od2) {
+  if (od1 < d1 || (od1 == d1 && oidx < idx)) {
+    d2 = min(d1, od2);
+    d1 = od1;
+    idx = oidx;
+  } else {
+    d2 = min(d2, od1);
+  }
+}
+
+// One query against the staged targets [base, base + n): lanes 0-7 hold
+// its descriptor words, lanes 8-11 its u, v, radius and level, loaded in
+// one round trip and shared by shuffles; returns the warp's (d1, idx, d2)
+// in every lane.
+__device__ __forceinline__ void scan_query(
+    int i, int lane, const uint32_t* __restrict__ q_desc,
+    const float* __restrict__ q_uv, const float* __restrict__ q_rad,
+    const int* __restrict__ q_level, const TargetRec* s_rec,
+    const uint32_t* s_desc, int tile, int base, int n, int& d1, int& idx,
+    int& d2) {
+  uint32_t mine = 0u;
+  if (lane < 8) mine = q_desc[8 * i + lane];
+  else if (lane < 10) mine = __float_as_uint(q_uv[2 * i + lane - 8]);
+  else if (lane == 10) mine = __float_as_uint(q_rad[i]);
+  else if (lane == 11) mine = (uint32_t)q_level[i];
+  uint32_t q[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) q[k] = __shfl_sync(0xffffffffu, mine, k);
+  const float qu = __uint_as_float(__shfl_sync(0xffffffffu, mine, 8));
+  const float qv = __uint_as_float(__shfl_sync(0xffffffffu, mine, 9));
+  const float rad = __uint_as_float(__shfl_sync(0xffffffffu, mine, 10));
+  const int ql = (int)__shfl_sync(0xffffffffu, mine, 11);
+  const float r2 = __fmul_rn(rad, rad);
+  d1 = kBig;
+  idx = INT_MAX;
+  d2 = kBig;
+#pragma unroll 4
+  for (int e = lane; e < n; e += 32) {
+    const TargetRec t = s_rec[e];
+    const float dx = __fsub_rn(qu, t.u);
+    const float dy = __fsub_rn(qv, t.v);
+    // level in [ql - 1, ql + 1] as one unsigned compare
+    const bool in = t.valid && (unsigned)(t.level - ql + 1) <= 2u &&
+                    __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)) <= r2;
+    if (in) {
+      int d = 0;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) d += __popc(q[k] ^ s_desc[k * tile + e]);
+      if (d < d1) {
+        d2 = d1;
+        d1 = d;
+        idx = base + e;
+      } else {
+        d2 = min(d2, d);
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const int od1 = __shfl_xor_sync(0xffffffffu, d1, o);
+    const int oidx = __shfl_xor_sync(0xffffffffu, idx, o);
+    const int od2 = __shfl_xor_sync(0xffffffffu, d2, o);
+    merge_best2(d1, idx, d2, od1, oidx, od2);
+  }
+}
+
+__global__ void __launch_bounds__(kMatchThreads)
+masked_match_kernel(const uint32_t* __restrict__ q_desc,
+                    const float* __restrict__ q_uv,
+                    const float* __restrict__ q_rad,
+                    const int* __restrict__ q_level,
+                    const uint8_t* __restrict__ q_valid, int nq,
+                    const uint32_t* __restrict__ t_desc,
+                    const float* __restrict__ t_uv,
+                    const int* __restrict__ t_level,
+                    const uint8_t* __restrict__ t_valid, int nt, int tile,
+                    int* __restrict__ out_idx, int* __restrict__ out_d1,
+                    int* __restrict__ out_d2) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  TargetRec* s_rec = reinterpret_cast<TargetRec*>(smem);
+  uint32_t* s_desc = reinterpret_cast<uint32_t*>(s_rec + tile);  // [8][tile]
+  __shared__ int s_list[kMatchThreads];  // this round's valid queries
+  __shared__ int s_warp_count[kMatchWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // queries in chunks of 32, dealt to the blocks in turn: valid queries
+  // that sit together (recent arena slots) spread over the blocks
+  const int n_chunks = (nq + 31) / 32;
+
+  for (int base = 0; base < max(nt, 1); base += tile) {
+    const int n = max(0, min(tile, nt - base));
+    for (int e = threadIdx.x; e < n; e += kMatchThreads) {
+      const int j = base + e;
+      TargetRec r;
+      r.u = t_uv[2 * j];
+      r.v = t_uv[2 * j + 1];
+      r.level = t_level[j];
+      r.valid = t_valid[j];
+      s_rec[e] = r;
+    }
+    // each 16-byte chunk is half a descriptor: words 4h..4h+3 of target e
+    const uint4* t_chunks = reinterpret_cast<const uint4*>(t_desc) + 2 * base;
+    for (int c = threadIdx.x; c < 2 * n; c += kMatchThreads) {
+      const uint4 w = t_chunks[c];
+      const int e = c >> 1, k = (c & 1) * 4;
+      s_desc[(k + 0) * tile + e] = w.x;
+      s_desc[(k + 1) * tile + e] = w.y;
+      s_desc[(k + 2) * tile + e] = w.z;
+      s_desc[(k + 3) * tile + e] = w.w;
+    }
+
+    // rounds of one chunk a warp: one valid flag a thread, the valid
+    // queries compacted into s_list, then one warp a valid query
+    for (int r0 = blockIdx.x; r0 < n_chunks; r0 += gridDim.x * kMatchWarps) {
+      const int chunk = r0 + warp * gridDim.x;
+      const int i = chunk * 32 + lane;
+      const bool in = chunk < n_chunks && i < nq;
+      const bool live = in && q_valid[i];
+      if (base == 0 && in && !live) {
+        out_idx[i] = 0;
+        out_d1[i] = kBig;
+        out_d2[i] = kBig;
+      }
+      const unsigned ballot = __ballot_sync(0xffffffffu, live);
+      if (lane == 0) s_warp_count[warp] = __popc(ballot);
+      __syncthreads();  // also: the staged targets are in place
+      int offset = 0, total = 0;
+      for (int w = 0; w < kMatchWarps; ++w) {
+        const int c = s_warp_count[w];
+        offset += w < warp ? c : 0;
+        total += c;
+      }
+      if (live) s_list[offset + __popc(ballot & ((1u << lane) - 1u))] = i;
+      __syncthreads();
+      for (int k = warp; k < total; k += kMatchWarps) {
+        const int qi = s_list[k];
+        int d1, idx, d2;
+        scan_query(qi, lane, q_desc, q_uv, q_rad, q_level, s_rec, s_desc,
+                   tile, base, n, d1, idx, d2);
+        if (lane == 0) {
+          if (base)
+            merge_best2(d1, idx, d2, out_d1[qi], out_idx[qi], out_d2[qi]);
+          out_idx[qi] = d1 == kBig ? 0 : idx;
+          out_d1[qi] = d1;
+          out_d2[qi] = d2;
+        }
+      }
+      __syncthreads();  // s_list and s_warp_count are reused
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// best2_kernel
+// ---------------------------------------------------------------------------
+
 constexpr int kThreads = 128;
 constexpr int kTile = 128;
-constexpr int kBig = 1 << 20;
 
 struct Best2 {
   int idx, d1, d2;
@@ -57,62 +262,34 @@ __device__ __forceinline__ int hamming(const uint32_t (&q)[8],
   return d;
 }
 
-template <bool kMasked>
 __global__ void __launch_bounds__(kThreads)
 best2_kernel(const uint32_t* __restrict__ q_desc,
-             const float* __restrict__ q_uv, const float* __restrict__ q_rad,
-             const int* __restrict__ q_level,
              const uint8_t* __restrict__ q_valid, int nq,
              const uint32_t* __restrict__ t_desc,
-             const float* __restrict__ t_uv, const int* __restrict__ t_level,
              const uint8_t* __restrict__ t_valid, int nt,
              int* __restrict__ out_idx, int* __restrict__ out_d1,
              int* __restrict__ out_d2) {
   __shared__ uint32_t s_desc[kTile][8];
-  __shared__ float s_uv[kTile][2];
-  __shared__ int s_level[kTile];
   __shared__ uint8_t s_valid[kTile];
 
   const int i = blockIdx.x * kThreads + threadIdx.x;
   const bool live = i < nq && q_valid[i];
   uint32_t q[8];
-  float qu = 0.f, qv = 0.f, r2 = 0.f;
-  int ql = 0;
   if (live) {
 #pragma unroll
     for (int k = 0; k < 8; ++k) q[k] = q_desc[8 * i + k];
-    if (kMasked) {
-      qu = q_uv[2 * i];
-      qv = q_uv[2 * i + 1];
-      r2 = __fmul_rn(q_rad[i], q_rad[i]);
-      ql = q_level[i];
-    }
   }
   Best2 best;
   for (int base = 0; base < nt; base += kTile) {
     const int n = min(kTile, nt - base);
     for (int e = threadIdx.x; e < n * 8; e += kThreads)
       s_desc[e / 8][e % 8] = t_desc[8 * base + e];
-    for (int e = threadIdx.x; e < n; e += kThreads) {
+    for (int e = threadIdx.x; e < n; e += kThreads)
       s_valid[e] = t_valid[base + e];
-      if (kMasked) {
-        s_uv[e][0] = t_uv[2 * (base + e)];
-        s_uv[e][1] = t_uv[2 * (base + e) + 1];
-        s_level[e] = t_level[base + e];
-      }
-    }
     __syncthreads();
     if (live) {
       for (int j = 0; j < n; ++j) {
         if (!s_valid[j]) continue;
-        if (kMasked) {
-          const int lv = s_level[j];
-          if (lv < ql - 1 || lv > ql + 1) continue;
-          const float dx = __fsub_rn(qu, s_uv[j][0]);
-          const float dy = __fsub_rn(qv, s_uv[j][1]);
-          if (!(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)) <= r2))
-            continue;
-        }
         best.push(hamming(q, s_desc[j]), base + j);
       }
     }
@@ -125,8 +302,6 @@ best2_kernel(const uint32_t* __restrict__ q_desc,
   }
 }
 
-int blocks(int nq) { return (nq + kThreads - 1) / kThreads; }
-
 }  // namespace
 
 // Queries [Q] (desc [Q, 8] u32, uv [Q, 2] f32, radius [Q] f32, level [Q]
@@ -138,9 +313,23 @@ extern "C" int mam3_masked_match(const uint32_t* q_desc, const float* q_uv,
                                  const int* t_level, const uint8_t* t_valid,
                                  int nt, int* idx, int* d1, int* d2,
                                  void* stream) {
-  best2_kernel<true><<<blocks(nq), kThreads, 0, (cudaStream_t)stream>>>(
+  // on the current device: the SM count that sizes the persistent grid,
+  // and the dynamic shared memory the kernel may take
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(masked_match_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)(kMaxTile * kBytesPerTarget));
+  if (err != cudaSuccess) return (int)err;
+  const int tile = max(1, min(nt, kMaxTile));
+  const int blocks = max(1, min(sms, (nq + kMatchWarps - 1) / kMatchWarps));
+  masked_match_kernel<<<blocks, kMatchThreads, tile * kBytesPerTarget,
+                        (cudaStream_t)stream>>>(
       q_desc, q_uv, q_rad, q_level, q_valid, nq, t_desc, t_uv, t_level,
-      t_valid, nt, idx, d1, d2);
+      t_valid, nt, tile, idx, d1, d2);
   return (int)cudaGetLastError();
 }
 
@@ -150,8 +339,8 @@ extern "C" int mam3_min_hamming2(const uint32_t* q_desc,
                                  const uint32_t* t_desc,
                                  const uint8_t* t_valid, int nt, int* idx,
                                  int* d1, int* d2, void* stream) {
-  best2_kernel<false><<<blocks(nq), kThreads, 0, (cudaStream_t)stream>>>(
-      q_desc, nullptr, nullptr, nullptr, q_valid, nq, t_desc, nullptr,
-      nullptr, t_valid, nt, idx, d1, d2);
+  best2_kernel<<<(nq + kThreads - 1) / kThreads, kThreads, 0,
+                 (cudaStream_t)stream>>>(q_desc, q_valid, nq, t_desc,
+                                         t_valid, nt, idx, d1, d2);
   return (int)cudaGetLastError();
 }

@@ -8,35 +8,56 @@
 // mam3slam_tpu/solvers/ba.py:329-396).
 //
 // What bounds it on the H100: 4 rounds x (iters + 1) = 24 evaluations,
-// each a pass over N = 1024 edges (~60 flops and 36 bytes an edge) and a
-// 6x6 solve that depends on the pass before it.  That is ~1.5 MFLOP in a
-// chain of 24 dependent steps: latency-bound, so the design keeps the
-// chain inside one block (no launch, no host round trip between steps)
-// and spends nothing on filling the card.  A batch of problems (one per
-// agent) takes one block each.
+// each a pass of ~150 flops an edge over the edges active in its round,
+// plus the projection and chi2 (~35 flops) of the valid edges that rounds
+// 1-3 re-classify as outliers and of every valid edge in the final
+// classification: 3.4 MFLOP at
+// N = 1024 with ~930 inliers, 0.05 us at the f32 peak, and 26 KB of
+// edges.  The real floor
+// is the chain of dependent steps: every evaluation needs the pose that
+// the previous one's 6x6 solve produced, so the time is the sum of the
+// steps' critical paths (pass, block reduction, solve, retraction).
 //
-// Design: per evaluation, the 256 threads stride over the edges and keep
-// the 21 upper-triangle H entries, the 6 g entries and the robust cost in
-// registers, reduced across the block by warp shuffles and shared memory.
-// Thread 0 then makes the LM decision (accept if the cost fell: lambda
-// x0.5, else x4), damps H + (lambda max(diag, 1e-6) + 1e-8) I, solves it
-// by Cholesky, retracts with the SE3 exp (quaternion + left Jacobian) and
-// writes the next pose to shared memory.  The pose is a quaternion, as in
-// the reference's XLA path, not the Pallas kernel's 9 matrix scalars.  As
-// there, the trial pose is evaluated at the start of the next iteration
-// and the step is always taken from the best pose; rounds 0-1 use the
-// Huber weight (delta^2 = 5.991); between rounds every edge is
-// re-classified active = valid & depth > 1e-3 & chi2 <= 5.991 into the
-// inlier output, which the next round reads.
+// Design: one block of 512 threads per problem (tracking passes B = 1, a
+// batch of agents one block each).  Each thread holds two edges (point,
+// pixel, weight, valid and active bit) in registers for the whole solve,
+// loaded once; edges past 2 x 512 are strided over and re-read from
+// memory, their active bits kept in the inlier output.  Per evaluation:
+//   1. every thread linearises its edges at the current pose and
+//      accumulates the 21 upper-triangle H entries, the 6 g entries and
+//      the robust cost (32 slots with 4 spare);
+//   2. each warp reduces the 32 slots by recursive halving over xor
+//      shuffles (31 shuffles; lane l ends with slot l's warp total) into
+//      s_part[16][32];  barrier;
+//   3. warp 0: lane l sums column l over the 16 warps, the 28 totals are
+//      broadcast to every lane by shuffles, and every lane of warp 0 makes
+//      the LM decision (accept if the cost fell: lambda x0.5 clamped at
+//      1e-7, else x4 clamped at 1e4), damps H + (lambda max(diag, 1e-6) +
+//      1e-8) I, solves it by an unrolled LDL^T (one reciprocal a column)
+//      and retracts with the SE3 exp (quaternion + left Jacobian; one
+//      sincosf, no fast-math intrinsics), all in registers; lane 0 writes
+//      the next pose and its rotation matrix to shared memory;  barrier.
+// The re-classification between rounds (active = valid & depth > 1e-3 &
+// chi2 <= 5.991) happens at the pose that the next round's first
+// evaluation linearises, so the two share one pass: classify, then
+// accumulate under the new round's robust flag.  The last evaluation of a
+// round only updates the best pose (its step would be discarded), and
+// only the final re-classification, which gives the returned inliers, is
+// a pass of its own.  As in the reference's XLA path the pose is a
+// quaternion, the trial pose is evaluated at the start of the next
+// iteration, the step is always taken from the best pose, and rounds 0-1
+// use the Huber weight (delta^2 = 5.991).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kAcc = 28;  // 21 H (upper triangle) + 6 g + cost
+constexpr int kRegEdges = 2;   // edges a thread keeps in registers
+constexpr int kSlots = 32;     // 21 H (upper triangle) + 6 g + cost + 4 spare
+constexpr int kCost = 27;
 constexpr float kDelta2 = 5.991f;
 
 struct Pose {
@@ -44,7 +65,7 @@ struct Pose {
   float t[3];
 };
 
-__device__ void quat_to_matrix(const float* q, float* R) {
+__device__ __forceinline__ void quat_to_matrix(const float* q, float* R) {
   const float w = q[0], x = q[1], y = q[2], z = q[3];
   R[0] = 1 - 2 * (y * y + z * z);
   R[1] = 2 * (x * y - w * z);
@@ -57,22 +78,25 @@ __device__ void quat_to_matrix(const float* q, float* R) {
   R[8] = 1 - 2 * (x * x + y * y);
 }
 
-__device__ void quat_mul(const float* a, const float* b, float* o) {
+__device__ __forceinline__ void quat_mul(const float* a, const float* b,
+                                         float* o) {
   o[0] = a[0] * b[0] - a[1] * b[1] - a[2] * b[2] - a[3] * b[3];
   o[1] = a[0] * b[1] + a[1] * b[0] + a[2] * b[3] - a[3] * b[2];
   o[2] = a[0] * b[2] - a[1] * b[3] + a[2] * b[0] + a[3] * b[1];
   o[3] = a[0] * b[3] + a[1] * b[2] - a[2] * b[1] + a[3] * b[0];
 }
 
-__device__ void quat_normalize(float* q) {
+__device__ __forceinline__ void quat_normalize(float* q) {
   const float n = sqrtf(q[0] * q[0] + q[1] * q[1] + q[2] * q[2] +
                         q[3] * q[3]);
   const float s = 1.f / fmaxf(n, 1e-8f);
+#pragma unroll
   for (int k = 0; k < 4; ++k) q[k] *= s;
 }
 
 // v + 2 (w (u x v) + u x (u x v)), u = q.xyz
-__device__ void quat_rotate(const float* q, const float* v, float* o) {
+__device__ __forceinline__ void quat_rotate(const float* q, const float* v,
+                                            float* o) {
   const float ux = q[1], uy = q[2], uz = q[3];
   const float cx = uy * v[2] - uz * v[1];
   const float cy = uz * v[0] - ux * v[2];
@@ -82,28 +106,39 @@ __device__ void quat_rotate(const float* q, const float* v, float* o) {
   o[2] = v[2] + 2.f * (q[0] * cz + (ux * cy - uy * cx));
 }
 
-// SE3 exp of [rho, phi] applied on the left of `base`.
-__device__ void retract(const float* dx, const Pose& base, Pose& out) {
+// SE3 exp of [rho, phi] applied on the left of `base`.  One sincosf of
+// th / 2 gives sin th and cos th by the double-angle identities, and the
+// quotients multiply by 1 / th: the chain of dependent steps is short.
+__device__ __forceinline__ void retract(const float* dx, const Pose& base,
+                                        Pose& out) {
   const float* rho = dx;
   const float* phi = dx + 3;
   const float th2 = phi[0] * phi[0] + phi[1] * phi[1] + phi[2] * phi[2];
   const bool small = th2 < 1e-8f;
   const float th = sqrtf(small ? 1.f : th2);
-  const float k = small ? 0.5f - th2 / 48.f : sinf(0.5f * th) / th;
-  float dq[4] = {small ? 1.f - th2 / 8.f : cosf(0.5f * th), k * phi[0],
-                 k * phi[1], k * phi[2]};
+  const float ith = 1.f / th;
+  float sh, ch;
+  sincosf(0.5f * th, &sh, &ch);
+  const float k = small ? 0.5f - th2 * (1.f / 48.f) : sh * ith;
+  float dq[4] = {small ? 1.f - th2 * 0.125f : ch, k * phi[0], k * phi[1],
+                 k * phi[2]};
   quat_normalize(dq);
-  // left Jacobian V = I + b K + c K^2, K = hat(phi)
-  const float b = small ? 0.5f - th2 / 24.f : (1.f - cosf(th)) / (th * th);
-  const float c = small ? 1.f / 6.f - th2 / 120.f
-                        : (th - sinf(th)) / (th * th * th);
+  // left Jacobian V = I + b K + c K^2, K = hat(phi); 1 - cos th =
+  // 2 sin^2(th / 2), sin th = 2 sin(th / 2) cos(th / 2)
+  const float b =
+      small ? 0.5f - th2 * (1.f / 24.f) : 2.f * sh * sh * ith * ith;
+  const float c = small ? 1.f / 6.f - th2 * (1.f / 120.f)
+                        : (th - 2.f * sh * ch) * ith * ith * ith;
   const float K[9] = {0.f, -phi[2], phi[1], phi[2], 0.f, -phi[0],
                       -phi[1], phi[0], 0.f};
   float dt[3];
+#pragma unroll
   for (int i = 0; i < 3; ++i) {
     float s = rho[i];
+#pragma unroll
     for (int j = 0; j < 3; ++j) {
       float k2 = 0.f;
+#pragma unroll
       for (int m = 0; m < 3; ++m) k2 += K[3 * i + m] * K[3 * m + j];
       s += (b * K[3 * i + j] + c * k2) * rho[j];
     }
@@ -113,29 +148,46 @@ __device__ void retract(const float* dx, const Pose& base, Pose& out) {
   quat_normalize(out.q);
   float rt[3];
   quat_rotate(dq, base.t, rt);
+#pragma unroll
   for (int i = 0; i < 3; ++i) out.t[i] = rt[i] + dt[i];
 }
 
-// Solve (H) x = rhs for SPD 6x6 H (full, row-major) by Cholesky.
-__device__ void chol_solve6(const float* H, const float* rhs, float* x) {
-  float L[36];
-  for (int i = 0; i < 6; ++i) {
-    for (int j = 0; j <= i; ++j) {
+// Solve H x = rhs for SPD 6x6 H (full, row-major) by LDL^T: the
+// Cholesky factorisation without its square roots (D_j = L_jj^2, floored
+// at 1e-20 as L_jj^2 is), and one reciprocal per column instead of a
+// division per entry.
+__device__ __forceinline__ void ldlt_solve6(const float* H, const float* rhs,
+                                            float* x) {
+  float L[36], D[6], inv_d[6];
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    float d = H[7 * j];
+#pragma unroll
+    for (int k = 0; k < j; ++k) d -= L[6 * j + k] * L[6 * j + k] * D[k];
+    D[j] = fmaxf(d, 1e-20f);
+    inv_d[j] = 1.f / D[j];
+#pragma unroll
+    for (int i = j + 1; i < 6; ++i) {
       float s = H[6 * i + j];
-      for (int k = 0; k < j; ++k) s -= L[6 * i + k] * L[6 * j + k];
-      L[6 * i + j] = (i == j) ? sqrtf(fmaxf(s, 1e-20f)) : s / L[6 * j + j];
+#pragma unroll
+      for (int k = 0; k < j; ++k) s -= L[6 * i + k] * L[6 * j + k] * D[k];
+      L[6 * i + j] = s * inv_d[j];
     }
   }
   float y[6];
+#pragma unroll
   for (int i = 0; i < 6; ++i) {
     float s = rhs[i];
+#pragma unroll
     for (int k = 0; k < i; ++k) s -= L[6 * i + k] * y[k];
-    y[i] = s / L[6 * i + i];
+    y[i] = s;
   }
+#pragma unroll
   for (int i = 5; i >= 0; --i) {
-    float s = y[i];
+    float s = y[i] * inv_d[i];
+#pragma unroll
     for (int k = i + 1; k < 6; ++k) s -= L[6 * k + i] * x[k];
-    x[i] = s / L[6 * i + i];
+    x[i] = s;
   }
 }
 
@@ -156,8 +208,8 @@ __device__ __forceinline__ void linearize(const float* R, const float* t,
   const float iz = 1.f / zs;
   const float a = cam[0] * iz, b = cam[1] * iz;
   const float xn = xc * iz, yn = yc * iz;
-  e.r[0] = cam[0] * xc / zs + cam[2] - uv[0];
-  e.r[1] = cam[1] * yc / zs + cam[3] - uv[1];
+  e.r[0] = a * xc + cam[2] - uv[0];
+  e.r[1] = b * yc + cam[3] - uv[1];
   // [dpi | -dpi hat(Xc)] rows for u and v
   e.J[0][0] = a;
   e.J[0][1] = 0.f;
@@ -175,9 +227,83 @@ __device__ __forceinline__ void linearize(const float* R, const float* t,
   e.chi2 = w * (e.r[0] * e.r[0] + e.r[1] * e.r[1]);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  return v;
+// One edge of a pass at (R, t): re-classify it first when `classify`
+// (active = valid & depth > 1e-3 & chi2 <= delta^2), then add its robust
+// cost, H and g to `acc`.  An edge that does not count (inactive, behind
+// the camera, or `accumulate` unset) adds exact zeros: its weight and
+// chi2 are selected to 0 rather than branched around, so the compiler
+// does not materialise the accumulators on two paths.  With `may_skip`
+// an edge that cannot count (invalid, or inactive when not re-classified)
+// is not linearised at all; without, its inputs are replaced by a finite
+// point.  J[0][1] = J[1][0] = 0, so rows 0 and 1 of H and g take one
+// product each.
+__device__ __forceinline__ void edge_pass(const float* R, const float* t,
+                                          const float* cam, const float* X,
+                                          const float* uv, float w,
+                                          bool valid, bool& active,
+                                          bool classify, bool accumulate,
+                                          bool robust, bool may_skip,
+                                          float (&acc)[kSlots]) {
+  const bool countable = classify ? valid : active;
+  if (may_skip && !countable) return;
+  const float Xs[3] = {countable ? X[0] : 0.f, countable ? X[1] : 0.f,
+                       countable ? X[2] : 1.f};
+  const float uvs[2] = {countable ? uv[0] : 0.f, countable ? uv[1] : 0.f};
+  Edge e;
+  linearize(R, t, cam, Xs, uvs, w, e);
+  if (classify) active = countable && e.depth_ok && e.chi2 <= kDelta2;
+  const bool counts = accumulate && active && e.depth_ok;
+  const float chi2 = counts ? e.chi2 : 0.f;
+  float rho = chi2, we = counts ? w : 0.f;
+  if (chi2 > kDelta2) {  // Huber: 2 sqrt(d2 chi2) - d2, weight sqrt(d2 / chi2)
+    const float sq = sqrtf(kDelta2 * chi2);
+    rho = 2.f * sq - kDelta2;
+    if (robust) we *= kDelta2 / sq;
+  }
+  acc[kCost] += rho;
+  int k = 0;
+#pragma unroll
+  for (int r = 0; r < 6; ++r) {
+    const float wu = we * e.J[0][r], wv = we * e.J[1][r];
+#pragma unroll
+    for (int c = r; c < 6; ++c, ++k) {
+      if (r == 0) {
+        if (c != 1) acc[k] += wu * e.J[0][c];
+      } else if (r == 1) {
+        acc[k] += wv * e.J[1][c];
+      } else {
+        acc[k] += wu * e.J[0][c] + wv * e.J[1][c];
+      }
+    }
+    acc[21 + r] += r == 0   ? wu * e.r[0]
+                   : r == 1 ? wv * e.r[1]
+                            : wu * e.r[0] + wv * e.r[1];
+  }
+}
+
+// One recursive-halving step over the first 2h slots: the lane keeps the
+// upper or lower h (by bit h of its lane id) in a[0..h), adding its xor
+// partner's copy of them.
+template <int h>
+__device__ __forceinline__ void halve(float (&a)[kSlots], int lane) {
+  const bool up = lane & h;
+#pragma unroll
+  for (int k = 0; k < h; ++k) {
+    const float send = up ? a[k] : a[k + h];
+    const float keep = up ? a[k + h] : a[k];
+    a[k] = keep + __shfl_xor_sync(0xffffffffu, send, h);
+  }
+}
+
+// Warp total of each of the 32 slots: lane l returns slot l's total.
+__device__ __forceinline__ float warp_reduce_scatter(float (&a)[kSlots],
+                                                     int lane) {
+  halve<16>(a, lane);
+  halve<8>(a, lane);
+  halve<4>(a, lane);
+  halve<2>(a, lane);
+  halve<1>(a, lane);
+  return a[0];
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -189,120 +315,151 @@ pose_kernel(const float* __restrict__ q0, const float* __restrict__ t0,
             uint8_t* __restrict__ inlier, int* __restrict__ n_inliers) {
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
   pts += (size_t)b * N * 3;
   uv += (size_t)b * N * 2;
   wts += (size_t)b * N;
   valid += (size_t)b * N;
-  uint8_t* active = inlier + (size_t)b * N;  // the active set lives here
+  uint8_t* active_mem = inlier + (size_t)b * N;  // edges past the registers
 
-  __shared__ float s_cam[4];
-  __shared__ float s_R[9];
-  __shared__ Pose s_cur;
-  __shared__ float s_part[kWarps][kAcc];
+  __shared__ float s_part[kWarps][kSlots];
+  __shared__ float s_Rt[12];  // the pose to linearise at: R (row-major), t
   __shared__ int s_count[kWarps];
 
-  Pose best;  // thread 0's LM state
-  float bcost = 0.f, lam = 0.f;
-  if (tid < 4) s_cam[tid] = fxycxy[4 * b + tid];
-  if (tid == 0) {
-    for (int k = 0; k < 4; ++k) best.q[k] = q0[4 * b + k];
-    for (int k = 0; k < 3; ++k) best.t[k] = t0[3 * b + k];
-    s_cur = best;
-  }
-  for (int i = tid; i < N; i += kThreads) active[i] = valid[i];
+  float cam[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) cam[k] = fxycxy[4 * b + k];
 
-  for (int rd = 0; rd <= rounds; ++rd) {
+  // this thread's register edges: i = tid + k * kThreads
+  float eX[kRegEdges][3], eUV[kRegEdges][2], eW[kRegEdges];
+  bool eValid[kRegEdges], eActive[kRegEdges];
+#pragma unroll
+  for (int k = 0; k < kRegEdges; ++k) {
+    const int i = tid + k * kThreads;
+    const bool in = i < N;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) eX[k][c] = in ? pts[3 * i + c] : 0.f;
+    eUV[k][0] = in ? uv[2 * i] : 0.f;
+    eUV[k][1] = in ? uv[2 * i + 1] : 0.f;
+    eW[k] = in ? wts[i] : 0.f;
+    eValid[k] = in && valid[i];
+    eActive[k] = eValid[k];
+  }
+  for (int i = tid + kRegEdges * kThreads; i < N; i += kThreads)
+    active_mem[i] = valid[i];
+
+  // warp 0's LM state, the same in every lane
+  Pose cur, best;
+  float bcost = INFINITY, lam = 1e-3f;
+  if (warp == 0) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) cur.q[k] = q0[4 * b + k];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) cur.t[k] = t0[3 * b + k];
+    best = cur;
+    if (lane == 0) {
+      quat_to_matrix(cur.q, s_Rt);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) s_Rt[9 + k] = cur.t[k];
+    }
+  }
+  __syncthreads();
+
+  // rounds x (iters + 1) evaluations, then the final classification
+  for (int rd = 0, it = 0;;) {
+    const bool final_pass = rd == rounds;
+    const bool classify = final_pass || (rd > 0 && it == 0);
     const bool robust = rd < 2;
-    if (rd > 0 || rounds == 0) {
-      // re-classify at the previous round's best pose (after the last
-      // round this is the returned inlier set)
-      if (tid == 0) {
-        s_cur = best;
-        quat_to_matrix(s_cur.q, s_R);
-      }
-      __syncthreads();
-      for (int i = tid; i < N; i += kThreads) {
-        Edge e;
-        linearize(s_R, s_cur.t, s_cam, pts + 3 * i, uv + 2 * i, wts[i], e);
-        active[i] = valid[i] && e.depth_ok && e.chi2 <= kDelta2;
-      }
-      __syncthreads();
-      if (rd == rounds) break;
+    float R[9], t[3];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) R[k] = s_Rt[k];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) t[k] = s_Rt[9 + k];
+    float acc[kSlots];
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k) acc[k] = 0.f;
+#pragma unroll
+    for (int k = 0; k < kRegEdges; ++k)  // the first edge unconditionally
+      edge_pass(R, t, cam, eX[k], eUV[k], eW[k], eValid[k], eActive[k],
+                classify, !final_pass, robust, k > 0, acc);
+    for (int i = tid + kRegEdges * kThreads; i < N; i += kThreads) {
+      bool act = active_mem[i];
+      edge_pass(R, t, cam, pts + 3 * i, uv + 2 * i, wts[i], valid[i], act,
+                classify, !final_pass, robust, true, acc);
+      if (classify) active_mem[i] = act;
     }
-    if (tid == 0) {
-      best = s_cur;
-      bcost = INFINITY;
-      lam = 1e-3f;
-    }
-    for (int it = 0; it <= iters; ++it) {
-      if (tid == 0) quat_to_matrix(s_cur.q, s_R);
-      __syncthreads();
-      float acc[kAcc];
-      for (int k = 0; k < kAcc; ++k) acc[k] = 0.f;
-      for (int i = tid; i < N; i += kThreads) {
-        if (!active[i]) continue;
-        Edge e;
-        linearize(s_R, s_cur.t, s_cam, pts + 3 * i, uv + 2 * i, wts[i], e);
-        if (!e.depth_ok) continue;
-        const float chi2 = e.chi2;
-        const float sq = sqrtf(kDelta2 * fmaxf(chi2, 1e-12f));
-        acc[27] += chi2 <= kDelta2 ? chi2 : 2.f * sq - kDelta2;
-        float we = wts[i];
-        if (robust && chi2 > kDelta2)
-          we *= sqrtf(kDelta2 / fmaxf(chi2, 1e-12f));
-        int k = 0;
-        for (int r = 0; r < 6; ++r) {
-          const float wu = we * e.J[0][r], wv = we * e.J[1][r];
-          for (int c = r; c < 6; ++c)
-            acc[k++] += wu * e.J[0][c] + wv * e.J[1][c];
-          acc[21 + r] += wu * e.r[0] + wv * e.r[1];
-        }
+    if (final_pass) break;
+
+    const float part = warp_reduce_scatter(acc, lane);
+    s_part[warp][lane] = part;
+    __syncthreads();
+    if (warp == 0) {
+      float col = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) col += s_part[w][lane];
+      float tot[28];
+#pragma unroll
+      for (int k = 0; k < 28; ++k) tot[k] = __shfl_sync(0xffffffffu, col, k);
+      if (it == 0) {  // a round starts at the previous round's best pose
+        bcost = INFINITY;
+        lam = 1e-3f;
       }
-      for (int k = 0; k < kAcc; ++k) {
-        const float v = warp_sum(acc[k]);
-        if ((tid & 31) == 0) s_part[tid >> 5][k] = v;
+      const float cost = tot[kCost];
+      const bool accept = cost < bcost;
+      lam = accept ? fmaxf(lam * 0.5f, 1e-7f) : fminf(lam * 4.f, 1e4f);
+      if (accept) {
+        best = cur;
+        bcost = cost;
       }
-      __syncthreads();
-      if (tid == 0) {
-        float tot[kAcc];
-        for (int k = 0; k < kAcc; ++k) {
-          float s = 0.f;
-          for (int w = 0; w < kWarps; ++w) s += s_part[w][k];
-          tot[k] = s;
-        }
-        const float cost = tot[27];
-        const bool accept = cost < bcost;
-        lam = accept ? fmaxf(lam * 0.5f, 1e-7f) : fminf(lam * 4.f, 1e4f);
-        if (accept) {
-          best = s_cur;
-          bcost = cost;
-        }
+      if (it < iters) {
         float H[36], rhs[6], dx[6];
         int k = 0;
+#pragma unroll
         for (int r = 0; r < 6; ++r)
-          for (int c = r; c < 6; ++c, ++k) H[6 * r + c] = H[6 * c + r] = tot[k];
+#pragma unroll
+          for (int c = r; c < 6; ++c, ++k)
+            H[6 * r + c] = H[6 * c + r] = tot[k];
+#pragma unroll
         for (int r = 0; r < 6; ++r) {
           H[7 * r] += lam * fmaxf(H[7 * r], 1e-6f) + 1e-8f;
           rhs[r] = -tot[21 + r];
         }
-        chol_solve6(H, rhs, dx);
-        retract(dx, best, s_cur);
+        ldlt_solve6(H, rhs, dx);
+        retract(dx, best, cur);
+      } else {
+        cur = best;  // the next round, or the final classification
       }
-      __syncthreads();
+      if (lane == 0) {
+        quat_to_matrix(cur.q, s_Rt);
+#pragma unroll
+        for (int k = 0; k < 3; ++k) s_Rt[9 + k] = cur.t[k];
+      }
+    }
+    __syncthreads();
+    if (++it > iters) {
+      it = 0;
+      ++rd;
     }
   }
 
   int cnt = 0;
-  for (int i = tid; i < N; i += kThreads) cnt += active[i];
-  for (int o = 16; o > 0; o >>= 1) cnt += __shfl_down_sync(0xffffffffu, cnt, o);
-  if ((tid & 31) == 0) s_count[tid >> 5] = cnt;
+#pragma unroll
+  for (int k = 0; k < kRegEdges; ++k) {
+    const int i = tid + k * kThreads;
+    if (i < N) active_mem[i] = eActive[k];
+    cnt += eActive[k];
+  }
+  for (int i = tid + kRegEdges * kThreads; i < N; i += kThreads)
+    cnt += active_mem[i];
+  for (int o = 16; o > 0; o >>= 1) cnt += __shfl_xor_sync(0xffffffffu, cnt, o);
+  if (lane == 0) s_count[warp] = cnt;
   __syncthreads();
   if (tid == 0) {
     int total = 0;
     for (int w = 0; w < kWarps; ++w) total += s_count[w];
     n_inliers[b] = total;
-    for (int k = 0; k < 4; ++k) q_out[4 * b + k] = s_cur.q[k];
-    for (int k = 0; k < 3; ++k) t_out[3 * b + k] = s_cur.t[k];
+    for (int k = 0; k < 4; ++k) q_out[4 * b + k] = cur.q[k];
+    for (int k = 0; k < 3; ++k) t_out[3 * b + k] = cur.t[k];
   }
 }
 

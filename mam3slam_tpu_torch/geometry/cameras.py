@@ -50,13 +50,14 @@ class Camera(NamedTuple):
 
 
 def make_pinhole(fx, fy, cx, cy, dist=(0.0, 0.0, 0.0, 0.0),
-                 device=None) -> Camera:
+                 device=torch.device("cuda")) -> Camera:
     p = torch.tensor([fx, fy, cx, cy, *dist], dtype=torch.float32,
                      device=device)
     return Camera(p, PINHOLE)
 
 
-def make_kb8(fx, fy, cx, cy, k1, k2, k3, k4, device=None) -> Camera:
+def make_kb8(fx, fy, cx, cy, k1, k2, k3, k4,
+             device=torch.device("cuda")) -> Camera:
     p = torch.tensor([fx, fy, cx, cy, k1, k2, k3, k4], dtype=torch.float32,
                      device=device)
     return Camera(p, KANNALA_BRANDT8)

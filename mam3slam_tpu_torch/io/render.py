@@ -59,7 +59,8 @@ class RoomScene:
     Faces: x=+-S (walls), z=+-S (walls), y=+Hh (floor), y=-Hh (ceiling)."""
 
     def __init__(self, half_size: float = 5.0, half_height: float = 2.5,
-                 seed: int = 0, px_per_m: float = 100.0, device=None):
+                 seed: int = 0, px_per_m: float = 100.0,
+                 device=torch.device("cuda")):
         self.S = float(half_size)
         self.Hh = float(half_height)
         self.px_per_m = float(px_per_m)

@@ -86,7 +86,8 @@ class MapState(NamedTuple):
     map_change: torch.Tensor       # [Mmax] i32
 
 
-def init_map_state(cfg: MapConfig, device=None) -> MapState:
+def init_map_state(cfg: MapConfig,
+                   device=torch.device("cuda")) -> MapState:
     K, F, P, M = cfg.max_kf, cfg.n_feat, cfg.max_mp, cfg.max_obs
     i32, f32 = torch.int32, torch.float32
 

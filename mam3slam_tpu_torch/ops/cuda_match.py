@@ -62,6 +62,48 @@ def best_two(d: torch.Tensor):
     return i1.to(torch.int32), d1.to(torch.int32), d2.to(torch.int32)
 
 
+def _merge_best2(a, b):
+    """The masked-match kernel's exact merge of two disjoint target sets'
+    (d1, idx, d2): the lexicographically smaller (d1, idx) wins and d2 is
+    the best of what it leaves."""
+    take = (b[0] < a[0]) | ((b[0] == a[0]) & (b[1] < a[1]))
+    return (torch.where(take, b[0], a[0]), torch.where(take, b[1], a[1]),
+            torch.where(take, torch.minimum(a[0], b[2]),
+                        torch.minimum(a[2], b[0])))
+
+
+def best_two_lanes(d: torch.Tensor, tile: int = 2048):
+    """``best_two`` of a masked distance matrix [Q, M] (masked entries
+    hold BIG) reduced as ``csrc/match.cu:masked_match_kernel`` reduces it,
+    for the tests: targets in passes of ``tile``; in a pass, target e goes
+    to lane e % 32, each lane keeps the best two of its targets in
+    ascending order (an empty lane holds (BIG, INT_MAX, BIG)), the lanes
+    merge by an xor butterfly and the passes merge in turn, all by the
+    same exact rule; idx = 0 where d1 == BIG."""
+    Q, M = d.shape
+    imax = torch.iinfo(torch.int32).max
+    out = None
+    for base in range(0, M, tile):
+        dt = d[:, base:base + tile]
+        n = dt.shape[1]
+        pad = torch.full((Q, (-n) % 32), BIG, dtype=d.dtype,
+                         device=d.device)
+        # [Q * 32, S]: row (q, l) holds lane l's targets l, l + 32, ...
+        dl = torch.cat([dt, pad], 1).reshape(Q, -1, 32).transpose(1, 2)
+        s1, d1, d2 = (x.reshape(Q, 32)
+                      for x in best_two(dl.reshape(Q * 32, -1)))
+        lane = torch.arange(32, device=d.device)
+        idx = torch.where(d1 < BIG, base + s1 * 32 + lane, imax)
+        best = (d1, idx, d2)
+        for o in (16, 8, 4, 2, 1):
+            best = _merge_best2(best, tuple(x[:, lane ^ o] for x in best))
+        best = tuple(x[:, 0] for x in best)
+        out = best if out is None else _merge_best2(out, best)
+    d1, idx, d2 = out
+    return (torch.where(d1 < BIG, idx, 0).to(torch.int32), d1.to(torch.int32),
+            d2.to(torch.int32))
+
+
 def radius_mask(query_uv, target_uv, radius) -> torch.Tensor:
     """[Q, 2], [M, 2], radius [Q] -> bool [Q, M]: |q - t|^2 <= r^2."""
     d2 = torch.sum((query_uv[:, None, :] - target_uv[None, :, :]) ** 2, -1)

@@ -26,10 +26,9 @@ import torch
 from mam3slam_tpu_torch import _build
 
 HALF_PATCH = 15
-# bit_pattern_31 pairs (x1, y1, x2, y2); the data file of the reference
-# package (numpy only, no JAX import)
-PATTERN_PATH = os.path.join(os.path.dirname(__file__), "..", "..",
-                            "mam3slam_tpu", "data", "orb_pattern.npy")
+# bit_pattern_31 pairs (x1, y1, x2, y2), OpenCV's rBRIEF pattern
+PATTERN_PATH = os.path.join(os.path.dirname(__file__), "..", "data",
+                            "orb_pattern.npy")
 
 
 @functools.lru_cache(maxsize=1)
@@ -74,30 +73,26 @@ def pack_bits_256(bits: torch.Tensor) -> torch.Tensor:
     return (b * weights).sum(-1).to(torch.uint8)
 
 
-def ic_brief_plain(raw: torch.Tensor, blur: torch.Tensor, xy: torch.Tensor,
-                   lvl: torch.Tensor, hw: torch.Tensor):
-    """Plain PyTorch describe: raw/blur [L, Hp, Wp] f32 stacks, xy [N, 2]
-    i32 (x, y) level coords, lvl [N] i32, hw [N, 2] i32 (h, w) level
-    extents -> (angle [N] f32, desc [N, 32] u8)."""
-    _build.PLAIN_CALLS["orb_desc"] += 1
-    dev = raw.device
-    L, Hp, Wp = raw.shape
-    x = xy[:, 0].long()
-    y = xy[:, 1].long()
-    lv = lvl.long()
-    base = lv * (Hp * Wp)
-
+def ic_taps(xy: torch.Tensor, lvl: torch.Tensor, shape):
+    """Flat indices [N, C] into a stack of ``shape`` [L, Hp, Wp] of each
+    keypoint's r=15 circle (clamped to the stack), and the circle's
+    offsets dy, dx [C]."""
+    _, Hp, Wp = shape
     dy_np, dx_np = _ic_offsets()
-    dy = torch.as_tensor(dy_np, device=dev)
-    dx = torch.as_tensor(dx_np, device=dev)
-    gy = torch.clamp(y[:, None] + dy[None, :], 0, Hp - 1)
-    gx = torch.clamp(x[:, None] + dx[None, :], 0, Wp - 1)
-    patch = raw.reshape(-1)[base[:, None] + gy * Wp + gx]     # [N, C]
-    m10 = torch.sum(patch * dx.to(raw.dtype), dim=1)
-    m01 = torch.sum(patch * dy.to(raw.dtype), dim=1)
-    angle = torch.atan2(m01, m10)
+    dy = torch.as_tensor(dy_np, device=xy.device)
+    dx = torch.as_tensor(dx_np, device=xy.device)
+    gy = torch.clamp(xy[:, 1:2].long() + dy[None, :], 0, Hp - 1)
+    gx = torch.clamp(xy[:, 0:1].long() + dx[None, :], 0, Wp - 1)
+    return lvl.long()[:, None] * (Hp * Wp) + gy * Wp + gx, dy, dx
 
-    pat = torch.tensor(load_pattern(), dtype=torch.float32, device=dev)
+
+def brief_taps(xy: torch.Tensor, lvl: torch.Tensor, hw: torch.Tensor,
+               angle: torch.Tensor, shape) -> torch.Tensor:
+    """Flat indices [N, 512] into a stack of ``shape`` [L, Hp, Wp] of the
+    rBRIEF pairs' first then second points rotated by ``angle``, clamped
+    to each keypoint's level extent."""
+    _, Hp, Wp = shape
+    pat = torch.tensor(load_pattern(), dtype=torch.float32, device=xy.device)
     px = torch.cat([pat[:, 0], pat[:, 2]])                    # [512]
     py = torch.cat([pat[:, 1], pat[:, 3]])
     ca, sa = torch.cos(angle), torch.sin(angle)
@@ -105,9 +100,25 @@ def ic_brief_plain(raw: torch.Tensor, blur: torch.Tensor, xy: torch.Tensor,
     ry = torch.round(px[None, :] * sa[:, None] + py[None, :] * ca[:, None])
     h = hw[:, 0:1].long()
     w = hw[:, 1:2].long()
-    tx = torch.minimum(torch.clamp(x[:, None] + rx.long(), min=0), w - 1)
-    ty = torch.minimum(torch.clamp(y[:, None] + ry.long(), min=0), h - 1)
-    v = blur.reshape(-1)[base[:, None] + ty * Wp + tx]        # [N, 512]
+    tx = torch.minimum(torch.clamp(xy[:, 0:1].long() + rx.long(), min=0),
+                       w - 1)
+    ty = torch.minimum(torch.clamp(xy[:, 1:2].long() + ry.long(), min=0),
+                       h - 1)
+    return lvl.long()[:, None] * (Hp * Wp) + ty * Wp + tx
+
+
+def ic_brief_plain(raw: torch.Tensor, blur: torch.Tensor, xy: torch.Tensor,
+                   lvl: torch.Tensor, hw: torch.Tensor):
+    """Plain PyTorch describe: raw/blur [L, Hp, Wp] f32 stacks, xy [N, 2]
+    i32 (x, y) level coords, lvl [N] i32, hw [N, 2] i32 (h, w) level
+    extents -> (angle [N] f32, desc [N, 32] u8)."""
+    _build.PLAIN_CALLS["orb_desc"] += 1
+    idx, dy, dx = ic_taps(xy, lvl, raw.shape)
+    patch = raw.reshape(-1)[idx]                              # [N, C]
+    m10 = torch.sum(patch * dx.to(raw.dtype), dim=1)
+    m01 = torch.sum(patch * dy.to(raw.dtype), dim=1)
+    angle = torch.atan2(m01, m10)
+    v = blur.reshape(-1)[brief_taps(xy, lvl, hw, angle, raw.shape)]
     return angle, pack_bits_256(v[:, :256] < v[:, 256:])
 
 

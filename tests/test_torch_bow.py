@@ -154,7 +154,7 @@ def test_vocabulary_carry_over(vocs, k, depth):
     reference does."""
     ref_voc = vocs[0] if (k, depth) == (6, 3) else jbow.build_vocabulary(
         DESCS, k=k, depth=depth, iters=3, backend="numpy")
-    carried = convert.vocabulary_from_numpy(ref_voc)
+    carried = convert.vocabulary_from_numpy(ref_voc, device="cpu")
     assert carried.leaf_map is None and carried.n_words == ref_voc.n_words
     d = DESCS[:300]
     np.testing.assert_array_equal(
@@ -182,7 +182,7 @@ def test_orbvoc_incomplete_tree_matches_reference(tmp_path):
     path = tmp_path / "inc.txt"
     path.write_text("\n".join(lines) + "\n")
     ref = jbow.load_orbvoc_text(str(path))
-    got = convert.vocabulary_from_numpy(ref)
+    got = convert.vocabulary_from_numpy(ref, device="cpu")
     for r, g in zip(ref.centroid_bits, got.centroid_bits):
         np.testing.assert_array_equal(g.numpy(), np.asarray(r))
     np.testing.assert_array_equal(got.leaf_map.numpy(),

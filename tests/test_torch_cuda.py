@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
-card (small shapes; chip_smoke.py checks them at the tracking path's
-shapes).  Marked ``cuda``: they skip where torch sees no CUDA device.
+card, at small shapes and at the callers' shapes (tracking, fuse, Sim3
+search; the pose at a batch of two and past the edges kept in
+registers).  Marked ``cuda``: they skip where torch sees no CUDA device.
 
-    pytest tests/test_torch_cuda.py
+    pytest --noconftest tests/test_torch_cuda.py
 """
 
 import numpy as np
@@ -107,6 +108,43 @@ def test_masked_match_at_sim3_search_equals_plain(dev, th):
     assert int((got[1][:500] == 0).sum()) >= 400
 
 
+def _planted(rng, Q, F, n_match, width=752.0):
+    """Queries and targets with ``n_match`` planted matches, then copies of
+    some matched targets further along (equal distances in other lanes and,
+    past 2048 targets, in another shared-memory pass)."""
+    dq = rng.integers(0, 256, (Q, 32), dtype=np.uint8)
+    dt = rng.integers(0, 256, (F, 32), dtype=np.uint8)
+    quv = rng.uniform(0, width, (Q, 2)).astype(np.float32)
+    tuv = rng.uniform(0, width, (F, 2)).astype(np.float32)
+    ql = rng.integers(0, 8, Q).astype(np.int32)
+    tl = rng.integers(0, 8, F).astype(np.int32)
+    dt[:n_match], tl[:n_match] = dq[:n_match], ql[:n_match]
+    tuv[:n_match] = quv[:n_match] + rng.uniform(-3, 3, (n_match, 2))
+    k = n_match // 4
+    for start in (n_match, F - k):
+        dt[start:start + k] = dt[n_match - k:n_match]
+        tuv[start:start + k] = tuv[n_match - k:n_match]
+        tl[start:start + k] = tl[n_match - k:n_match]
+    return dq, quv, ql, dt, tuv, tl
+
+
+@pytest.mark.parametrize("F", [1024, 2500])
+def test_masked_match_at_tracking_shape_equals_plain(dev, F):
+    """Tracking: 4096 projected candidates against the frame's features;
+    F = 2500 spans two shared-memory passes of the kernel."""
+    rng = np.random.default_rng(8)
+    Q = 4096
+    dq, quv, ql, dt, tuv, tl = _planted(rng, Q, F, 400)
+    args = [torch.tensor(x, device=dev) for x in (
+        dq, quv, rng.uniform(2.5, 24.0, Q).astype(np.float32), ql,
+        rng.random(Q) > 0.05, dt, tuv, tl, rng.random(F) > 0.05)]
+    got = _counted("masked_match", lambda: CM.fused_masked_match(*args))
+    for g, p in zip(got, CM.fused_masked_match_plain(*args)):
+        assert torch.equal(g, p)
+    assert int(((got[1] == got[2]) & (got[1] < CM.BIG)).sum()) >= 20
+    assert int((got[1] == 0).sum()) >= 300
+
+
 def test_min_hamming2_with_partial_masks_equals_plain(dev):
     """BoW-space matching in verification and relocalization: only the
     features with a map point take part, on both sides."""
@@ -138,6 +176,50 @@ def test_describe_kernel_matches_plain(dev):
     assert (ang - p_ang).abs()[valid].max() <= 1e-4
     bits = (CM.unpack_bits(desc) != CM.unpack_bits(p_desc)).sum(-1)[valid]
     assert (bits == 0).float().mean() >= 0.99 and bits.max() <= 2
+
+
+@pytest.mark.parametrize("B,n", [(1, 1024), (2, 1024), (1, 1500)])
+def test_pose_kernel_batch_and_long_edge_lists_match_plain(dev, B, n):
+    """The tracking shape, a batch of two agents, and more edges than the
+    kernel keeps in registers (2 x 512)."""
+    rng = np.random.default_rng(9 + B + n)
+    fx, fy, cx, cy = 458.654, 457.296, 367.215, 248.375
+    fxycxy = torch.tensor([fx, fy, cx, cy], device=dev)
+    cols = [torch.stack(x) for x in zip(*[_pose_problem(rng, n, fxycxy, dev)
+                                          for _ in range(B)])]
+    q0, t0, pts, uv, valid = cols
+    w = torch.ones(B, n, device=dev)
+    q, t, inl, n_in = _counted("pose_opt", lambda: CP.pose_optimization_pinhole(
+        q0, t0, fxycxy.expand(B, 4).contiguous(), pts, uv, w, valid))
+    params = torch.cat([fxycxy, torch.zeros_like(fxycxy)])
+    for b in range(B):
+        pq, pt, pinl, _ = CP.pose_optimization_plain(
+            q0[b], t0[b], params, 0, pts[b], uv[b], w[b], valid[b])
+        dot = (q[b] * pq).sum().abs().clamp(max=1.0)
+        assert 2 * torch.acos(dot) < 2e-3
+        assert (t[b] - pt).norm() < 5e-3
+        assert (inl[b] == pinl).float().mean() >= 0.99
+        assert int(n_in[b]) == int(inl[b].sum())
+
+
+def _pose_problem(rng, n, fxycxy, dev):
+    """A seeded pose problem: points 3-12 m ahead, pixel noise 0.6 px, 6%
+    gross outliers, every 29th edge invalid, a perturbed start."""
+    T = lambda x: torch.tensor(np.asarray(x, np.float32), device=dev)
+    pts = T(np.stack([rng.uniform(-4, 4, n), rng.uniform(-3, 3, n),
+                      rng.uniform(3, 12, n)], 1))
+    q_true = lie.so3_exp_quat(T(rng.normal(0, 0.05, 3)))
+    t_true = T(rng.normal(0, 0.2, 3))
+    xc = lie.quat_rotate(q_true[None], pts) + t_true
+    uv = xc[:, :2] / xc[:, 2:] * fxycxy[:2] + fxycxy[2:]
+    uv = uv + T(rng.normal(0, 0.6, (n, 2)))
+    n_out = int(0.06 * n)
+    uv[:n_out] += T(rng.uniform(20, 80, (n_out, 2)))
+    q0 = lie.quat_normalize(lie.quat_mul(
+        lie.so3_exp_quat(T(rng.normal(0, 0.02, 3))), q_true))
+    t0 = t_true + T(rng.normal(0, 0.05, 3))
+    valid = torch.tensor(np.arange(n) % 29 != 0, device=dev)
+    return q0, t0, pts, uv, valid
 
 
 def test_pose_kernel_matches_plain(dev):

@@ -1,0 +1,55 @@
+"""The port's entry points run on the card unless the caller asks for the
+CPU: every constructor of device state defaults to CUDA (read from the
+signatures, allocating nothing), and a SlamSystem built with no device
+argument lies on CUDA, or raises where there is no card."""
+
+import inspect
+
+import pytest
+import torch
+
+from mam3slam_tpu_torch import convert
+from mam3slam_tpu_torch.geometry import cameras
+from mam3slam_tpu_torch.io import render
+from mam3slam_tpu_torch.mapstate import state as S
+from mam3slam_tpu_torch.slam import system
+
+ENTRY_POINTS = {
+    "make_pinhole": cameras.make_pinhole,
+    "make_kb8": cameras.make_kb8,
+    "init_map_state": S.init_map_state,
+    "RoomScene": render.RoomScene,
+    "convert.tensor": convert.tensor,
+    "convert.camera_from_numpy": convert.camera_from_numpy,
+    "convert.from_numpy": convert.from_numpy,
+    "convert.frame_from_numpy": convert.frame_from_numpy,
+    "convert.map_state_from_numpy": convert.map_state_from_numpy,
+    "convert.vocabulary_from_numpy": convert.vocabulary_from_numpy,
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_default_device_is_cuda(name):
+    default = inspect.signature(ENTRY_POINTS[name]).parameters["device"]
+    assert torch.device(default.default) == torch.device("cuda")
+
+
+def test_slam_system_without_device_lies_on_cuda_or_raises():
+    cfg = system.SlamConfig(width=64, height=48, n_feat=32, max_kf=4,
+                            max_mp=64)
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            system.SlamSystem(cfg, cameras.make_pinhole(40.0, 40.0, 32.0,
+                                                        24.0))
+        return
+    sys_ = system.SlamSystem(cfg, cameras.make_pinhole(40.0, 40.0, 32.0,
+                                                       24.0))
+    assert sys_.device.type == "cuda" and sys_.ms.kf_q.is_cuda
+
+
+def test_cpu_on_request():
+    cfg = system.SlamConfig(width=64, height=48, n_feat=32, max_kf=4,
+                            max_mp=64)
+    sys_ = system.SlamSystem(cfg, cameras.make_pinhole(
+        40.0, 40.0, 32.0, 24.0, device="cpu"))
+    assert sys_.device.type == "cpu" and sys_.ms.kf_q.device.type == "cpu"

@@ -93,7 +93,7 @@ def small_map():
         loop_valid=ms.loop_valid.at[0].set(True),
         mp_found=jnp.asarray(rng.integers(0, 5, 128), jnp.float32),
         mp_visible=jnp.asarray(rng.integers(0, 9, 128), jnp.float32))
-    return ms, convert.map_state_from_numpy(_np(ms)), rng
+    return ms, convert.map_state_from_numpy(_np(ms), device="cpu"), rng
 
 
 def _kill_mask(rng):
@@ -152,7 +152,7 @@ def test_alloc_and_compact_match_reference(small_map):
     ms_j, ms_t, _ = small_map
     ms_j = JS.remove_map_points(ms_j, jnp.zeros(128, bool).at[
         jnp.asarray([3, 17, 40])].set(True))
-    ms_t = convert.map_state_from_numpy(_np(ms_j))
+    ms_t = convert.map_state_from_numpy(_np(ms_j), device="cpu")
     want = np.random.default_rng(2).random(80) < 0.9
     ref = _np(JS.alloc_mp_slots(ms_j, jnp.asarray(want)))
     got = convert.to_numpy(TS.alloc_mp_slots(ms_t, _T(want)))
@@ -227,7 +227,7 @@ def jax_map():
 
 
 def _t_map(ms):
-    return convert.map_state_from_numpy(_np(ms))
+    return convert.map_state_from_numpy(_np(ms), device="cpu")
 
 
 def test_search_for_triangulation_matches_reference(jax_map):

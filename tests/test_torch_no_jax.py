@@ -1,10 +1,13 @@
 """The port stands alone: it imports no JAX and nothing of the reference
-package, takes the plain versions on CPU tensors without launching a
-kernel, and chip_smoke.py refuses to run without a GPU."""
+package, reads no file of it, takes the plain versions on CPU tensors
+without launching a kernel, and chip_smoke.py refuses to run without a
+GPU."""
 
+import ast
 import os
 import pkgutil
 import re
+import shutil
 import subprocess
 import sys
 
@@ -14,13 +17,20 @@ import torch
 import mam3slam_tpu_torch
 from mam3slam_tpu_torch import _build
 from mam3slam_tpu_torch.geometry import cameras
-from mam3slam_tpu_torch.ops import cuda_match, matching, orb
+from mam3slam_tpu_torch.ops import cuda_match, cuda_orb_desc, matching, orb
 from mam3slam_tpu_torch.solvers import ba
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_MODULES = sorted(
     m.name for m in pkgutil.walk_packages(mam3slam_tpu_torch.__path__,
                                           "mam3slam_tpu_torch."))
+
+
+def _port_sources():
+    port_dir = os.path.dirname(mam3slam_tpu_torch.__file__)
+    for root, _, files in os.walk(port_dir):
+        yield from (os.path.join(root, f) for f in files
+                    if f.endswith(".py"))
 
 
 def test_port_imports_no_jax():
@@ -41,13 +51,57 @@ def test_port_imports_no_jax():
 def test_port_sources_have_no_jax_import():
     pat = re.compile(r"^\s*(import jax|from jax|import mam3slam_tpu\b|"
                      r"from mam3slam_tpu[ .])", re.M)
-    paths = [os.path.join(REPO, "chip_smoke.py")]
-    port_dir = os.path.dirname(mam3slam_tpu_torch.__file__)
-    for root, _, files in os.walk(port_dir):
-        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
-    for path in paths:
+    for path in [os.path.join(REPO, "chip_smoke.py"), *_port_sources()]:
         with open(path) as f:
             assert not pat.search(f.read()), path
+
+
+def test_port_sources_name_no_reference_path():
+    """No string in the port's code (docstrings aside) names a path under
+    the reference package's directory."""
+    ref_part = re.compile(r"(^|[/\\])mam3slam_tpu([/\\]|$)")
+    for path in _port_sources():
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        docs = {id(n.body[0].value) for n in ast.walk(tree)
+                if isinstance(n, (ast.Module, ast.ClassDef, ast.FunctionDef))
+                and n.body and isinstance(n.body[0], ast.Expr)}
+        for node in ast.walk(tree):
+            if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                    and id(node) not in docs):
+                assert not ref_part.search(node.value), (path, node.value)
+
+
+def test_orb_pattern_is_the_references_bytes():
+    with open(cuda_orb_desc.PATTERN_PATH, "rb") as f:
+        port = f.read()
+    with open(os.path.join(REPO, "mam3slam_tpu", "data", "orb_pattern.npy"),
+              "rb") as f:
+        assert port == f.read()
+    assert os.path.commonpath([os.path.abspath(cuda_orb_desc.PATTERN_PATH),
+                               os.path.dirname(mam3slam_tpu_torch.__file__)]
+                              ) == os.path.dirname(mam3slam_tpu_torch.__file__)
+
+
+def test_port_runs_without_the_reference_on_disk(tmp_path):
+    """The port's package alone in a directory: it imports, loads its
+    rBRIEF pattern and extracts ORB features on the CPU."""
+    shutil.copytree(os.path.dirname(mam3slam_tpu_torch.__file__),
+                    tmp_path / "mam3slam_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    code = ("import numpy as np, torch\n"
+            "from mam3slam_tpu_torch.ops import cuda_orb_desc, orb\n"
+            "assert cuda_orb_desc.load_pattern().shape == (256, 4)\n"
+            "img = torch.tensor(np.random.default_rng(0).uniform(0, 255, "
+            "(96, 128)).astype(np.float32))\n"
+            "f = orb.extract_orb(img, orb.OrbConfig(96, 128, n_features=64, "
+            "n_levels=2))\n"
+            "print(int(f.valid.sum()))\n")
+    env = dict(os.environ, PYTHONPATH=str(tmp_path))
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) > 0
 
 
 def test_cpu_tensors_launch_no_kernel():
@@ -62,7 +116,7 @@ def test_cpu_tensors_launch_no_kernel():
     cuda_match.fused_masked_match(
         d, feats.uv, torch.full((d.shape[0],), 8.0), feats.level,
         feats.valid, d, feats.uv, feats.level, feats.valid)
-    cam = cameras.make_pinhole(100.0, 100.0, 64.0, 48.0)
+    cam = cameras.make_pinhole(100.0, 100.0, 64.0, 48.0, device="cpu")
     pts = torch.tensor(rng.uniform(1, 3, (32, 3)).astype(np.float32))
     uv = pts[:, :2] / pts[:, 2:] * 100.0 + torch.tensor([64.0, 48.0])
     ba.pose_optimization(torch.tensor([1.0, 0, 0, 0]), torch.zeros(3),

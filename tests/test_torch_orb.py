@@ -47,7 +47,8 @@ def test_extract_orb_matches_reference(i):
         jcam.make_pinhole(FX, FY, CX, CY, DIST))
     ref = jax.tree_util.tree_map(np.asarray, ref)
     got = TO.with_undistorted(TO.extract_orb(torch.tensor(img), tcfg),
-                              tcam.make_pinhole(FX, FY, CX, CY, DIST))
+                              tcam.make_pinhole(FX, FY, CX, CY, DIST,
+                                                device="cpu"))
     got = type(got)(*(x.numpy() for x in got))
 
     same = ((ref.xy == got.xy).all(1) & (ref.level == got.level)

@@ -24,7 +24,7 @@ def test_orbit_trajectory_matches_reference(bob):
 
 def test_render_and_depth_match_reference():
     scene_r = ref.RoomScene(seed=5)
-    scene_p = port.RoomScene(seed=5)
+    scene_p = port.RoomScene(seed=5, device="cpu")
     for tex_r, tex_p in zip((p[2] for p in scene_r.planes),
                             scene_p.textures):
         np.testing.assert_array_equal(tex_p.numpy(), tex_r)

@@ -126,7 +126,7 @@ def test_fuse_and_refresh_match_reference(snap):
     ms_np = ms_np._replace(kf_q=kf_q, kf_t=kf_t)
     tsys_, jsys_ = _pair(snap)
     jms = JS.MapState(*(jnp.asarray(x) for x in ms_np))
-    tms = convert.map_state_from_numpy(ms_np)
+    tms = convert.map_state_from_numpy(ms_np, device="cpu")
     mask = jsys_.fns["local_mp_mask"](jms, jnp.asarray(h.target_kf), 16)
     ref, n_ref = jsys_.fns["fuse_step"](jms, jnp.asarray(kf), mask)
     got, n_got = tsys_.fns["fuse_step"](tms, kf, _T(mask))

@@ -54,7 +54,8 @@ def port_system(**kw):
     cfg = tsys.SlamConfig(width=W, height=H, n_feat=N_FEAT, max_kf=96,
                           max_mp=6144, n_levels=4, kf_max_interval=10,
                           min_init_matches=60, **kw)
-    sys_ = tsys.SlamSystem(cfg, cameras.make_pinhole(FX, FY, CX, CY))
+    sys_ = tsys.SlamSystem(cfg, cameras.make_pinhole(FX, FY, CX, CY,
+                                                      device="cpu"))
     sys_.server = LoopServer(sys_, ServerConfig(min_kfs_in_map=4, vocab_k=8,
                                                 vocab_depth=3))
     return sys_

@@ -20,7 +20,8 @@ def _run(n_frames=230):
     cfg = tsys.SlamConfig(width=W, height=H, n_feat=N_FEAT, max_kf=128,
                           max_mp=8192, n_levels=4, kf_max_interval=8,
                           min_init_matches=60)
-    sys_ = tsys.SlamSystem(cfg, cameras.make_pinhole(FX, FY, CX, CY))
+    sys_ = tsys.SlamSystem(cfg, cameras.make_pinhole(FX, FY, CX, CY,
+                                                      device="cpu"))
     aid = sys_.add_agent()
     sys_.server = LoopServer(sys_, ServerConfig(min_kfs_in_map=10,
                                                 vocab_k=8, vocab_depth=3))

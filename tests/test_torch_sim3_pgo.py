@@ -26,7 +26,7 @@ from test_sim3_pgo import _sim3_scene
 from test_torch_server_e2e import torch_threads_per_worker  # noqa: F401
 
 JCAM = jcam.make_pinhole(300.0, 300.0, 320.0, 240.0)
-TCAM = tcam.make_pinhole(300.0, 300.0, 320.0, 240.0)
+TCAM = tcam.make_pinhole(300.0, 300.0, 320.0, 240.0, device="cpu")
 
 
 def _T(x):
@@ -161,7 +161,8 @@ def test_essential_graph_matches_reference():
                                              edges.items()}))
     got = tpgo.optimize_essential_graph(
         _T(q0), _T(t0), _T(s0), _T(fixed),
-        convert.from_numpy(tpgo.PGOEdges, tpgo.PGOEdges(**edges)), iters=12)
+        convert.from_numpy(tpgo.PGOEdges, tpgo.PGOEdges(**edges),
+                           device="cpu"), iters=12)
     ref = [np.asarray(x) for x in ref]
     got = [x.numpy() for x in got]
     assert max(_ang(a, b) for a, b in zip(got[0], ref[0])) < 1e-3

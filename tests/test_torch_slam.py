@@ -66,7 +66,8 @@ def test_dense_window_ba_matches_reference(jax_map):
     ref = _np(jax.jit(lambda p: jbw.run_window_ba_dense(p, 0, iters=6))(
         jbw.WindowProblem(*ref_prob)))
     got = convert.to_numpy(tbw.run_window_ba_dense(
-        convert.from_numpy(tbw.WindowProblem, ref_prob), 0, iters=6))
+        convert.from_numpy(tbw.WindowProblem, ref_prob, device="cpu"), 0,
+        iters=6))
     cv = ref_prob.cam_valid
     assert _ang(got.cam_q[cv], ref.cam_q[cv]).max() < 1e-3
     t_scale = np.abs(ref.cam_t[cv]).max()
@@ -130,7 +131,8 @@ def run_port_slam(n_frames=60):
     cfg = tsys.SlamConfig(width=W, height=H, n_feat=N_FEAT, max_kf=64,
                           max_mp=4096, n_levels=4, kf_max_interval=12,
                           min_init_matches=60)
-    sys_ = tsys.SlamSystem(cfg, cameras.make_pinhole(FX, FY, CX, CY))
+    sys_ = tsys.SlamSystem(cfg, cameras.make_pinhole(FX, FY, CX, CY,
+                                                      device="cpu"))
     aid = sys_.add_agent()
     states = [sys_.track(aid, _frame(world, R, t), ts=float(i))[0]
               for i, (R, t) in enumerate(poses)]

@@ -48,8 +48,8 @@ def run():
                            max_mp=4096, n_levels=4)
     return dict(sys=sys_, ms=sys_.ms, frame=frame, ref_kf=int(a.ref_kf),
                 chain=chain, cam=cam, fns=tsys.programs(tcfg, 0),
-                ms_t=convert.map_state_from_numpy(_np(sys_.ms)),
-                frame_t=convert.frame_from_numpy(_np(frame)))
+                ms_t=convert.map_state_from_numpy(_np(sys_.ms), device="cpu"),
+                frame_t=convert.frame_from_numpy(_np(frame), device="cpu"))
 
 
 def _T(x):
@@ -156,6 +156,6 @@ def test_add_keyframe_matches_reference(run):
     assert (np.asarray(ref.covis)[int(kf_r)] > 0).sum() >= 2
     idx_r, w_r, ok_r = _np(JS.best_covisible(ref, int(kf_r), 4))
     idx_g, w_g, ok_g = convert.to_numpy(TS.best_covisible(
-        convert.map_state_from_numpy(ref), int(kf_r), 4))
+        convert.map_state_from_numpy(ref, device="cpu"), int(kf_r), 4))
     np.testing.assert_array_equal(idx_g, idx_r)
     np.testing.assert_array_equal(w_g, w_r)

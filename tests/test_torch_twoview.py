@@ -109,7 +109,7 @@ def test_initialization_path_matches_reference():
     jf = _compiled(SlamConfig(**kw), jcam.PINHOLE)
     tf = tsys.programs(tsys.SlamConfig(**kw), tcam.PINHOLE)
     jcam_ = jcam.make_pinhole(FX, FY, CX, CY)
-    tcam_ = tcam.make_pinhole(FX, FY, CX, CY)
+    tcam_ = tcam.make_pinhole(FX, FY, CX, CY, device="cpu")
     t1 = tsteps.FrameObs(*(_T(np.asarray(getattr(fr1, k)))
                            for k in tsteps.FrameObs._fields))
     t2 = tsteps.FrameObs(*(_T(np.asarray(getattr(fr2, k)))
@@ -128,7 +128,7 @@ def test_initialization_path_matches_reference():
     assert bool(rec_j.ok) and bool(rec_t.ok)
 
     ms_j = JS.init_map_state(SlamConfig(**kw).map_config())
-    ms_t = TS.init_map_state(tsys.SlamConfig(**kw).map_config())
+    ms_t = TS.init_map_state(tsys.SlamConfig(**kw).map_config(), device="cpu")
     ms_j, kf1_j, _ = jf["create_initial_map"](
         ms_j, fr1, fr2, jlie.quat_from_matrix(rec_j.R21), rec_j.t21,
         jnp.arange(N_FEAT, dtype=jnp.int32), idx,

@@ -88,10 +88,10 @@ def main() -> int:
     arcs = [render.orbit_trajectory(n, a0, a1, radius=2.5, bob=b)
             for n, (a0, a1, b) in specs]
     cam_r = render.RenderCam(W, H, FX, FY, CX, CY)
-    scene = render.RoomScene(seed=cs.SERVER_SCENE_SEED)
+    scene = render.RoomScene(seed=cs.SERVER_SCENE_SEED, device="cpu")
     orb_cfg = O.OrbConfig(height=H, width=W, n_features=N_FEATURES)
 
-    tcam = cameras.make_pinhole(FX, FY, CX, CY)
+    tcam = cameras.make_pinhole(FX, FY, CX, CY, device="cpu")
     tsys_ = tsystem.SlamSystem(
         tsystem.SlamConfig(width=W, height=H, n_feat=orb_cfg.capacity,
                            max_kf=MAX_KF, max_mp=MAX_MP), tcam, seed=0)
