@@ -8,8 +8,8 @@
 // exactly: the lowest index wins ties, d2 is the best over the other
 // targets (it may equal d1), and a query with no candidate gets
 // (0, BIG, BIG).  Distances are exact integers (XOR + __popc over 8 u32
-// words), not the MXU bit-matmul identity nor the Pallas kernel's packed
-// f32 keys / bf16 nibbles.
+// words in the masked kernel, binary tensor-core products in the
+// unmasked one), not the Pallas kernels' packed f32 keys / bf16 nibbles.
 //
 // masked_match_kernel (fused_masked_match).
 // What bounds it on the H100: the callers pass Q = 4096 candidates
@@ -54,9 +54,38 @@
 // (BIG, INT_MAX, BIG), and idx = 0 where d1 == BIG at the end.  No binary
 // tensor cores here: < 1% of pairs pass the mask.
 //
-// best2_kernel (min_hamming2): one thread per query, the targets staged
-// through shared memory in tiles of kTile and scanned in ascending index,
-// each thread walking all M targets.
+// best2_mma_kernel (min_hamming2).
+// What bounds it on the H100: every (valid query, valid target) pair,
+// 1024 x 1024 at the callers: as a binary tensor-core product 2 x 256 bit
+// operations a pair, 0.27 us at the int8 tensor-core rate; 64 KB of
+// descriptors in.  Launch latency and how many SMs take part decide the
+// time, so the grid is one block per 16 queries (64 blocks at Q = 1024).
+// Design: the distances come from the binary tensor cores,
+// mma.sync.m16n8k256.row.col.s32.b1.b1.s32.and.popc, which gives
+// popc(a & b) for a 16-query x 8-target tile.  Since
+// popc(a ^ b) = popc(a & ~b) + popc(~a & b), two chained products, the
+// second accumulating onto the first, leave the exact Hamming distance in
+// the accumulator: no row or column popcount is needed.  The packed
+// descriptor is the fragment layout as it is: lane l holds two words of
+// rows l/4 and l/4 + 8 (A) and of target l/4 (B), and since A and B take
+// the same words in the same places, and one bit order inside a word,
+// the sum over k is the popcount over all 256 bits; so no repacking.
+// B fragments are loaded straight from global memory (L2), not staged in
+// shared memory: with one 16-query tile per block no target is read
+// twice in a block, so a stage would buy no reuse (and, as [n][8] words,
+// a two-way bank conflict on the fragment loads); one 8-byte load per
+// lane covers the tile's 256 contiguous bytes exactly.  Warp w of a
+// block of 16 warps takes the 8-target tiles w, w + 16, w + 32, ... in
+// ascending order, in chunks of 8 tiles whose loads all go out before
+// the first product (one L2 round trip per chunk, not per tile; one
+// chunk at M = 1024); the accumulator gives lane l rows l/4 and l/4 + 8
+// and columns 2(l%4) and 2(l%4) + 1 of each tile, so each lane sees its
+// columns in ascending index and the strict-less update keeps the
+// lexicographic (d, idx) order.  Invalid and out-of-range targets count
+// as BIG.  The 4 lanes of a row merge by a 2-step xor butterfly of
+// merge_best2, the 16 warps through shared memory, in any order (the
+// merge is exact).  cuda_match.best_two_mma replays this reduction on
+// the CPU.
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
@@ -89,6 +118,19 @@ __device__ __forceinline__ void merge_best2(int& d1, int& idx, int& d2,
     idx = oidx;
   } else {
     d2 = min(d2, od1);
+  }
+}
+
+// One lane's best two: targets come in ascending index, so d < d1 is the
+// lexicographic (d, j) < (d1, idx).
+__device__ __forceinline__ void push_best2(int& d1, int& idx, int& d2, int d,
+                                           int j) {
+  if (d < d1) {
+    d2 = d1;
+    d1 = d;
+    idx = j;
+  } else {
+    d2 = min(d2, d);
   }
 }
 
@@ -130,13 +172,7 @@ __device__ __forceinline__ void scan_query(
       int d = 0;
 #pragma unroll
       for (int k = 0; k < 8; ++k) d += __popc(q[k] ^ s_desc[k * tile + e]);
-      if (d < d1) {
-        d2 = d1;
-        d1 = d;
-        idx = base + e;
-      } else {
-        d2 = min(d2, d);
-      }
+      push_best2(d1, idx, d2, d, base + e);
     }
   }
 #pragma unroll
@@ -234,71 +270,113 @@ masked_match_kernel(const uint32_t* __restrict__ q_desc,
 }
 
 // ---------------------------------------------------------------------------
-// best2_kernel
+// best2_mma_kernel
 // ---------------------------------------------------------------------------
 
-constexpr int kThreads = 128;
-constexpr int kTile = 128;
+constexpr int kRows = 16;        // queries per block: one m16 tile
+constexpr int kB2Warps = 16;     // target slices per block
+constexpr int kB2Threads = 32 * kB2Warps;
+constexpr int kChunk = 8;        // tiles a warp loads before it multiplies
 
-struct Best2 {
-  int idx, d1, d2;
-  __device__ Best2() : idx(0), d1(kBig), d2(kBig) {}
-  __device__ __forceinline__ void push(int d, int j) {
-    if (d < d1) {
-      d2 = d1;
-      d1 = d;
-      idx = j;
-    } else if (d < d2) {
-      d2 = d;
-    }
-  }
-};
-
-__device__ __forceinline__ int hamming(const uint32_t (&q)[8],
-                                       const uint32_t* t) {
-  int d = 0;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) d += __popc(q[k] ^ t[k]);
-  return d;
+// d += popc(a & b) over the 16 x 8 tile (fragments in the PTX layout of
+// mma.m16n8k256 .b1: a 16 x 256 row-major, b 256 x 8 column-major).
+__device__ __forceinline__ void mma_and_popc(int (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__global__ void __launch_bounds__(kThreads)
-best2_kernel(const uint32_t* __restrict__ q_desc,
-             const uint8_t* __restrict__ q_valid, int nq,
-             const uint32_t* __restrict__ t_desc,
-             const uint8_t* __restrict__ t_valid, int nt,
-             int* __restrict__ out_idx, int* __restrict__ out_d1,
-             int* __restrict__ out_d2) {
-  __shared__ uint32_t s_desc[kTile][8];
-  __shared__ uint8_t s_valid[kTile];
+__global__ void __launch_bounds__(kB2Threads)
+best2_mma_kernel(const uint32_t* __restrict__ q_desc,
+                 const uint8_t* __restrict__ q_valid, int nq,
+                 const uint32_t* __restrict__ t_desc,
+                 const uint8_t* __restrict__ t_valid, int nt,
+                 int* __restrict__ out_idx, int* __restrict__ out_d1,
+                 int* __restrict__ out_d2) {
+  __shared__ int s_best[kB2Warps][kRows][3];  // (d1, idx, d2) per warp, row
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;  // fragment row / column group
+  const int row0 = blockIdx.x * kRows;
 
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  const bool live = i < nq && q_valid[i];
-  uint32_t q[8];
-  if (live) {
+  // A = the 16 queries, and ~A.  The fragment takes from lane l two
+  // 32-bit words of each of its rows as its two k-halves; lane l gives
+  // words 2(l%4) and 2(l%4) + 1 (one 8-byte load), and B below gives the
+  // same words of its target in the same places, so the sum over k is the
+  // popcount over all 256 bits.  Rows past nq are zero (not written).
+  const uint2* q2 = reinterpret_cast<const uint2*>(q_desc);  // [nq][4]
+  const uint2* t2 = reinterpret_cast<const uint2*>(t_desc);  // [nt][4]
+  const int r_lo = row0 + g, r_hi = row0 + g + 8;
+  const uint2 lo = r_lo < nq ? q2[4 * r_lo + t] : make_uint2(0u, 0u);
+  const uint2 hi = r_hi < nq ? q2[4 * r_hi + t] : make_uint2(0u, 0u);
+  const uint32_t a[4] = {lo.x, hi.x, lo.y, hi.y};
+  const uint32_t na[4] = {~lo.x, ~hi.x, ~lo.y, ~hi.y};
+
+  // (d1, idx, d2) of rows g and g + 8 over this lane's columns
+  int d1[2] = {kBig, kBig}, idx[2] = {INT_MAX, INT_MAX}, d2[2] = {kBig, kBig};
+  const int n_tiles = (nt + 7) >> 3;
+  for (int tile0 = warp; tile0 < n_tiles; tile0 += kChunk * kB2Warps) {
+    // the chunk's fragments and valid flags, all loads issued at once
+    uint2 b[kChunk];
+    uint32_t valid = 0u;                  // bit 2c + e: column j0(c) + e
 #pragma unroll
-    for (int k = 0; k < 8; ++k) q[k] = q_desc[8 * i + k];
-  }
-  Best2 best;
-  for (int base = 0; base < nt; base += kTile) {
-    const int n = min(kTile, nt - base);
-    for (int e = threadIdx.x; e < n * 8; e += kThreads)
-      s_desc[e / 8][e % 8] = t_desc[8 * base + e];
-    for (int e = threadIdx.x; e < n; e += kThreads)
-      s_valid[e] = t_valid[base + e];
-    __syncthreads();
-    if (live) {
-      for (int j = 0; j < n; ++j) {
-        if (!s_valid[j]) continue;
-        best.push(hamming(q, s_desc[j]), base + j);
+    for (int c = 0; c < kChunk; ++c) {
+      const int tile = tile0 + c * kB2Warps;
+      const int tg = 8 * tile + g;        // the target this lane loads
+      b[c] = tg < nt ? t2[4 * tg + t] : make_uint2(0u, 0u);
+      const int j0 = 8 * tile + 2 * t;    // this lane's two columns
+      valid |= (uint32_t)(j0 < nt && t_valid[j0]) << (2 * c);
+      valid |= (uint32_t)(j0 + 1 < nt && t_valid[j0 + 1]) << (2 * c + 1);
+    }
+#pragma unroll
+    for (int c = 0; c < kChunk; ++c) {
+      if (tile0 + c * kB2Warps >= n_tiles) break;  // the same in the warp
+      const int j0 = 8 * (tile0 + c * kB2Warps) + 2 * t;
+      int acc[4] = {0, 0, 0, 0};
+      mma_and_popc(acc, a, ~b[c].x, ~b[c].y);  // popc(a & ~b)
+      mma_and_popc(acc, na, b[c].x, b[c].y);   // + popc(~a & b)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {            // rows g, g + 8
+        push_best2(d1[h], idx[h], d2[h],
+                   valid >> (2 * c) & 1u ? acc[2 * h] : kBig, j0);
+        push_best2(d1[h], idx[h], d2[h],
+                   valid >> (2 * c + 1) & 1u ? acc[2 * h + 1] : kBig, j0 + 1);
       }
     }
-    __syncthreads();
   }
-  if (i < nq) {
-    out_idx[i] = best.idx;
-    out_d1[i] = best.d1;
-    out_d2[i] = best.d2;
+
+  // the 4 lanes of a row, then the warps
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      const int od1 = __shfl_xor_sync(0xffffffffu, d1[h], o);
+      const int oidx = __shfl_xor_sync(0xffffffffu, idx[h], o);
+      const int od2 = __shfl_xor_sync(0xffffffffu, d2[h], o);
+      merge_best2(d1[h], idx[h], d2[h], od1, oidx, od2);
+    }
+    if (t == 0) {
+      s_best[warp][g + 8 * h][0] = d1[h];
+      s_best[warp][g + 8 * h][1] = idx[h];
+      s_best[warp][g + 8 * h][2] = d2[h];
+    }
+  }
+  __syncthreads();
+  const int r = row0 + threadIdx.x;
+  if (threadIdx.x < kRows && r < nq) {
+    int m1 = s_best[0][threadIdx.x][0], mi = s_best[0][threadIdx.x][1],
+        m2 = s_best[0][threadIdx.x][2];
+    for (int w = 1; w < kB2Warps; ++w)
+      merge_best2(m1, mi, m2, s_best[w][threadIdx.x][0],
+                  s_best[w][threadIdx.x][1], s_best[w][threadIdx.x][2]);
+    const bool live = q_valid[r];  // an invalid query: (0, BIG, BIG)
+    out_idx[r] = live && m1 < kBig ? mi : 0;
+    out_d1[r] = live ? m1 : kBig;
+    out_d2[r] = live ? m2 : kBig;
   }
 }
 
@@ -339,8 +417,8 @@ extern "C" int mam3_min_hamming2(const uint32_t* q_desc,
                                  const uint32_t* t_desc,
                                  const uint8_t* t_valid, int nt, int* idx,
                                  int* d1, int* d2, void* stream) {
-  best2_kernel<<<(nq + kThreads - 1) / kThreads, kThreads, 0,
-                 (cudaStream_t)stream>>>(q_desc, q_valid, nq, t_desc,
-                                         t_valid, nt, idx, d1, d2);
+  best2_mma_kernel<<<(nq + kRows - 1) / kRows, kB2Threads, 0,
+                     (cudaStream_t)stream>>>(q_desc, q_valid, nq, t_desc,
+                                             t_valid, nt, idx, d1, d2);
   return (int)cudaGetLastError();
 }

@@ -15,7 +15,9 @@ Both return exact int32 (idx, d1, d2) with the semantics of
 d2 is the best over the other targets (it may equal d1), and a query with
 no qualifying target gets (0, BIG, BIG).  Descriptors stay packed
 (u8[32]); the plain versions use the exact f32 bit-matmul identity
-|a| + |b| - 2 a.b, the kernels XOR + popcount.
+|a| + |b| - 2 a.b, the masked kernel XOR + popcount, the unmasked one
+binary tensor-core products.  ``best_two_lanes`` and ``best_two_mma``
+replay the two kernels' orders of reduction on the CPU for the tests.
 """
 
 from __future__ import annotations
@@ -99,6 +101,41 @@ def best_two_lanes(d: torch.Tensor, tile: int = 2048):
             best = _merge_best2(best, tuple(x[:, lane ^ o] for x in best))
         best = tuple(x[:, 0] for x in best)
         out = best if out is None else _merge_best2(out, best)
+    d1, idx, d2 = out
+    return (torch.where(d1 < BIG, idx, 0).to(torch.int32), d1.to(torch.int32),
+            d2.to(torch.int32))
+
+
+def best_two_mma(d: torch.Tensor):
+    """``best_two`` of a masked distance matrix [Q, M] (masked entries
+    hold BIG) reduced as ``csrc/match.cu:best2_mma_kernel`` reduces it,
+    for the tests: the targets in tiles of 8; warp w of 16 takes the
+    tiles w, w + 16, ... in ascending order (the kernel's chunks of 8
+    tiles do not change that order); lane group t (= lane % 4) owns
+    columns 2t and 2t + 1 of each tile and keeps the best two of its
+    columns in ascending order (an empty lane holds (BIG, INT_MAX, BIG));
+    the 4 lanes of a row merge by an xor butterfly, then the warps in
+    turn, all by the exact rule; idx = 0 where d1 == BIG."""
+    Q, M = d.shape
+    warps = 16                      # kB2Warps
+    imax = torch.iinfo(torch.int32).max
+    rounds = -(-M // (8 * warps))
+    pad = torch.full((Q, rounds * 8 * warps - M), BIG, dtype=d.dtype,
+                     device=d.device)
+    # column 8 (r warps + w) + 2t + c -> [Q, warp, lane group, (round, c)]
+    dl = torch.cat([d, pad], 1).reshape(Q, rounds, warps, 4, 2)
+    dl = dl.permute(0, 2, 3, 1, 4).reshape(Q * warps * 4, rounds * 2)
+    s1, d1, d2 = (x.reshape(Q, warps, 4) for x in best_two(dl))
+    w = torch.arange(warps, device=d.device)[:, None]
+    t = torch.arange(4, device=d.device)
+    col = 8 * ((s1 // 2) * warps + w) + 2 * t + s1 % 2
+    best = (d1, torch.where(d1 < BIG, col, imax), d2)
+    for o in (1, 2):
+        best = _merge_best2(best, tuple(x[:, :, t ^ o] for x in best))
+    best = tuple(x[:, :, 0] for x in best)
+    out = tuple(x[:, 0] for x in best)
+    for k in range(1, warps):
+        out = _merge_best2(out, tuple(x[:, k] for x in best))
     d1, idx, d2 = out
     return (torch.where(d1 < BIG, idx, 0).to(torch.int32), d1.to(torch.int32),
             d2.to(torch.int32))

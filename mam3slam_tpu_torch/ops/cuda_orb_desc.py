@@ -39,6 +39,13 @@ def load_pattern() -> np.ndarray:
     return pat
 
 
+@functools.lru_cache(maxsize=None)
+def device_pattern(device: torch.device) -> torch.Tensor:
+    """The rBRIEF pattern on ``device``, copied there once (the kernel
+    reads it on every launch)."""
+    return torch.tensor(load_pattern(), device=device)
+
+
 def circular_umax() -> np.ndarray:
     """u_max per |dy| of the r=15 circular patch (reference umax table)."""
     r = HALF_PATCH
@@ -136,7 +143,7 @@ def ic_brief(raw: torch.Tensor, blur: torch.Tensor, xy: torch.Tensor,
     _build.check(xy, "xy", torch.int32, (N, 2))
     _build.check(lvl, "lvl", torch.int32, (N,))
     _build.check(hw, "hw", torch.int32, (N, 2))
-    pattern = torch.tensor(load_pattern(), device=raw.device)
+    pattern = device_pattern(raw.device)
     angle = torch.empty(N, dtype=torch.float32, device=raw.device)
     desc = torch.empty((N, 32), dtype=torch.uint8, device=raw.device)
     if N:

@@ -161,6 +161,97 @@ def test_min_hamming2_with_partial_masks_equals_plain(dev):
         assert torch.equal(g, p)
 
 
+def _best2_problem(rng, Q, M):
+    """Queries near seeded targets, with copies of the targets 2, 8 and
+    128 columns on (equal distances in another lane group, warp and round
+    of the tensor-core kernel)."""
+    dt = rng.integers(0, 256, (M, 32), dtype=np.uint8)
+    near = (7 * np.arange(Q)) % M
+    dq = dt[near] ^ (rng.integers(0, 256, (Q, 32), dtype=np.uint8)
+                     & rng.integers(0, 256, (Q, 32), dtype=np.uint8) & 0x11)
+    for step in (2, 8, 128):
+        src = near[near + step < M][::3]
+        dt[src + step] = dt[src]
+    return dq, dt
+
+
+def _min_hamming2_equals_plain(dev, dq, qv, dt, tv):
+    args = [torch.tensor(x, device=dev) for x in (dq, qv, dt, tv)]
+    got = _counted("min_hamming2", lambda: CM.min_hamming2(*args))
+    plain = CM.min_hamming2_plain(*args)
+    for g, p in zip(got, plain):
+        assert torch.equal(g, p)
+    return got
+
+
+@pytest.mark.parametrize("Q,M", [(1, 1), (33, 77), (1000, 1024),
+                                 (1024, 2500)])
+def test_min_hamming2_ragged_sizes_equal_plain(dev, Q, M):
+    """Q and M not multiples of the 16 x 8 tile, invalid rows and
+    columns, ties planted across lanes, warps and rounds."""
+    rng = np.random.default_rng(30 + Q + M)
+    dq, dt = _best2_problem(rng, Q, M)
+    qv, tv = rng.random(Q) > 0.1, rng.random(M) > 0.1
+    qv[0] = tv[0] = True
+    got = _min_hamming2_equals_plain(dev, dq, qv, dt, tv)
+    if M >= 77:
+        assert int(((got[1] == got[2]) & (got[1] < CM.BIG)).sum()) >= 3
+
+
+@pytest.mark.parametrize("case", ["queries_invalid", "targets_invalid",
+                                  "single_target", "ties_everywhere"])
+def test_min_hamming2_edge_masks_equal_plain(dev, case):
+    rng = np.random.default_rng(12)
+    Q, M = 100, 1000
+    dq, dt = _best2_problem(rng, Q, M)
+    qv, tv = np.ones(Q, bool), np.ones(M, bool)
+    if case == "queries_invalid":
+        qv[:] = False
+    elif case == "targets_invalid":
+        tv[:] = False
+    elif case == "single_target":
+        tv[:] = False
+        tv[rng.integers(0, M)] = True
+    else:
+        dt[13::5] = dq[3]          # d = 0 from column 13 on, every 5th
+    got = _min_hamming2_equals_plain(dev, dq, qv, dt, tv)
+    if case == "ties_everywhere":
+        assert int(got[0][3]) == 13 and int(got[2][3]) == 0
+
+
+@pytest.mark.parametrize("n", [1, 33, 1000, 3000])
+def test_describe_kernel_at_sizes_and_level_edges_matches_plain(dev, n):
+    """Keypoints on every level of the EuRoC stack, every fourth on an
+    edge or corner of its level, where the circle and the rotated taps
+    clamp; phase 3's gates."""
+    rng = np.random.default_rng(40 + n)
+    cfg = O.OrbConfig(480, 752, n_features=1000)
+    img = torch.tensor(rng.uniform(0, 255, (480, 752)).astype(np.float32),
+                       device=dev)
+    stack = O.build_stack(img, cfg)
+    blur = torch.round(O.gaussian_blur(stack))
+    lvl = rng.integers(0, cfg.n_levels, n)
+    hw = np.asarray(cfg.level_sizes)[lvl]
+    x = (rng.random(n) * hw[:, 1]).astype(np.int64)
+    y = (rng.random(n) * hw[:, 0]).astype(np.int64)
+    edge = np.arange(0, n, 4)
+    x[edge[0::4]] = 0
+    y[edge[0::4]] = 0
+    x[edge[1::4]] = hw[edge[1::4], 1] - 1
+    y[edge[2::4]] = 1
+    y[edge[3::4]] = hw[edge[3::4], 0] - 1
+    x[edge[3::4]] = hw[edge[3::4], 1] - 2
+    args = (stack, blur,
+            torch.tensor(np.stack([x, y], 1).astype(np.int32), device=dev),
+            torch.tensor(lvl.astype(np.int32), device=dev),
+            torch.tensor(hw.astype(np.int32), device=dev))
+    ang, desc = _counted("orb_desc", lambda: CO.ic_brief(*args))
+    p_ang, p_desc = CO.ic_brief_plain(*args)
+    assert (ang - p_ang).abs().max() <= 1e-4
+    bits = (CM.unpack_bits(desc) != CM.unpack_bits(p_desc)).sum(-1)
+    assert (bits == 0).float().mean() >= 0.99 and bits.max() <= 2
+
+
 def test_describe_kernel_matches_plain(dev):
     rng = np.random.default_rng(2)
     cfg = O.OrbConfig(120, 160, n_features=100, n_levels=3)

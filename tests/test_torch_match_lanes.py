@@ -53,6 +53,81 @@ def test_lane_merge_equals_best_in_mask(Q, M, tile):
     assert ((got[1] == got[2]) & (got[1] < CM.BIG)).any()
 
 
+def _planted_descriptors(seed, Q, M):
+    """Seeded queries and targets: query i near target (7 i) % M, and
+    copies of those targets 2 columns on (another lane group), 8 on
+    (another warp) and 128 on (the same warp's next round), so that equal
+    distances land in other lanes, warps and rounds."""
+    rng = np.random.default_rng(seed)
+    dq = rng.integers(0, 256, (Q, 32), dtype=np.uint8)
+    dt = rng.integers(0, 256, (M, 32), dtype=np.uint8)
+    near = (7 * np.arange(Q)) % M
+    dq[:] = dt[near]
+    flip = rng.integers(0, 256, (Q, 32), dtype=np.uint8)
+    dq ^= flip & rng.integers(0, 256, (Q, 32), dtype=np.uint8) & 0x11
+    for step in (2, 8, 128):
+        src = near[near + step < M][::3]
+        dt[src + step] = dt[src]
+    return dq, dt
+
+
+def _mma_check(dq, dt, qv, tv):
+    """best_two_mma of the masked Hamming matrix against the reference's
+    best_in_mask and min_hamming2_plain; returns the result."""
+    q, t = torch.tensor(dq), torch.tensor(dt)
+    qv_t, tv_t = torch.tensor(qv), torch.tensor(tv)
+    ham = CM.hamming_matrix(q, t)
+    mask = qv_t[:, None] & tv_t[None, :]
+    got = [x.numpy() for x in CM.best_two_mma(torch.where(mask, ham, CM.BIG))]
+    plain = [x.numpy() for x in CM.min_hamming2_plain(q, qv_t, t, tv_t)]
+    for g, p, r in zip(got, plain, _reference(ham.numpy(), mask.numpy())):
+        np.testing.assert_array_equal(g, r)
+        np.testing.assert_array_equal(p, r)
+    return got
+
+
+@pytest.mark.parametrize("Q,M", [(1, 1), (33, 77), (1000, 1024),
+                                 (1024, 2500)])
+def test_mma_reduction_equals_best_in_mask(Q, M):
+    """Q and M not multiples of 16 or 8, invalid rows and columns, and
+    equal distances planted in other lanes, warps and rounds."""
+    rng = np.random.default_rng(Q + M)
+    dq, dt = _planted_descriptors(Q * 7 + M, Q, M)
+    qv, tv = rng.random(Q) > 0.1, rng.random(M) > 0.1
+    qv[0] = tv[0] = True
+    got = _mma_check(dq, dt, qv, tv)
+    if M >= 77:
+        assert ((got[1] == got[2]) & (got[1] < CM.BIG)).sum() >= 3
+        assert (got[1][~qv] == CM.BIG).all() and (got[0][~qv] == 0).all()
+
+
+@pytest.mark.parametrize("case", ["rows_invalid", "columns_invalid",
+                                  "single_target", "ties_across_warps"])
+def test_mma_reduction_edge_masks(case):
+    """All queries or all targets invalid, one valid target, and a row
+    whose best distance repeats in every warp and round."""
+    Q, M = 40, 300
+    rng = np.random.default_rng(11)
+    dq, dt = _planted_descriptors(5, Q, M)
+    qv, tv = np.ones(Q, bool), np.ones(M, bool)
+    if case == "rows_invalid":
+        qv[:] = False
+    elif case == "columns_invalid":
+        tv[:] = False
+    elif case == "single_target":
+        tv[:] = False
+        tv[rng.integers(0, M)] = True
+    else:
+        dt[13::5] = dq[3]          # d = 0 from column 13 on, every 5th
+    got = _mma_check(dq, dt, qv, tv)
+    if case in ("rows_invalid", "columns_invalid"):
+        assert (got[0] == 0).all() and (got[1] == CM.BIG).all()
+    elif case == "single_target":
+        assert (got[1] < CM.BIG).all() and (got[2] == CM.BIG).all()
+    else:
+        assert got[0][3] == 13 and got[1][3] == 0 and got[2][3] == 0
+
+
 def test_lane_merge_equals_fused_masked_match_plain():
     rng = np.random.default_rng(7)
     Q, M = 300, 1000

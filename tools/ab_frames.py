@@ -4,7 +4,8 @@ or epoch runs with each set on the same state, so that the host's load,
 which sets a launch-bound frame's time, and the work itself fall on both
 alike.
 
-    python3 tools/ab_frames.py PARENT_CSRC [--profile]   (needs a CUDA device)
+    python3 tools/ab_frames.py PARENT_CSRC [--profile | --kernels]
+    (needs a CUDA device)
 
 PARENT_CSRC is a ``csrc/`` directory of another version of the kernels
 (for example ``git archive <commit> mam3slam_tpu_torch/csrc | tar -x -C
@@ -34,6 +35,12 @@ launch), then in a torch.profiler window for the device's kernels.  It
 prints, per part and set, the medians of host wall, device busy time,
 kernel launches, busy share and the device time of the port's kernels.
 
+With ``--kernels``: phase 3 of chip_smoke.py (every kernel against its
+plain version at every caller's shape, with device, wrapper and plain
+times and the bound) four times, parent / change / change / parent,
+then per kernel and caller the device and wrapper times of each set
+(mean of its two runs) and ptxas's report of each set's kernels.
+
 Every line carries the card's nvidia-smi name and power limit.
 """
 
@@ -60,19 +67,53 @@ EPOCH_REPS = 3
 # the best2_kernel<true> instance before it had a kernel of its own)
 OWN = {"orb_desc_kernel": "orb_desc", "masked_match_kernel": "masked_match",
        "best2_kernel<true>": "masked_match", "best2_kernel": "min_hamming2",
-       "pose_kernel": "pose_opt"}
+       "best2_mma_kernel": "min_hamming2", "pose_kernel": "pose_opt"}
 
 
 def build_library(csrc: str):
-    """The kernels of ``csrc`` as a library of their own."""
-    saved = (_build.CSRC_DIR, _build.BUILD_DIR, _build._lib)
+    """The kernels of ``csrc`` as a library of their own, and ptxas's
+    report of them."""
+    saved = (_build.CSRC_DIR, _build.BUILD_DIR, _build._lib,
+             _build.build_log)
     _build.CSRC_DIR = csrc
     _build.BUILD_DIR = os.path.join(saved[1], "ab_" + str(abs(hash(csrc))))
     _build._lib = None
+    _build.build_log = ""
     try:
-        return _build.library()
+        return _build.library(), _build.build_log
     finally:
-        _build.CSRC_DIR, _build.BUILD_DIR, _build._lib = saved
+        (_build.CSRC_DIR, _build.BUILD_DIR, _build._lib,
+         _build.build_log) = saved
+
+
+def kernel_runs(libs, smi, dev, scene, cam_r, orb_cfg, cfg, cam) -> None:
+    """chip_smoke's phase 3 with each set, parent / change / change /
+    parent; per kernel and caller the mean device and wrapper times of
+    each set's two runs."""
+    from mam3slam_tpu_torch.ops import cuda_orb_desc as CO
+
+    rows = {n: [] for n in NAMES}
+    for n in ("parent", "change", "change", "parent"):
+        _build._lib = libs[n]
+        rows[n].append(cs.check_kernels(dev, scene, cam_r, orb_cfg,
+                                        cfg.max_mp))
+    for k, row in enumerate(rows["change"][0]):
+        mean = {n: {key: float(np.mean([r[k][key] for r in rows[n]]))
+                    for key in ("device_ms", "wrapper_ms", "plain_ms")}
+                for n in NAMES}
+        cs.log("ab_kernel", kernel=row["kernel"], caller=repr(row["caller"]),
+               parent_device_us=mean["parent"]["device_ms"] * 1e3,
+               change_device_us=mean["change"]["device_ms"] * 1e3,
+               parent_wrapper_us=mean["parent"]["wrapper_ms"] * 1e3,
+               change_wrapper_us=mean["change"]["wrapper_ms"] * 1e3,
+               plain_ms=(mean["parent"]["plain_ms"]
+                         + mean["change"]["plain_ms"]) / 2,
+               bound_us=row["bound_us"], bound_by=row["bound_by"],
+               change_share=row["bound_us"] / 1e3
+               / mean["change"]["device_ms"], card=repr(smi))
+    # what the describe wrapper no longer does on every call
+    cs.log("pattern_upload", card=repr(smi), us=1e3 * cs.median_ms(
+        lambda: torch.tensor(CO.load_pattern(), device=dev)))
 
 
 def summary(series: dict) -> dict:
@@ -309,17 +350,22 @@ def main() -> int:
     from mam3slam_tpu_torch.ops import orb as O
     from mam3slam_tpu_torch.slam import system
 
-    libs = {"parent": build_library(os.path.abspath(sys.argv[1])),
-            "change": _build.library()}
+    parent, parent_log = build_library(os.path.abspath(sys.argv[1]))
+    libs = {"parent": parent, "change": _build.library()}
     dev = torch.device("cuda", 0)
     smi = cs.nvidia_smi()
     print(smi, flush=True)
+    for name, log in (("parent", parent_log), ("change", _build.build_log)):
+        for line in log.splitlines():
+            if "ptxas info" in line or "bytes stack frame" in line:
+                cs.log("ptxas", set=name, line=repr(line.strip()))
     cam_r = render.RenderCam(cs.W, cs.H, cs.FX, cs.FY, cs.CX, cs.CY)
     scene = render.RoomScene(seed=5, device=dev)
     orb_cfg = O.OrbConfig(height=cs.H, width=cs.W, n_features=cs.N_FEATURES)
     cfg = system.SlamConfig(width=cs.W, height=cs.H, n_feat=orb_cfg.capacity)
     cam = cameras.make_pinhole(cs.FX, cs.FY, cs.CX, cs.CY, device=dev)
-    run = profile_runs if "--profile" in sys.argv[2:] else ab_runs
+    run = (profile_runs if "--profile" in sys.argv[2:] else
+           kernel_runs if "--kernels" in sys.argv[2:] else ab_runs)
     run(libs, smi, dev, scene, cam_r, orb_cfg, cfg, cam)
     return 0
 

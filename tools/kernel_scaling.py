@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Device time of the pose and masked-match kernels across their sizes, to
-split a kernel's time into what grows with the work and what does not.
+"""Device time of the port's four kernels across their sizes, to split a
+kernel's time into what grows with the work and what does not.
 
     python3 tools/kernel_scaling.py     (needs a CUDA device)
 
@@ -9,9 +9,13 @@ evaluations, iters = 0 and 5): at N = 32 the passes over the edges cost
 next to nothing, so the time per evaluation there is the chain of block
 reductions, solves and barriers.  Masked match: Q queries against 1024
 targets with a share of them valid (as the fuse and the Sim3 search
-pass the whole arena with 10-17% visible).  Device times come from
-chip_smoke.device_ms (torch.profiler); one line per point, with the
-card's nvidia-smi name and power limit first.
+pass the whole arena with 10-17% visible).  Best-two (min_hamming2):
+Q = M in {128, 1024, 4096} with a valid share of 0.6 or 1.0 on each
+side.  Describe: N in {100, 1000, 4000} keypoints spread over the levels
+of an EuRoC-size stack.  Device times come from chip_smoke.device_ms
+(torch.profiler), each beside its bound (chip_smoke's count of the
+work); one line per point, with the card's nvidia-smi name and power
+limit first.
 """
 
 import os
@@ -32,7 +36,9 @@ def main() -> int:
         return 1
     from mam3slam_tpu_torch.geometry import lie
     from mam3slam_tpu_torch.ops import cuda_match as CM
+    from mam3slam_tpu_torch.ops import cuda_orb_desc as CO
     from mam3slam_tpu_torch.ops import cuda_pose as CP
+    from mam3slam_tpu_torch.ops import orb as O
 
     dev = torch.device("cuda", 0)
     print(cs.nvidia_smi(), flush=True)
@@ -75,6 +81,34 @@ def main() -> int:
             ms, timer, _ = cs.device_ms(lambda: CM.fused_masked_match(*args))
             cs.log("masked_match", Q=Q, F=F, visible=int(qv.sum()),
                    device_us=ms * 1e3, timer=timer)
+
+    for n in (128, 1024, 4096):
+        dq = T(rng.integers(0, 256, (n, 32), dtype=np.uint8))
+        dt = T(rng.integers(0, 256, (n, 32), dtype=np.uint8))
+        for share in (0.6, 1.0):
+            args = (dq, T(rng.random(n) < share), dt, T(rng.random(n) < share))
+            ms, timer, _ = cs.device_ms(lambda: CM.min_hamming2(*args))
+            b_ms, b_by = cs.bound_ms(*cs.best2_work(args))
+            cs.log("min_hamming2", Q=n, M=n, valid_share=share,
+                   device_us=ms * 1e3, bound_us=b_ms * 1e3, bound_by=b_by,
+                   timer=timer)
+
+    cfg = O.OrbConfig(cs.H, cs.W, n_features=cs.N_FEATURES)
+    stack = O.build_stack(T(rng.uniform(0, 255, (cs.H, cs.W)).astype(
+        np.float32)), cfg)
+    blur = torch.round(O.gaussian_blur(stack))
+    for n in (100, 1000, 4000):
+        lvl = rng.integers(0, cfg.n_levels, n)
+        hw = np.asarray(cfg.level_sizes)[lvl]
+        xy = np.stack([rng.random(n) * hw[:, 1], rng.random(n) * hw[:, 0]],
+                      1).astype(np.int32)
+        args = (stack, blur, T(xy), T(lvl.astype(np.int32)),
+                T(hw.astype(np.int32)))
+        ms, timer, _ = cs.device_ms(lambda: CO.ic_brief(*args))
+        angle = CO.ic_brief(*args)[0]
+        b_ms, b_by = cs.bound_ms(*cs.describe_work(args, angle))
+        cs.log("orb_desc", N=n, device_us=ms * 1e3, bound_us=b_ms * 1e3,
+               bound_by=b_by, timer=timer)
     return 0
 
 
