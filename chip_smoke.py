@@ -13,7 +13,9 @@ raises (exit code != 0) and no result line is printed:
    spills per kernel.
 3. Kernels vs their plain PyTorch versions on the card, at the shapes of
    the tracking path (EuRoC monocular: 752x480, 8 levels, 1000 features;
-   4096 projected map points x 1024 features), of the mapping path's
+   4096 projected map points x 1024 features; and at the reference
+   fixture point of phase 7: describe on 8 levels of 720x720 with 700
+   keypoints, Q=4096 x F=768, the KB8 pose at N=768), of the mapping path's
    fuse (the whole 24576-point arena as queries, most not visible) and of
    the loop server (the Sim3-guided search over the arena at radii
    8 x 1.2^level and 5 x 1.2^level; 1024 x 1024 best-two with partial
@@ -59,11 +61,29 @@ raises (exit code != 0) and no result line is printed:
    >= 95% OK and the ATE bound.  Prints the server's PR / LC / MM times;
    all four kernels must have launched in phase 6 with no plain version
    called.
+7. Facade at the reference fixture point (the reference's
+   settingsForTest_00.yaml camera, KannalaBrandt8 at 0.75x = 720x720, 8
+   levels, 700 features; bench.py's SlamConfig: 768 slots, 128 KF /
+   16384 MP, min_init_matches 80, kf_max_interval 8; ServerConfig
+   defaults): a settings file read by ``load_settings``, one
+   ``MultiAgentSystem`` on the card, and 240 frames of a 450-deg orbit
+   (room seed 5, bob 0.05) rendered on the card and pre-staged there,
+   fed through ``track_monocular``.  Gates of the reference's
+   tests/test_rendered_hard.py:265-271: > 90% of frames OK after the
+   first OK, a LOOP event, ATE after Sim3 < 1.2% of the span; the
+   describe, masked-match and pose kernels launched with no plain version
+   called; ``shutdown(out_dir)`` writes the artifact set with unit
+   quaternions.  Prints frames per wall second over frames 60-239 (every
+   program warm, as bench.py times them), per-frame ms p50 / p90 / p99 /
+   max, the loop-closing frame's ms, the port's kernel launches per
+   frame, and, from a torch.profiler window over frames 40-59, every
+   CUDA kernel and copy launched per frame and the device's busy ms per
+   frame; and the phase's seconds.
 
 It prints a JSON line of per-kernel results (``ms``: the median time of
 one wrapper call at the kernel's first caller shape; ``device_ms``: the
 device time per launch there; every caller shape's times and bound; the
-launches in phases 4-6 and per frame and epoch), the nvidia-smi line,
+launches in phases 4-7 and per frame and epoch), the nvidia-smi line,
 and as its last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -72,9 +92,11 @@ from __future__ import annotations
 import collections
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -123,6 +145,24 @@ SERVER_MIN_OK_FRAC = 0.95
 # output in tools/chip_rehearsal_6a.log)
 MERGE_MAX_ATE_FRAC = (1.5 * 0.01488, 0.01)
 LOOP_MAX_ATE_FRAC = (0.01,)
+# phase 7 and the fixture shapes of phase 3: the reference's own operating
+# point (its test/settingsForTest_00.yaml: 960x960 KannalaBrandt8, 8
+# levels, 700 features) at 0.75x = 720x720, as bench.py:70-126 and
+# tests/test_rendered_hard.py:236 run it: the room of seed 5, a 450-deg
+# orbit in 240 frames, frames 60-239 timed with every program warm, and
+# the reference test's gates (> 90% of frames OK after the first OK, a
+# LOOP, ATE after Sim3 < 1.2% of the span)
+FIXTURE_SCALE = 0.75
+FIXTURE_FEATURES = 700
+FACADE_FRAMES, FACADE_WARM = 240, 60
+FACADE_CENSUS = 20   # profiled frames just before the timed ones
+FACADE_ARC = (0.0, 450.0, 0.05)
+FACADE_SLAM = dict(max_kf=128, max_mp=16384, min_init_matches=80,
+                   kf_max_interval=8)
+FACADE_MIN_OK_FRAC = 0.9
+FACADE_MAX_ATE_FRAC = 0.012
+FACADE_FILES = ("Trajectory_0.txt", "KF_traj.txt", "MapLogs.txt",
+                "TrackingStatus_0.txt", "TimesT_0.txt", "reloc.txt")
 
 # H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): f32 on the
 # CUDA cores (every SIMT op of a kernel is counted at this rate), int8 on
@@ -244,23 +284,30 @@ def describe_work(args, angle):
             4 * pixels + CO.load_pattern().nbytes + n * (20 + 36))
 
 
-def pose_work(n_valid: int, n_in: int, n: int, rounds: int = 4,
-              iters: int = 5):
+# f32 ops an edge of a pose linearisation and of a projection + chi2:
+# pinhole; KB8 (csrc/pose.cu: sqrtf, atan2f (~25), six divisions (~8
+# each), the two quartics, a jacobian with no zero entries and H rows 0-1
+# in full)
+POSE_OPS = {0: (150, 35), 1: (250, 75)}
+
+
+def pose_work(n_valid: int, n_in: int, n: int, kind: int = 0,
+              rounds: int = 4, iters: int = 5):
     """Round 0 linearises and accumulates the valid edges iters + 1 times
-    (~150 f32 ops an edge and pass); each later round classifies the
-    valid edges at the pose its first evaluation linearises (projection
-    and chi2, ~35 ops, which an edge that stays active reuses) and
-    linearises and accumulates its active edges iters + 1 times; a last
-    chi2-only pass over the valid edges gives the inliers.  The active
-    sets of rounds 1-3 are counted as the ``n_in`` returned inliers.
-    Each edge's 25 bytes read once and its inlier flag written, 44 bytes
-    of pose and camera in, 32 out."""
-    lin, chi2 = 150, 35
+    (``POSE_OPS[kind][0]`` f32 ops an edge and pass); each later round
+    classifies the valid edges at the pose its first evaluation
+    linearises (projection and chi2, ``POSE_OPS[kind][1]`` ops, which an
+    edge that stays active reuses) and linearises and accumulates its
+    active edges iters + 1 times; a last chi2-only pass over the valid
+    edges gives the inliers.  The active sets of rounds 1-3 are counted
+    as the ``n_in`` returned inliers.  Each edge's 25 bytes read once and
+    its inlier flag written, 60 bytes of pose and camera in, 32 out."""
+    lin, chi2 = POSE_OPS[kind]
     ops = ((iters + 1) * n_valid * lin
            + (rounds - 1) * ((iters + 1) * n_in * lin
                              + (n_valid - n_in) * chi2)
            + n_valid * chi2)
-    return ops, F32_OPS, 26 * n + 76
+    return ops, F32_OPS, 26 * n + 92
 
 
 def bound_ms(ops: float, rate: float, nbytes: float):
@@ -322,8 +369,9 @@ def check_kernels(dev, scene, cam_r, orb_cfg, n_arena: int) -> list:
     """Each kernel against its plain version at each caller's shape, with
     its device, wrapper-included and plain times and its bound; returns
     one row per kernel and caller."""
-    from mam3slam_tpu_torch.io import render
+    from mam3slam_tpu_torch.geometry import cameras as C
     from mam3slam_tpu_torch.geometry import lie
+    from mam3slam_tpu_torch.io import render
     from mam3slam_tpu_torch.ops import cuda_match as CM
     from mam3slam_tpu_torch.ops import cuda_orb_desc as CO
     from mam3slam_tpu_torch.ops import cuda_pose as CP
@@ -335,28 +383,41 @@ def check_kernels(dev, scene, cam_r, orb_cfg, n_arena: int) -> list:
     def T(x):
         return torch.tensor(x, device=dev)
 
-    # describe: one rendered EuRoC-size frame
+    def describe(caller: str, img, cfg):
+        """Describe the keypoints that extraction selects on ``img``."""
+        stack = O.build_stack(img, cfg)
+        xy, _, valid = O._select_keypoints_stacked(O.fast_score_map(stack),
+                                                   cfg)
+        blur = torch.round(O.gaussian_blur(stack))
+        _, lvl, _, hws = O._device_constants(cfg, dev)
+        args = (stack, blur, xy, lvl, hws)
+        ka, kd = CO.ic_brief(*args)
+        pa, pd = CO.ic_brief_plain(*args)
+        bits = (CM.unpack_bits(kd) != CM.unpack_bits(pd)).sum(-1)[valid]
+        err = (ka - pa).abs()[valid].max().item()
+        same = (bits == 0).float().mean().item()
+        log("kernel", name="orb_desc", caller=caller, n=int(valid.sum()),
+            angle_err=err, desc_identical=same, desc_max_bits=int(bits.max()),
+            tol="angle<=1e-4,identical>=0.99,max_bits<=2")
+        if not (err <= 1e-4 and same >= 0.99 and int(bits.max()) <= 2):
+            raise AssertionError("orb_desc disagrees with its plain version "
+                                 f"at the {caller} shape")
+        measure(rows, "orb_desc", caller, err, lambda: CO.ic_brief(*args),
+                lambda: CO.ic_brief_plain(*args),
+                describe_work((stack, blur, xy[valid], lvl[valid],
+                               hws[valid]), ka[valid]))
+
+    # describe: one rendered EuRoC-size frame, then one frame of the
+    # reference fixture's KB8 camera at 0.75x
     R, t, _ = render.orbit_trajectory(2, 30, 31, bob=0.05)[0]
-    stack = O.build_stack(scene.render(R, t, cam_r), orb_cfg)
-    xy, _, valid = O._select_keypoints_stacked(O.fast_score_map(stack),
-                                               orb_cfg)
-    blur = torch.round(O.gaussian_blur(stack))
-    _, lvl, _, hws = O._device_constants(orb_cfg, dev)
-    args = (stack, blur, xy, lvl, hws)
-    ka, kd = CO.ic_brief(*args)
-    pa, pd = CO.ic_brief_plain(*args)
-    bits = (CM.unpack_bits(kd) != CM.unpack_bits(pd)).sum(-1)[valid]
-    err = (ka - pa).abs()[valid].max().item()
-    same = (bits == 0).float().mean().item()
-    log("kernel", name="orb_desc", n=int(valid.sum()), angle_err=err,
-        desc_identical=same, desc_max_bits=int(bits.max()),
-        tol="angle<=1e-4,identical>=0.99,max_bits<=2")
-    if not (err <= 1e-4 and same >= 0.99 and int(bits.max()) <= 2):
-        raise AssertionError("orb_desc disagrees with its plain version")
-    measure(rows, "orb_desc", "extraction 8x480x752, 1000 keypoints", err,
-            lambda: CO.ic_brief(*args), lambda: CO.ic_brief_plain(*args),
-            describe_work((stack, blur, xy[valid], lvl[valid], hws[valid]),
-                          ka[valid]))
+    describe("extraction 8x480x752, 1000 keypoints",
+             scene.render(R, t, cam_r), orb_cfg)
+    fix_cam = render.reference_kb8_cam(FIXTURE_SCALE)
+    fix_cfg = O.OrbConfig(height=fix_cam.height, width=fix_cam.width,
+                          n_features=FIXTURE_FEATURES)
+    describe(f"extraction 8x{fix_cam.height}x{fix_cam.width} KB8, "
+             f"{FIXTURE_FEATURES} keypoints", scene.render(R, t, fix_cam),
+             fix_cfg)
 
     def masked(caller: str, margs, **extra):
         k = CM.fused_masked_match(*margs)
@@ -392,6 +453,11 @@ def check_kernels(dev, scene, cam_r, orb_cfg, n_arena: int) -> list:
     tv = rng.random(F) > 0.05
     masked("tracking Q=4096 x F=1024",
            tuple(T(x) for x in (dq, quv, rad, ql, qv, dt, tuv, tl, tv)))
+    # the fixture point's feature slots: F = 768
+    Ff = fix_cfg.capacity
+    masked(f"tracking Q=4096 x F={Ff} (fixture point)",
+           tuple(T(x) for x in (dq, quv, rad, ql, qv, dt[:Ff], tuv[:Ff],
+                                tl[:Ff], tv[:Ff])))
 
     # masked match at the fuse shape: every arena point a query, ~10%
     # visible (as after the frustum test), against one keyframe; the
@@ -441,42 +507,66 @@ def check_kernels(dev, scene, cam_r, orb_cfg, n_arena: int) -> list:
                 lambda: CM.min_hamming2(*hargs),
                 lambda: CM.min_hamming2_plain(*hargs), best2_work(hargs))
 
-    # pose: N=1024 edges, 60 outliers, perturbed start
-    n = 1024
-    pts = np.stack([rng.uniform(-4, 4, n), rng.uniform(-3, 3, n),
-                    rng.uniform(3, 12, n)], 1).astype(np.float32)
-    q_true = lie.so3_exp_quat(T(rng.normal(0, 0.05, 3).astype(np.float32)))
-    t_true = T(rng.normal(0, 0.2, 3).astype(np.float32))
-    xc = lie.quat_rotate(q_true[None], T(pts)) + t_true
-    uv = xc[:, :2] / xc[:, 2:] * T(np.float32([FX, FY])) + T(
-        np.float32([CX, CY]))
-    uv = uv + T(rng.normal(0, 0.6, (n, 2)).astype(np.float32))
-    uv[:60] += T(rng.uniform(20, 80, (60, 2)).astype(np.float32))
-    q0 = lie.quat_normalize(lie.quat_mul(
-        lie.so3_exp_quat(T(np.float32([0.02, -0.03, 0.01]))), q_true))
-    t0 = t_true + T(np.float32([0.05, -0.04, 0.08]))
-    fxycxy = T(np.float32([FX, FY, CX, CY]))
-    valid = T(np.arange(n) % 29 != 0)
-    w = torch.ones(n, device=dev)
-    pargs = (q0[None], t0[None], fxycxy[None], T(pts)[None], uv[None],
-             w[None], valid[None])
-    kq, kt, ki, kn = CP.pose_optimization_pinhole(*pargs)
-    params = torch.cat([fxycxy, torch.zeros_like(fxycxy)])
-    plain = (q0, t0, params, 0, T(pts), uv, w, valid)
-    pq, pt, pi, pn = CP.pose_optimization_plain(*plain)
-    r_err = rot_err(kq[0].cpu().numpy(), pq.cpu().numpy())
-    t_err = (kt[0] - pt).norm().item()
-    agree = (ki[0] == pi).float().mean().item()
-    log("kernel", name="pose_opt", N=n, rot_err=r_err, t_err=t_err,
-        inlier_agree=agree, n_in=int(kn[0]), plain_n_in=int(pn),
-        tol="rot<2e-3rad,t<5e-3,agree>=0.99")
-    if not (r_err < 2e-3 and t_err < 5e-3 and agree >= 0.99):
-        raise AssertionError("pose_opt disagrees with its plain version")
-    measure(rows, "pose_opt", "tracking B=1 x N=1024, 4 rounds x 6",
-            max((kq[0] - pq).abs().max().item(), t_err),
-            lambda: CP.pose_optimization_pinhole(*pargs),
-            lambda: CP.pose_optimization_plain(*plain),
-            pose_work(int(valid.sum()), int(pn), n))
+    def pose(caller: str, cam, n: int, spread):
+        """A pose problem of ``n`` edges seen by ``cam``: points in
+        [-sx, sx] x [-sy, sy] x [z0, z1], 0.6 px noise, 60 gross outliers,
+        every 29th edge invalid, a perturbed start.  The kernel is held to
+        the plain version; edges classified apart must lie within 1e-4 of
+        the chi2 threshold at one of the two final poses."""
+        sx, sy, z0, z1 = spread
+        pts = T(np.stack([rng.uniform(-sx, sx, n), rng.uniform(-sy, sy, n),
+                          rng.uniform(z0, z1, n)], 1).astype(np.float32))
+        q_true = lie.so3_exp_quat(T(rng.normal(0, 0.05, 3).astype(
+            np.float32)))
+        t_true = T(rng.normal(0, 0.2, 3).astype(np.float32))
+        uv = C.project_ideal(cam, lie.quat_rotate(q_true[None], pts)
+                             + t_true)
+        uv = uv + T(rng.normal(0, 0.6, (n, 2)).astype(np.float32))
+        uv[:60] += T(rng.uniform(20, 80, (60, 2)).astype(np.float32))
+        q0 = lie.quat_normalize(lie.quat_mul(
+            lie.so3_exp_quat(T(np.float32([0.02, -0.03, 0.01]))), q_true))
+        t0 = t_true + T(np.float32([0.05, -0.04, 0.08]))
+        valid = T(np.arange(n) % 29 != 0)
+        w = torch.ones(n, device=dev)
+        pargs = (q0[None], t0[None], cam.params[None], cam.kind, pts[None],
+                 uv[None], w[None], valid[None])
+        kq, kt, ki, kn = CP.pose_optimization_batched(*pargs)
+        plain = (q0, t0, cam.params, cam.kind, pts, uv, w, valid)
+        pq, pt, pi, pn = CP.pose_optimization_plain(*plain)
+        r_err = rot_err(kq[0].cpu().numpy(), pq.cpu().numpy())
+        t_err = (kt[0] - pt).norm().item()
+        agree = (ki[0] == pi).float().mean().item()
+
+        def chi2(q, t):
+            r = C.project_ideal(cam, lie.quat_rotate(q[None], pts) + t) - uv
+            return w * (r * r).sum(-1)
+
+        apart = ki[0] != pi
+        margin = torch.minimum((chi2(kq[0], kt[0]) - CP.CHI2_MONO).abs(),
+                               (chi2(pq, pt) - CP.CHI2_MONO).abs())[apart]
+        err = max((kq[0] - pq).abs().max().item(), t_err)
+        log("kernel", name="pose_opt", caller=caller, N=n, kind=cam.kind,
+            rot_err=r_err, t_err=t_err, max_abs_err=err, inlier_agree=agree,
+            n_in=int(kn[0]), plain_n_in=int(pn),
+            classified_apart=int(apart.sum()),
+            apart_max_chi2_margin=float(margin.max()) if len(margin) else 0.0,
+            tol="rot<2e-3rad,t<5e-3,agree>=0.99,apart within 1e-4 of 5.991")
+        if not (r_err < 2e-3 and t_err < 5e-3 and agree >= 0.99
+                and bool((margin <= 1e-4).all())):
+            raise AssertionError("pose_opt disagrees with its plain version "
+                                 f"at the {caller} shape")
+        measure(rows, "pose_opt", caller, err,
+                lambda: CP.pose_optimization_batched(*pargs),
+                lambda: CP.pose_optimization_plain(*plain),
+                pose_work(int(valid.sum()), int(pn), n, cam.kind))
+
+    # pose: the EuRoC pinhole at N = 1024, then the fixture's KB8 camera
+    # at its 768 feature slots over a wide field (up to ~60 deg off axis)
+    pose("tracking B=1 x N=1024, 4 rounds x 6",
+         C.make_pinhole(FX, FY, CX, CY, device=dev), 1024, (4, 3, 3, 12))
+    pose(f"tracking B=1 x N={Ff} KB8 (fixture point), 4 rounds x 6",
+         C.make_kb8(fix_cam.fx, fix_cam.fy, fix_cam.cx, fix_cam.cy,
+                    *fix_cam.k, device=dev), Ff, (6, 4, 1.5, 10))
     return rows
 
 
@@ -811,6 +901,169 @@ def server_times(sys_, smi: str, path: str) -> None:
     log("server_time", path=path, card=repr(smi), **out)
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the MultiAgentSystem facade at the reference fixture point
+# ---------------------------------------------------------------------------
+
+def facade_yaml(cam, n_features: int = FIXTURE_FEATURES,
+                n_levels: int = 8) -> str:
+    """A KannalaBrandt8 settings file of ``cam`` with bench.py's ORB
+    values."""
+    k1, k2, k3, k4 = cam.k
+    return (f"%YAML:1.0\nFile.version: \"1.0\"\n"
+            f"Camera.type: \"KannalaBrandt8\"\n"
+            f"Camera1.fx: {cam.fx}\nCamera1.fy: {cam.fy}\n"
+            f"Camera1.cx: {cam.cx}\nCamera1.cy: {cam.cy}\n"
+            f"Camera1.k1: {k1}\nCamera1.k2: {k2}\nCamera1.k3: {k3}\n"
+            f"Camera1.k4: {k4}\nCamera.width: {cam.width}\n"
+            f"Camera.height: {cam.height}\nCamera.fps: 20\n"
+            f"ORBextractor.nFeatures: {n_features}\n"
+            f"ORBextractor.scaleFactor: 1.2\n"
+            f"ORBextractor.nLevels: {n_levels}\n"
+            f"ORBextractor.iniThFAST: 20\nORBextractor.minThFAST: 7\n")
+
+
+def facade_config(cam, n_features: int = FIXTURE_FEATURES,
+                  n_levels: int = 8):
+    """bench.py's SlamConfig at ``cam``: the extractor's slots for
+    ``n_features``, 128 KF / 16384 MP, KB8."""
+    from mam3slam_tpu_torch.geometry import cameras
+    from mam3slam_tpu_torch.ops import orb as O
+    from mam3slam_tpu_torch.slam.system import SlamConfig
+
+    slots = O.OrbConfig(height=cam.height, width=cam.width,
+                        n_features=n_features, n_levels=n_levels).capacity
+    return SlamConfig(width=cam.width, height=cam.height, n_feat=slots,
+                      n_levels=n_levels, cam_kind=cameras.KANNALA_BRANDT8,
+                      **FACADE_SLAM)
+
+
+def cuda_census(prof) -> dict:
+    """Kernels, copies and device busy us that a torch.profiler window
+    recorded on the card (memsets left out)."""
+    from torch.autograd import DeviceType
+
+    out = dict(kernels=0, copies=0, busy_us=0.0)
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.key.startswith("Memset"):
+            continue
+        out["copies" if e.key.startswith("Memcpy") else "kernels"] += e.count
+        out["busy_us"] += (getattr(e, "self_device_time_total", None)
+                           or getattr(e, "self_cuda_time_total", 0))
+    return out
+
+
+def run_facade(mas, frames, out_dir: str, dev):
+    """Feed ``frames`` (pre-staged on ``dev``) to agent 0 of ``mas``
+    through ``track_monocular`` at 20 Hz stamps; the frames from
+    ``FACADE_WARM`` on are timed (each frame's host wall, and the wall of all of them to
+    the end of ``flush``), then ``shutdown(out_dir)`` writes the
+    artifacts.  The ``FACADE_CENSUS`` frames just before them run under
+    torch.profiler, which counts every CUDA kernel they launch (the timed
+    frames run bare: the profiler adds host time to every launch).  The
+    kernel counters are zeroed just before the first frame and read just
+    after ``flush``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mam3slam_tpu_torch import _build
+
+    warm, census = FACADE_WARM, FACADE_CENSUS
+    states, frame_ms, n_events = [], [], []
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    _build.reset_counts()
+    t_all = time.perf_counter()
+    for i, img in enumerate(frames):
+        if i == warm - census:
+            sync(dev)
+            own0 = collections.Counter(_build.LAUNCHES)
+            prof.start()
+        if i == warm:
+            sync(dev)
+            prof.stop()
+            own = collections.Counter(_build.LAUNCHES) - own0
+            t0 = time.perf_counter()
+        f0 = time.perf_counter()
+        st, _ = mas.track_monocular(0, img, i * DT)
+        frame_ms.append((time.perf_counter() - f0) * 1e3)
+        n_events.append(len(mas.server.events))
+        states.append(st)
+    mas.sys.flush()
+    sync(dev)
+    wall = time.perf_counter() - t0
+    counts = dict(launches=dict(_build.LAUNCHES),
+                  plain=dict(_build.PLAIN_CALLS))
+    mas.shutdown(out_dir=out_dir)
+    return dict(states=states, frame_ms=frame_ms, n_events=n_events,
+                wall=wall, run_s=time.perf_counter() - t_all,
+                census=dict(frames=(warm - census, warm - 1),
+                            **cuda_census(prof), own=per(own, census)),
+                **counts)
+
+
+def facade_results(mas, res, traj) -> dict:
+    """OK share, events, ATE after Sim3 and the timings of a
+    ``run_facade`` run (the gates are ``check_facade``'s)."""
+    states = res["states"]
+    ok = 2   # slam.system.OK
+    first_ok = states.index(ok) if ok in states else len(states)
+    ok_frac = (float(np.mean([s == ok for s in states[first_ok:]]))
+               if first_ok < len(states) else 0.0)
+    est, gt = [], []
+    for ts, _, t_wc, st in mas.sys.trajectory_world(0):
+        if st == ok:
+            est.append(t_wc)
+            gt.append(traj[int(round(ts / DT))][2])
+    est, gt = np.asarray(est, np.float64), np.asarray(gt, np.float64)
+    span = float(np.ptp(np.asarray([p[2] for p in traj]), axis=0).max())
+    ate = ate_rmse(est, gt) if len(est) > 3 else float("inf")
+    timed = np.asarray(res["frame_ms"][FACADE_WARM:])
+    ev = res["n_events"]
+    lc = [j for j in range(FACADE_WARM, len(ev)) if ev[j] > ev[j - 1]
+          and any(e.startswith(("LOOP", "MERGE"))
+                  for e in mas.server.events[ev[j - 1]:ev[j]])]
+    ms = mas.sys.ms
+    return dict(
+        frames=len(states), first_ok=first_ok, ok_frac=ok_frac,
+        loops=sum(e.startswith("LOOP") for e in mas.server.events),
+        events=list(mas.server.events), system_events=list(mas.sys.events),
+        keyframes=int(ms.kf_valid.sum()), map_points=int(ms.mp_valid.sum()),
+        ate=ate, span=span, ate_frac=ate / span,
+        fps=len(timed) / res["wall"],
+        frame_ms_p50=float(np.percentile(timed, 50)),
+        frame_ms_p90=float(np.percentile(timed, 90)),
+        frame_ms_p99=float(np.percentile(timed, 99)),
+        frame_ms_max=float(timed.max()),
+        lc_epoch_ms=max((res["frame_ms"][j] for j in lc), default=None),
+        launches_per_frame=per(collections.Counter(res["launches"]),
+                               len(states)))
+
+
+def check_facade(r: dict, res: dict, out_dir: str) -> None:
+    """The phase-7 gates (tests/test_rendered_hard.py:265-271), the
+    kernels of the path launched with no plain version called, and the
+    artifact set with unit quaternions."""
+    if not r["ok_frac"] > FACADE_MIN_OK_FRAC:
+        raise AssertionError(f"facade: {r['ok_frac']:.3f} of frames OK")
+    if not r["loops"]:
+        raise AssertionError("facade: no LOOP event")
+    if not r["ate"] < FACADE_MAX_ATE_FRAC * r["span"]:
+        raise AssertionError(f"facade: ATE {r['ate']:.4f} >= "
+                             f"{FACADE_MAX_ATE_FRAC} x span {r['span']:.3f}")
+    if (any(res["launches"].get(k, 0) == 0 for k in SLAM_KERNELS)
+            or any(res["plain"].values())):
+        raise AssertionError("the facade path did not run its kernels")
+    for name in FACADE_FILES:
+        if not os.path.exists(os.path.join(out_dir, name)):
+            raise AssertionError(f"facade: shutdown wrote no {name}")
+    with open(os.path.join(out_dir, "Trajectory_0.txt")) as f:
+        rows = [line.split() for line in f][1:]
+    q = np.asarray([[float(v) for v in row[4:8]] for row in rows])
+    if len(q) < 0.9 * r["frames"] or np.abs(
+            np.linalg.norm(q, axis=1) - 1).max() > 1e-4:
+        raise AssertionError("facade: trajectory rows missing or quaternions "
+                             "not unit")
+
+
 def sync(dev) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -980,12 +1233,65 @@ def main() -> int:
     if (any(n == 0 for n in server_launches.values()) or any(
             merge_plain.values()) or any(loop_plain.values())):
         raise AssertionError("the server path did not run every kernel")
+    del sys6
+
+    # 7. the facade at the reference fixture point: settings file ->
+    # MultiAgentSystem -> track_monocular on frames pre-staged on the card
+    from mam3slam_tpu_torch import api
+
+    t7 = time.perf_counter()
+    fix_cam = render.reference_kb8_cam(FIXTURE_SCALE)
+    fix_traj = render.orbit_trajectory(FACADE_FRAMES, *FACADE_ARC[:2],
+                                       radius=2.5, bob=FACADE_ARC[2])
+    frames = [scene.render(R, t, fix_cam) for R, t, _ in fix_traj]
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        yaml_path = os.path.join(tmp, "kb8_fixture.yaml")
+        with open(yaml_path, "w") as f:
+            f.write(facade_yaml(fix_cam))
+        mas = api.MultiAgentSystem(slam_config=facade_config(fix_cam),
+                                   server_config=ServerConfig(), device=dev)
+        mas.add_agent(yaml_path)
+        out_dir = os.path.join(tmp, "output")
+        fres = run_facade(mas, frames, out_dir, dev)
+        facade = facade_results(mas, fres, fix_traj)
+        log("facade", **{k: v for k, v in facade.items()
+                         if not k.startswith(("fps", "frame_ms", "lc_",
+                                              "launches"))})
+        cen = fres["census"]
+        log("counters", path="facade", launches=fres["launches"],
+            plain_calls=fres["plain"],
+            per_frame=facade["launches_per_frame"])
+        log("facade_census", card=repr(smi), frames=cen["frames"],
+            cuda_kernels_per_frame=cen["kernels"] / FACADE_CENSUS,
+            copies_per_frame=cen["copies"] / FACADE_CENSUS,
+            device_busy_ms_per_frame=cen["busy_us"] / 1e3 / FACADE_CENSUS,
+            port_kernels_per_frame=cen["own"])
+        log("facade_time", card=repr(smi), fps_frames_60_239=facade["fps"],
+            **{k: facade[k] for k in ("frame_ms_p50", "frame_ms_p90",
+                                      "frame_ms_p99", "frame_ms_max",
+                                      "lc_epoch_ms")},
+            run_seconds=fres["run_s"],
+            phase_seconds=time.perf_counter() - t7)
+        epochs = np.asarray(mas.sys.timers.series.get("LM_0", []))
+        log("facade_breakdown", card=repr(smi), epochs=len(epochs),
+            epoch_ms_median=float(np.median(epochs)) if len(epochs) else 0,
+            epoch_ms_p90=(float(np.percentile(epochs, 90)) if len(epochs)
+                          else 0),
+            **{f"server_{k}_ms": [round(v, 3) for v in
+                                  mas.server.timers.series.get(k, [])]
+               for k in ("LC", "MM")},
+            server_PR_ms_median=float(np.median(
+                mas.server.timers.series.get("PR", [0]))),
+            gba_runs=mas.server.gba_runs)
+        check_facade(facade, fres, out_dir)
+    del mas, frames
 
     rows = {k: [r for r in timed if r["kernel"] == k] for k in KERNELS}
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": (launches[k] + slam_launches.get(k, 0)
-                      + server_launches[k]),
+                      + server_launches[k] + fres["launches"].get(k, 0)),
          "max_abs_err": max(r["max_abs_err"] for r in rows[k]),
          "ms": rows[k][0]["wrapper_ms"], "device_ms": rows[k][0]["device_ms"],
          "plain_ms": rows[k][0]["plain_ms"],
@@ -995,6 +1301,7 @@ def main() -> int:
          "launches_per_tracked_frame": track_per_frame.get(k, 0),
          "launches_per_slam_frame": slam_per["per_frame"].get(k, 0),
          "launches_per_epoch": slam_per["per_epoch"].get(k, 0),
+         "launches_per_facade_frame": facade["launches_per_frame"].get(k, 0),
          "callers": [{c: r[c] for c in (
              "caller", "device_ms", "timer", "wrapper_ms", "plain_ms",
              "bound_us", "bound_by", "share", "max_abs_err")}

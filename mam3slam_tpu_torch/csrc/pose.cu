@@ -2,19 +2,22 @@
 // one block per problem.
 //
 // Replaces the Pallas TPU kernel mam3slam_tpu/ops/pallas_pose.py:
-// pose_optimization_pinhole (body _pose_kernel).  Plain PyTorch version
-// and semantics: mam3slam_tpu_torch/ops/cuda_pose.py:
-// pose_optimization_plain (the reference's XLA path,
-// mam3slam_tpu/solvers/ba.py:329-396).
+// pose_optimization_pinhole (body _pose_kernel), and the reference's XLA
+// path for the KannalaBrandt8 camera, which the Pallas kernel does not
+// cover.  Plain PyTorch version and semantics:
+// mam3slam_tpu_torch/ops/cuda_pose.py: pose_optimization_plain (the
+// reference's XLA path, mam3slam_tpu/solvers/ba.py:329-396).  The camera
+// kind is a template argument: one kernel per kind, chosen at launch.
 //
 // What bounds it on the H100: 4 rounds x (iters + 1) = 24 evaluations,
-// each a pass of ~150 flops an edge over the edges active in its round,
-// plus the projection and chi2 (~35 flops) of the valid edges that rounds
-// 1-3 re-classify as outliers and of every valid edge in the final
-// classification: 3.4 MFLOP at
-// N = 1024 with ~930 inliers, 0.05 us at the f32 peak, and 26 KB of
-// edges.  The real floor
-// is the chain of dependent steps: every evaluation needs the pose that
+// each a pass of ~150 flops an edge (pinhole; ~250 for KB8, whose
+// projection adds an atan2f, a sqrtf, six divisions and two quartics,
+// and whose jacobian has no zero entries) over the edges active in its
+// round, plus the projection and chi2 (~35 flops; ~75 for KB8) of the
+// valid edges that rounds 1-3 re-classify as outliers and of every valid
+// edge in the final classification: 3.4 MFLOP at N = 1024 with ~930
+// inliers (pinhole), 0.05 us at the f32 peak, and 26 KB of edges.  The
+// real floor is the chain of dependent steps: every evaluation needs the pose that
 // the previous one's 6x6 solve produced, so the time is the sum of the
 // steps' critical paths (pass, block reduction, solve, retraction).
 //
@@ -198,31 +201,76 @@ struct Edge {
   bool depth_ok;
 };
 
+constexpr int kPinhole = 0;  // cameras.PINHOLE: no distortion (ideal pixels)
+constexpr int kKB8 = 1;      // cameras.KANNALA_BRANDT8
+
+// Residual and [dpi | -dpi hat(Xc)] rows for u and v at the camera-frame
+// point Xc; cam = [fx, fy, cx, cy, k1..k4].  The pinhole rows have
+// J[0][1] = J[1][0] = 0.  KB8 (geometry/cameras.py _project_kb8 and
+// _project_jac_kb8, written in the same order): r = sqrt(max(x^2 + y^2,
+// 1e-18)), theta = atan2(r, z), d = theta (1 + k1 t2 + .. + k4 t2^4),
+// s = d / r, pixel = f s (x, y) + c.
+template <int KIND>
 __device__ __forceinline__ void linearize(const float* R, const float* t,
                                           const float* cam, const float* X,
                                           const float* uv, float w, Edge& e) {
   const float xc = R[0] * X[0] + R[1] * X[1] + R[2] * X[2] + t[0];
   const float yc = R[3] * X[0] + R[4] * X[1] + R[5] * X[2] + t[1];
   const float zc = R[6] * X[0] + R[7] * X[1] + R[8] * X[2] + t[2];
-  const float zs = fabsf(zc) < 1e-6f ? 1e-6f : zc;
-  const float iz = 1.f / zs;
-  const float a = cam[0] * iz, b = cam[1] * iz;
-  const float xn = xc * iz, yn = yc * iz;
-  e.r[0] = a * xc + cam[2] - uv[0];
-  e.r[1] = b * yc + cam[3] - uv[1];
-  // [dpi | -dpi hat(Xc)] rows for u and v
-  e.J[0][0] = a;
-  e.J[0][1] = 0.f;
-  e.J[0][2] = -a * xn;
-  e.J[0][3] = -a * xn * yc;
-  e.J[0][4] = a * zc + a * xn * xc;
-  e.J[0][5] = -a * yc;
-  e.J[1][0] = 0.f;
-  e.J[1][1] = b;
-  e.J[1][2] = -b * yn;
-  e.J[1][3] = -b * zc - b * yn * yc;
-  e.J[1][4] = b * yn * xc;
-  e.J[1][5] = b * xc;
+  if (KIND == kPinhole) {
+    const float zs = fabsf(zc) < 1e-6f ? 1e-6f : zc;
+    const float iz = 1.f / zs;
+    const float a = cam[0] * iz, b = cam[1] * iz;
+    const float xn = xc * iz, yn = yc * iz;
+    e.r[0] = a * xc + cam[2] - uv[0];
+    e.r[1] = b * yc + cam[3] - uv[1];
+    e.J[0][0] = a;
+    e.J[0][1] = 0.f;
+    e.J[0][2] = -a * xn;
+    e.J[0][3] = -a * xn * yc;
+    e.J[0][4] = a * zc + a * xn * xc;
+    e.J[0][5] = -a * yc;
+    e.J[1][0] = 0.f;
+    e.J[1][1] = b;
+    e.J[1][2] = -b * yn;
+    e.J[1][3] = -b * zc - b * yn * yc;
+    e.J[1][4] = b * yn * xc;
+    e.J[1][5] = b * xc;
+  } else {
+    const float k1 = cam[4], k2 = cam[5], k3 = cam[6], k4 = cam[7];
+    const float r2 = fmaxf(xc * xc + yc * yc, 1e-18f);
+    const float r = sqrtf(r2);
+    const float th = atan2f(r, zc);
+    const float t2 = th * th;
+    const float d = th * (1.f + t2 * (k1 + t2 * (k2 + t2 * (k3 + t2 * k4))));
+    const float dd =
+        1.f + t2 * (3.f * k1 + t2 * (5.f * k2 + t2 * (7.f * k3 +
+                                                       9.f * k4 * t2)));
+    const float rho2r = (r2 + zc * zc) * r;
+    const float dth_dx = xc * zc / rho2r;
+    const float dth_dy = yc * zc / rho2r;
+    const float dth_dz = -r / (r2 + zc * zc);
+    const float s = d / r;
+    const float ds_dx = (dd * dth_dx * r - d * (xc / r)) / r2;
+    const float ds_dy = (dd * dth_dy * r - d * (yc / r)) / r2;
+    const float ds_dz = dd * dth_dz / r;
+    const float fx = cam[0], fy = cam[1];
+    e.r[0] = fx * s * xc + cam[2] - uv[0];
+    e.r[1] = fy * s * yc + cam[3] - uv[1];
+    const float p[2][3] = {{fx * (s + xc * ds_dx), fx * xc * ds_dy,
+                            fx * xc * ds_dz},
+                           {fy * yc * ds_dx, fy * (s + yc * ds_dy),
+                            fy * yc * ds_dz}};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      e.J[i][0] = p[i][0];
+      e.J[i][1] = p[i][1];
+      e.J[i][2] = p[i][2];
+      e.J[i][3] = p[i][2] * yc - p[i][1] * zc;
+      e.J[i][4] = p[i][0] * zc - p[i][2] * xc;
+      e.J[i][5] = p[i][1] * xc - p[i][0] * yc;
+    }
+  }
   e.depth_ok = zc > 1e-3f;
   e.chi2 = w * (e.r[0] * e.r[0] + e.r[1] * e.r[1]);
 }
@@ -235,8 +283,9 @@ __device__ __forceinline__ void linearize(const float* R, const float* t,
 // does not materialise the accumulators on two paths.  With `may_skip`
 // an edge that cannot count (invalid, or inactive when not re-classified)
 // is not linearised at all; without, its inputs are replaced by a finite
-// point.  J[0][1] = J[1][0] = 0, so rows 0 and 1 of H and g take one
-// product each.
+// point.  For the pinhole J[0][1] = J[1][0] = 0, so rows 0 and 1 of H and
+// g take one product each.
+template <int KIND>
 __device__ __forceinline__ void edge_pass(const float* R, const float* t,
                                           const float* cam, const float* X,
                                           const float* uv, float w,
@@ -250,7 +299,7 @@ __device__ __forceinline__ void edge_pass(const float* R, const float* t,
                        countable ? X[2] : 1.f};
   const float uvs[2] = {countable ? uv[0] : 0.f, countable ? uv[1] : 0.f};
   Edge e;
-  linearize(R, t, cam, Xs, uvs, w, e);
+  linearize<KIND>(R, t, cam, Xs, uvs, w, e);
   if (classify) active = countable && e.depth_ok && e.chi2 <= kDelta2;
   const bool counts = accumulate && active && e.depth_ok;
   const float chi2 = counts ? e.chi2 : 0.f;
@@ -267,17 +316,17 @@ __device__ __forceinline__ void edge_pass(const float* R, const float* t,
     const float wu = we * e.J[0][r], wv = we * e.J[1][r];
 #pragma unroll
     for (int c = r; c < 6; ++c, ++k) {
-      if (r == 0) {
+      if (KIND == kPinhole && r == 0) {
         if (c != 1) acc[k] += wu * e.J[0][c];
-      } else if (r == 1) {
+      } else if (KIND == kPinhole && r == 1) {
         acc[k] += wv * e.J[1][c];
       } else {
         acc[k] += wu * e.J[0][c] + wv * e.J[1][c];
       }
     }
-    acc[21 + r] += r == 0   ? wu * e.r[0]
-                   : r == 1 ? wv * e.r[1]
-                            : wu * e.r[0] + wv * e.r[1];
+    acc[21 + r] += KIND == kPinhole && r == 0   ? wu * e.r[0]
+                   : KIND == kPinhole && r == 1 ? wv * e.r[1]
+                                                : wu * e.r[0] + wv * e.r[1];
   }
 }
 
@@ -306,9 +355,10 @@ __device__ __forceinline__ float warp_reduce_scatter(float (&a)[kSlots],
   return a[0];
 }
 
+template <int KIND>
 __global__ void __launch_bounds__(kThreads)
 pose_kernel(const float* __restrict__ q0, const float* __restrict__ t0,
-            const float* __restrict__ fxycxy, const float* __restrict__ pts,
+            const float* __restrict__ cams, const float* __restrict__ pts,
             const float* __restrict__ uv, const float* __restrict__ wts,
             const uint8_t* __restrict__ valid, int N, int rounds, int iters,
             float* __restrict__ q_out, float* __restrict__ t_out,
@@ -326,9 +376,9 @@ pose_kernel(const float* __restrict__ q0, const float* __restrict__ t0,
   __shared__ float s_Rt[12];  // the pose to linearise at: R (row-major), t
   __shared__ int s_count[kWarps];
 
-  float cam[4];
+  float cam[8];
 #pragma unroll
-  for (int k = 0; k < 4; ++k) cam[k] = fxycxy[4 * b + k];
+  for (int k = 0; k < 8; ++k) cam[k] = cams[8 * b + k];
 
   // this thread's register edges: i = tid + k * kThreads
   float eX[kRegEdges][3], eUV[kRegEdges][2], eW[kRegEdges];
@@ -380,12 +430,12 @@ pose_kernel(const float* __restrict__ q0, const float* __restrict__ t0,
     for (int k = 0; k < kSlots; ++k) acc[k] = 0.f;
 #pragma unroll
     for (int k = 0; k < kRegEdges; ++k)  // the first edge unconditionally
-      edge_pass(R, t, cam, eX[k], eUV[k], eW[k], eValid[k], eActive[k],
-                classify, !final_pass, robust, k > 0, acc);
+      edge_pass<KIND>(R, t, cam, eX[k], eUV[k], eW[k], eValid[k],
+                      eActive[k], classify, !final_pass, robust, k > 0, acc);
     for (int i = tid + kRegEdges * kThreads; i < N; i += kThreads) {
       bool act = active_mem[i];
-      edge_pass(R, t, cam, pts + 3 * i, uv + 2 * i, wts[i], valid[i], act,
-                classify, !final_pass, robust, true, acc);
+      edge_pass<KIND>(R, t, cam, pts + 3 * i, uv + 2 * i, wts[i], valid[i],
+                      act, classify, !final_pass, robust, true, acc);
       if (classify) active_mem[i] = act;
     }
     if (final_pass) break;
@@ -465,17 +515,25 @@ pose_kernel(const float* __restrict__ q0, const float* __restrict__ t0,
 
 }  // namespace
 
-// B problems of N edges: q0 [B, 4], t0 [B, 3], fxycxy [B, 4], pts [B, N, 3],
-// uv [B, N, 2], w [B, N] f32, valid [B, N] u8 -> q [B, 4], t [B, 3],
-// inlier [B, N] u8, n_inliers [B] i32.
+// B problems of N edges: q0 [B, 4], t0 [B, 3], cams [B, 8] of camera
+// `kind` (0 pinhole, 1 KB8), pts [B, N, 3], uv [B, N, 2], w [B, N] f32,
+// valid [B, N] u8 -> q [B, 4], t [B, 3], inlier [B, N] u8, n_inliers [B]
+// i32.
 extern "C" int mam3_pose_opt(const float* q0, const float* t0,
-                             const float* fxycxy, const float* pts,
+                             const float* cams, int kind, const float* pts,
                              const float* uv, const float* w,
                              const uint8_t* valid, int B, int N, int rounds,
                              int iters, float* q_out, float* t_out,
                              uint8_t* inlier, int* n_inliers, void* stream) {
-  pose_kernel<<<B, kThreads, 0, (cudaStream_t)stream>>>(
-      q0, t0, fxycxy, pts, uv, w, valid, N, rounds, iters, q_out, t_out,
-      inlier, n_inliers);
+  if (kind == kPinhole)
+    pose_kernel<kPinhole><<<B, kThreads, 0, (cudaStream_t)stream>>>(
+        q0, t0, cams, pts, uv, w, valid, N, rounds, iters, q_out, t_out,
+        inlier, n_inliers);
+  else if (kind == kKB8)
+    pose_kernel<kKB8><<<B, kThreads, 0, (cudaStream_t)stream>>>(
+        q0, t0, cams, pts, uv, w, valid, N, rounds, iters, q_out, t_out,
+        inlier, n_inliers);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

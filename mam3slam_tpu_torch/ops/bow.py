@@ -11,7 +11,9 @@ Candidate ranking takes the top-k of the reference as a stable descending
 sort, so equal values keep the lower index first.
 
 The vocabulary is trained by hierarchical k-majority, through the native
-trainer (``native/libvocab.so``, ctypes) when it loads, else in numpy.
+trainer (``native/libvocab.so``, ctypes) when it loads, else in numpy, or
+read from a DBoW2 text file (``load_orbvoc_text``, the reference's
+ORBvoc.txt format; ``default_vocabulary`` looks for one).
 """
 
 from __future__ import annotations
@@ -279,3 +281,146 @@ def detect_candidates_grouped(scores: torch.Tensor, shared: torch.Tensor,
                                 n_out)
     return (best_kf[ranked].to(torch.int32), ranked_acc,
             torch.isfinite(ranked_acc))
+
+
+# ---------------------------------------------------------------------------
+# DBoW2 ORBvoc.txt import / export, and the default vocabulary
+# ---------------------------------------------------------------------------
+
+def load_orbvoc_text(path: str) -> Vocabulary:
+    """Parse a DBoW2 text vocabulary (the reference's ORBvoc.txt format)
+    into CPU tensors.
+
+    Format: header ``k L scoring weighting``; one line per node (breadth
+    order): ``parentId isLeaf b0 .. b31 weight``.  Node ids are implicit
+    (1 + line index; node 0 is the root).  Word ids are assigned to leaves
+    in file order (DBoW2 createWords()).  DBoW2 trees are incomplete:
+    missing child slots of the complete k-ary layout are padded with a
+    copy of the group's first sibling, and early leaves (a leaf above the
+    bottom level) propagate their centroid down so every descent ends at
+    the bottom; ``leaf_map`` folds the bottom slots back onto word ids.
+    """
+    with open(path) as f:
+        header = f.readline().split()
+        k, L = int(header[0]), int(header[1])
+        parents, leaves, descs, weights = [], [], [], []
+        for line in f:
+            parts = line.split()
+            if len(parts) < 35:
+                continue
+            parents.append(int(parts[0]))
+            leaves.append(int(parts[1]))
+            descs.append([int(v) for v in parts[2:34]])
+            weights.append(float(parts[34]))
+    n_nodes = len(parents)
+    parents = np.asarray(parents, np.int64)
+    is_leaf = np.asarray(leaves, bool)
+    descs = np.asarray(descs, np.uint8)
+    weights = np.asarray(weights, np.float64)
+
+    levels = [np.zeros((k ** (lv + 1), 32), np.uint8) for lv in range(L)]
+    word_of_node = np.full(n_nodes + 1, -1, np.int64)
+    word_of_node[1:][is_leaf] = np.arange(int(is_leaf.sum()))
+    idf = weights[is_leaf].astype(np.float32)
+    node_level = np.full(n_nodes + 1, -1, np.int64)   # depth of each node
+    node_slot = np.full(n_nodes + 1, -1, np.int64)    # complete-tree slot
+    node_slot[0] = 0
+    child_count = np.zeros(n_nodes + 1, np.int64)
+    leaf_map = np.full(k ** L, 0, np.int64)
+
+    # nodes appear after their parent in the file (breadth order)
+    pending_fill = []   # (level, slot, packed desc, word) of each leaf
+    for i in range(n_nodes):
+        nid = i + 1
+        p = parents[i]
+        lv = node_level[p] + 1
+        ci = child_count[p]
+        if ci >= k:
+            raise ValueError(f"node {nid}: parent {p} has > k children")
+        child_count[p] += 1
+        slot = node_slot[p] * k + ci
+        node_level[nid] = lv
+        node_slot[nid] = slot
+        levels[lv][slot] = descs[i]
+        if is_leaf[i]:
+            pending_fill.append((lv, slot, descs[i], word_of_node[nid]))
+
+    # pad missing children with a copy of the group's first filled
+    # sibling, which sits before the copy and so wins an exact tie
+    for lv in range(L):
+        cnt = k ** (lv + 1)
+        filled = np.zeros(cnt, bool)
+        sel = node_level[1:] == lv
+        filled[node_slot[1:][sel]] = True
+        groups = filled.reshape(-1, k)
+        first = groups.argmax(axis=1)
+        has = groups.any(axis=1)
+        src_full = np.repeat(np.arange(cnt // k) * k + first, k)
+        need = ~filled & np.repeat(has, k)
+        levels[lv][need] = levels[lv][src_full[need]]
+
+    # propagate early leaves down to the bottom level and build leaf_map
+    bottom_filled = np.zeros(k ** L, bool)
+    for lv, slot, d, w in pending_fill:
+        lo, hi = slot, slot + 1
+        for l2 in range(lv + 1, L):
+            lo, hi = lo * k, hi * k
+            levels[l2][lo:hi] = d
+        leaf_map[lo:hi] = w
+        bottom_filled[lo:hi] = True
+    # padded bottom slots inherit their group's first real word
+    groups = bottom_filled.reshape(-1, k)
+    first = groups.argmax(axis=1)
+    has = groups.any(axis=1)
+    src_full = np.repeat(np.arange(k ** (L - 1)) * k + first, k)
+    need = ~bottom_filled & np.repeat(has, k)
+    leaf_map[need] = leaf_map[src_full[need]]
+
+    return _vocabulary(levels, idf, k, L)._replace(
+        leaf_map=torch.from_numpy(leaf_map.astype(np.int32)))
+
+
+def save_orbvoc_text(voc: Vocabulary, path: str) -> None:
+    """Export a trained (complete-tree) vocabulary in the DBoW2 text
+    format, so that it round-trips through ``load_orbvoc_text`` (either
+    package's)."""
+    if voc.leaf_map is not None:
+        raise ValueError("export of imported (remapped) vocabularies is "
+                         "not supported")
+    k, L = voc.k, voc.depth
+    idf = voc.idf.cpu().numpy()
+    lines = [f"{k} {L} 0 0"]
+    # breadth order; node ids: root = 0, then level by level
+    level_base = [1]
+    for lv in range(L - 1):
+        level_base.append(level_base[-1] + k ** (lv + 1))
+    for lv in range(L):
+        cents = voc.centroid_bits[lv].cpu().numpy()
+        for s in range(k ** (lv + 1)):
+            parent = 0 if lv == 0 else level_base[lv - 1] + s // k
+            leaf = 1 if lv == L - 1 else 0
+            w = float(idf[s]) if leaf else 0.0
+            b = " ".join(str(int(v)) for v in cents[s])
+            lines.append(f"{parent} {leaf} {b} {w:.6f}")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+_DEFAULT_VOC = None
+
+
+def default_vocabulary() -> Optional[Vocabulary]:
+    """The vocabulary used when callers pass none: ``$MAM3_VOCAB`` (an
+    ORBvoc.txt-format file) if set, else ``data/ORBvoc.txt`` in the
+    repository if present, else None (the server then trains a bootstrap
+    vocabulary from the stream).  Cached per process, keyed on the path,
+    so a file that appears after a miss is found by the next lookup."""
+    global _DEFAULT_VOC
+    cand = os.environ.get("MAM3_VOCAB") or os.path.join(_REPO, "data",
+                                                         "ORBvoc.txt")
+    if isinstance(_DEFAULT_VOC, tuple) and _DEFAULT_VOC[0] == cand:
+        return _DEFAULT_VOC[1]
+    if os.path.exists(cand):
+        _DEFAULT_VOC = (cand, load_orbvoc_text(cand))
+        return _DEFAULT_VOC[1]
+    return None

@@ -1,8 +1,9 @@
 """Pose kernel: motion-only pose optimisation (4 LM rounds) in one launch.
 
 Wrapper of ``csrc/pose.cu`` (replaces the Pallas kernel
-``mam3slam_tpu/ops/pallas_pose.py:pose_optimization_pinhole``) and its
-plain PyTorch version, the XLA path of
+``mam3slam_tpu/ops/pallas_pose.py:pose_optimization_pinhole``, and for the
+KannalaBrandt8 camera the reference's XLA path, which that kernel does not
+cover) and its plain PyTorch version, the XLA path of
 ``mam3slam_tpu.solvers.ba.pose_optimization``:
 
   for each of ``rounds`` rounds (Huber delta^2 = 5.991 in rounds 0-1):
@@ -26,6 +27,7 @@ from mam3slam_tpu_torch.geometry import cameras as cam_mod
 from mam3slam_tpu_torch.geometry import lie
 
 CHI2_MONO = 5.991
+KINDS = (cam_mod.PINHOLE, cam_mod.KANNALA_BRANDT8)
 
 
 def _huber_w(chi2: torch.Tensor, delta2: float) -> torch.Tensor:
@@ -90,26 +92,27 @@ def pose_optimization_plain(q0, t0, cam_params, kind: int, pts, uv, w, valid,
     return q, t, active, active.to(torch.int32).sum()
 
 
-def pose_optimization_pinhole(q0, t0, fxycxy, pts, uv, w, valid,
-                              rounds: int = 4, iters: int = 5):
-    """Batched pinhole pose optimisation: q0 [B, 4], t0 [B, 3], fxycxy
-    [B, 4], pts [B, N, 3], uv [B, N, 2], w [B, N], valid [B, N] bool ->
-    (q [B, 4], t [B, 3], inlier [B, N] bool, n_inliers [B] int32).  CUDA
-    tensors launch ``csrc/pose.cu`` (one block per problem); CPU tensors
-    run the plain version per problem."""
-    args = (q0, t0, fxycxy, pts, uv, w, valid)
+def pose_optimization_batched(q0, t0, cam_params, kind: int, pts, uv, w,
+                              valid, rounds: int = 4, iters: int = 5):
+    """Batched pose optimisation: q0 [B, 4], t0 [B, 3], cam_params [B, 8]
+    of camera ``kind`` (PINHOLE projects without distortion, KB8 in the
+    full model), pts [B, N, 3], uv [B, N, 2], w [B, N], valid [B, N] bool
+    -> (q [B, 4], t [B, 3], inlier [B, N] bool, n_inliers [B] int32).
+    CUDA tensors launch ``csrc/pose.cu`` (one block per problem); CPU
+    tensors run the plain version per problem."""
+    if kind not in KINDS:
+        raise ValueError(f"camera kind {kind}: the pose kernel takes {KINDS}")
+    args = (q0, t0, cam_params, pts, uv, w, valid)
     if not _build.is_cuda(*args):
-        outs = []
-        for b in range(q0.shape[0]):
-            params = torch.cat([fxycxy[b], torch.zeros_like(fxycxy[b])])
-            outs.append(pose_optimization_plain(
-                q0[b], t0[b], params, cam_mod.PINHOLE, pts[b], uv[b], w[b],
-                valid[b], rounds=rounds, iters=iters))
+        outs = [pose_optimization_plain(*(x[b] for x in args[:3]), kind,
+                                        *(x[b] for x in args[3:]),
+                                        rounds=rounds, iters=iters)
+                for b in range(q0.shape[0])]
         return tuple(torch.stack(x) for x in zip(*outs))
     B, N = pts.shape[0], pts.shape[1]
     _build.check(q0, "q0", torch.float32, (B, 4))
     _build.check(t0, "t0", torch.float32, (B, 3))
-    _build.check(fxycxy, "fxycxy", torch.float32, (B, 4))
+    _build.check(cam_params, "cam_params", torch.float32, (B, 8))
     _build.check(pts, "pts", torch.float32, (B, N, 3))
     _build.check(uv, "uv", torch.float32, (B, N, 2))
     _build.check(w, "w", torch.float32, (B, N))
@@ -121,8 +124,8 @@ def pose_optimization_pinhole(q0, t0, fxycxy, pts, uv, w, valid,
     n_in = torch.empty(B, dtype=torch.int32, device=dev)
     if B:
         _build.launch("mam3_pose_opt", q0.data_ptr(), t0.data_ptr(),
-                      fxycxy.data_ptr(), pts.data_ptr(), uv.data_ptr(),
-                      w.data_ptr(), valid.data_ptr(), B, N, rounds, iters,
-                      q.data_ptr(), t.data_ptr(), inlier.data_ptr(),
-                      n_in.data_ptr())
+                      cam_params.data_ptr(), kind, pts.data_ptr(),
+                      uv.data_ptr(), w.data_ptr(), valid.data_ptr(), B, N,
+                      rounds, iters, q.data_ptr(), t.data_ptr(),
+                      inlier.data_ptr(), n_in.data_ptr())
     return q, t, inlier, n_in

@@ -604,6 +604,22 @@ class SlamSystem:
         # per mapping epoch: (agent, map, row 0 of the packed result)
         self.epochs: List[tuple] = []
 
+    def _probe(self, shape) -> torch.Tensor:
+        """Uniform RANSAC draws from the system's generator."""
+        return torch.rand(shape, generator=self.gen).to(self.device)
+
+    def flush(self):
+        """Finish the work still queued behind the frames tracked so far.
+        The synchronous system queues none: each keyframe's mapping and
+        server epochs run inside its ``track``; a server with a
+        background global BA is drained when it has one."""
+        flush_gba = getattr(self.server, "flush_gba", None)
+        if flush_gba is not None:
+            flush_gba()
+
+    def shutdown(self):
+        self.flush()
+
     def add_agent(self, cam: Optional[cam_mod.Camera] = None) -> int:
         """Register an agent (optionally with its own intrinsics, same
         camera kind) in a fresh map slot."""
@@ -664,8 +680,8 @@ class SlamSystem:
             # the two-view machinery is pinhole geometry
             uv1 = cam_mod.undistort_points(a.cam, uv1)
             uv2 = cam_mod.undistort_points(a.cam, uv2)
-        probe = torch.rand((200, 8), generator=self.gen).to(self.device)
-        rec = self.fns["reconstruct"](uv1, uv2, res.ok, a.cam.K(), probe)
+        rec = self.fns["reconstruct"](uv1, uv2, res.ok, a.cam.K(),
+                                      self._probe((200, 8)))
         if not bool(rec.ok):
             return
         self._kf_capacity_check(2)
@@ -817,10 +833,9 @@ class SlamSystem:
                 continue
             mp = fmp[torch.clamp(res.idx, min=0).long()]
             mpc = torch.clamp(mp, min=0).long()
-            probe = torch.rand((128, 6), generator=self.gen).to(self.device)
             pr = pnp.ransac_pnp(ms.mp_pos[mpc], frame.uv,
                                 res.ok & (mp >= 0) & ms.mp_valid[mpc], a.cam,
-                                probe, is2[frame.level.long()])
+                                self._probe((128, 6)), is2[frame.level.long()])
             if not bool(pr.ok):
                 continue
             local_mask = self.fns["local_mp_mask"](ms, cand, 32)

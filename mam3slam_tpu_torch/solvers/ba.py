@@ -1,9 +1,9 @@
 """Motion-only pose optimisation (reference Optimizer::PoseOptimization).
 
-Port of ``mam3slam_tpu.solvers.ba.pose_optimization``.  A PINHOLE problem
-on CUDA tensors runs the pose kernel of ``ops/cuda_pose.py``; KB8 takes
-the plain version on either device, as the reference sends only PINHOLE
-to its kernel.
+Port of ``mam3slam_tpu.solvers.ba.pose_optimization``.  A problem on CUDA
+tensors runs the pose kernel of ``ops/cuda_pose.py`` for either camera
+kind (the reference sends only PINHOLE to its Pallas kernel and KB8 to
+XLA); CPU tensors take the plain version.
 """
 
 from __future__ import annotations
@@ -13,7 +13,6 @@ from typing import NamedTuple
 import torch
 
 from mam3slam_tpu_torch import _build
-from mam3slam_tpu_torch.geometry import cameras as cam_mod
 from mam3slam_tpu_torch.ops import cuda_pose
 
 CHI2_MONO = cuda_pose.CHI2_MONO
@@ -31,10 +30,10 @@ def pose_optimization(q0, t0, cam_params, kind: int, pts, uv, w, valid,
     """Motion-only BA of one SE3 vertex over unary reprojection edges:
     4 rounds with chi2 = 5.991 re-classification between rounds and the
     Huber kernel in rounds 0-1."""
-    if kind == cam_mod.PINHOLE and _build.is_cuda(pts):
-        q, t, inlier, n = cuda_pose.pose_optimization_pinhole(
+    if _build.is_cuda(pts):
+        q, t, inlier, n = cuda_pose.pose_optimization_batched(
             q0[None].contiguous(), t0[None].contiguous(),
-            cam_params[None, :4].contiguous(), pts[None].contiguous(),
+            cam_params[None].contiguous(), kind, pts[None].contiguous(),
             uv[None].contiguous(), w[None].contiguous(),
             valid[None].contiguous(), rounds=rounds, iters=iters)
         return PoseOptResult(q=q[0], t=t[0], inlier=inlier[0],

@@ -134,14 +134,18 @@ def _score_H(H, uv1, uv2, valid, sigma: float):
 
 def triangulate_dlt(P1, P2, uv1, uv2) -> torch.Tensor:
     """Batched DLT triangulation: P1, P2 [..., 3, 4] projection matrices,
-    uv1, uv2 [..., 2] -> [..., 3] points."""
+    uv1, uv2 [..., 2] -> [..., 3] points; NaN where an input is not
+    finite (a KB8 pixel whose undistortion diverged: the reference's SVD
+    returns NaN there, torch's refuses the whole batch)."""
     A = torch.stack([uv1[..., 0:1] * P1[..., 2, :] - P1[..., 0, :],
                      uv1[..., 1:2] * P1[..., 2, :] - P1[..., 1, :],
                      uv2[..., 0:1] * P2[..., 2, :] - P2[..., 0, :],
                      uv2[..., 1:2] * P2[..., 2, :] - P2[..., 1, :]], dim=-2)
-    X = _null_vector(A)
+    finite = torch.isfinite(A).all(-1).all(-1)
+    X = _null_vector(torch.where(finite[..., None, None], A, 0.0))
     w = X[..., 3:4]
-    return X[..., :3] / torch.where(torch.abs(w) < 1e-12, 1e-12, w)
+    X = X[..., :3] / torch.where(torch.abs(w) < 1e-12, 1e-12, w)
+    return torch.where(finite[..., None], X, float("nan"))
 
 
 def _check_rt(R, t, uv1, uv2, valid, K, sigma: float):

@@ -280,9 +280,9 @@ def test_pose_kernel_batch_and_long_edge_lists_match_plain(dev, B, n):
                                           for _ in range(B)])]
     q0, t0, pts, uv, valid = cols
     w = torch.ones(B, n, device=dev)
-    q, t, inl, n_in = _counted("pose_opt", lambda: CP.pose_optimization_pinhole(
-        q0, t0, fxycxy.expand(B, 4).contiguous(), pts, uv, w, valid))
     params = torch.cat([fxycxy, torch.zeros_like(fxycxy)])
+    q, t, inl, n_in = _counted("pose_opt", lambda: CP.pose_optimization_batched(
+        q0, t0, params.expand(B, 8).contiguous(), 0, pts, uv, w, valid))
     for b in range(B):
         pq, pt, pinl, _ = CP.pose_optimization_plain(
             q0[b], t0[b], params, 0, pts[b], uv[b], w[b], valid[b])
@@ -329,14 +329,69 @@ def test_pose_kernel_matches_plain(dev):
     valid = torch.ones(n, dtype=torch.bool, device=dev)
     q0 = lie.quat_normalize(q_true + 0.01)
     t0 = t_true + 0.05
-    args = (q0[None], t0[None], fxycxy[None], pts[None], uv[None], w[None],
+    params = torch.cat([fxycxy, torch.zeros_like(fxycxy)])
+    args = (q0[None], t0[None], params[None], 0, pts[None], uv[None], w[None],
             valid[None])
     q, t, inl, n_in = _counted(
-        "pose_opt", lambda: CP.pose_optimization_pinhole(*args))
-    pq, pt, pinl, pn = CP.pose_optimization_plain(
-        q0, t0, torch.cat([fxycxy, torch.zeros_like(fxycxy)]), 0, pts, uv, w,
-        valid)
+        "pose_opt", lambda: CP.pose_optimization_batched(*args))
+    pq, pt, pinl, pn = CP.pose_optimization_plain(q0, t0, params, 0, pts, uv,
+                                                  w, valid)
     assert 2 * torch.acos(torch.clamp((q[0] * pq).sum().abs(), max=1.0)) < 2e-3
     assert (t[0] - pt).norm() < 5e-3
     assert (inl[0] == pinl).float().mean() >= 0.99
     assert int(n_in[0]) == int(inl[0].sum())
+
+
+@pytest.mark.parametrize("B,n,degenerate", [(1, 768, False), (2, 1024, True),
+                                            (1, 1500, True)])
+def test_pose_kernel_kb8_matches_plain(dev, B, n, degenerate):
+    """The KB8 kernel at the fixture camera (reference_kb8_cam(0.75)) and
+    past the edges kept in registers; ``degenerate`` puts points behind
+    the camera and on the optical axis (r ~ 0, where the KB8 jacobian
+    takes its clamp r^2 >= 1e-18).  Tolerance as the pinhole kernel's:
+    rotation 2e-3 rad, translation 5e-3, >= 99% of inliers alike; the
+    inlier count equals the returned set."""
+    from mam3slam_tpu_torch.geometry import cameras as C
+
+    rng = np.random.default_rng(21 + B + n)
+    cam = C.make_kb8(352.65, 352.65, 359.925, 359.925, 0.0034823894,
+                     0.00071503485, -0.0020532361, 0.00020293674, device=dev)
+    T = lambda x: torch.tensor(np.asarray(x, np.float32), device=dev)
+    cols = []
+    for _ in range(B):
+        # a wide fisheye field: up to ~70 degrees off the axis
+        pts = T(np.stack([rng.uniform(-6, 6, n), rng.uniform(-4, 4, n),
+                          rng.uniform(1.5, 10, n)], 1))
+        q_true = lie.so3_exp_quat(T(rng.normal(0, 0.05, 3)))
+        t_true = T(rng.normal(0, 0.2, 3))
+        if degenerate:
+            # on the optical axis at the true pose, and behind the camera
+            axis = torch.cat([T(rng.normal(0, 1e-7, (8, 2))), pts[:8, 2:]], 1)
+            pts[:8] = lie.quat_rotate(lie.quat_conj(q_true)[None],
+                                      axis - t_true)
+            pts[8:16, 2] = -pts[8:16, 2]
+        uv = C.project(cam, lie.quat_rotate(q_true[None], pts) + t_true)
+        uv = uv + T(rng.normal(0, 0.6, (n, 2)))
+        n_out = int(0.06 * n)
+        uv[16:16 + n_out] += T(rng.uniform(20, 80, (n_out, 2)))
+        q0 = lie.quat_normalize(lie.quat_mul(
+            lie.so3_exp_quat(T(rng.normal(0, 0.02, 3))), q_true))
+        t0 = t_true + T(rng.normal(0, 0.05, 3))
+        valid = torch.tensor(np.arange(n) % 29 != 0, device=dev)
+        cols.append((q0, t0, pts, uv, valid))
+    q0, t0, pts, uv, valid = [torch.stack(x) for x in zip(*cols)]
+    w = torch.ones(B, n, device=dev)
+    params = cam.params.expand(B, 8).contiguous()
+    q, t, inl, n_in = _counted("pose_opt", lambda: CP.pose_optimization_batched(
+        q0, t0, params, C.KANNALA_BRANDT8, pts, uv, w, valid))
+    for b in range(B):
+        pq, pt, pinl, _ = CP.pose_optimization_plain(
+            q0[b], t0[b], cam.params, C.KANNALA_BRANDT8, pts[b], uv[b], w[b],
+            valid[b])
+        dot = (q[b] * pq).sum().abs().clamp(max=1.0)
+        assert 2 * torch.acos(dot) < 2e-3
+        assert (t[b] - pt).norm() < 5e-3
+        assert (inl[b] == pinl).float().mean() >= 0.99
+        assert int(n_in[b]) == int(inl[b].sum())
+        if degenerate:
+            assert not inl[b, 8:16].any()

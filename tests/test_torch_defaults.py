@@ -8,9 +8,9 @@ import inspect
 import pytest
 import torch
 
-from mam3slam_tpu_torch import convert
+from mam3slam_tpu_torch import api, convert
 from mam3slam_tpu_torch.geometry import cameras
-from mam3slam_tpu_torch.io import render
+from mam3slam_tpu_torch.io import render, settings
 from mam3slam_tpu_torch.mapstate import state as S
 from mam3slam_tpu_torch.slam import system
 
@@ -25,6 +25,8 @@ ENTRY_POINTS = {
     "convert.frame_from_numpy": convert.frame_from_numpy,
     "convert.map_state_from_numpy": convert.map_state_from_numpy,
     "convert.vocabulary_from_numpy": convert.vocabulary_from_numpy,
+    "MultiAgentSystem": api.MultiAgentSystem,
+    "Settings.camera": settings.Settings.camera,
 }
 
 

@@ -1,7 +1,8 @@
 """The port stands alone: it imports no JAX and nothing of the reference
-package, reads no file of it, takes the plain versions on CPU tensors
-without launching a kernel, and chip_smoke.py refuses to run without a
-GPU."""
+package, nor cv2 or yaml at module level (the machine with the card has
+neither), reads no file of the reference, takes the plain versions on CPU
+tensors without launching a kernel, and chip_smoke.py refuses to run
+without a GPU."""
 
 import ast
 import os
@@ -45,7 +46,30 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert len(PORT_MODULES) >= 14
+    assert len(PORT_MODULES) >= 35
+    for m in ("api", "io.settings", "io.stream", "io.euroc", "io.writers",
+              "utils.verbose"):
+        assert f"mam3slam_tpu_torch.{m}" in PORT_MODULES
+
+
+def test_port_imports_no_cv2_or_yaml():
+    """Importing every port module and chip_smoke.py in a fresh
+    interpreter loads neither cv2 nor yaml (they are imported only inside
+    the functions that need them, off the card's path)."""
+    code = ("import sys, importlib\n"
+            f"for m in {PORT_MODULES!r} + ['chip_smoke']:\n"
+            "    importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('cv2', 'yaml')]\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    pat = re.compile(r"^(import (cv2|yaml)|from (cv2|yaml)[ .])", re.M)
+    for path in [os.path.join(REPO, "chip_smoke.py"), *_port_sources()]:
+        with open(path) as f:
+            assert not pat.search(f.read()), path
 
 
 def test_port_sources_have_no_jax_import():

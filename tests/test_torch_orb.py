@@ -36,25 +36,20 @@ def _hamming(a, b):
     return np.unpackbits(a ^ b, axis=-1).sum(axis=-1)
 
 
-@pytest.mark.parametrize("i", [0, 17])
-def test_extract_orb_matches_reference(i):
-    img = _frame(i)
-    jcfg = JO.OrbConfig(height=H, width=W, n_features=300, n_levels=4)
-    tcfg = TO.OrbConfig(height=H, width=W, n_features=300, n_levels=4)
+def _assert_extraction_matches(img, jcfg, tcfg, jc, tc, min_valid):
+    """extract_orb + with_undistorted of both packages on ``img``, held to
+    this file's tolerances."""
     assert tcfg.level_budgets == jcfg.level_budgets
     ref = JO.with_undistorted(
-        jax.jit(lambda x: JO.extract_orb(x, jcfg))(jnp.asarray(img)),
-        jcam.make_pinhole(FX, FY, CX, CY, DIST))
+        jax.jit(lambda x: JO.extract_orb(x, jcfg))(jnp.asarray(img)), jc)
     ref = jax.tree_util.tree_map(np.asarray, ref)
-    got = TO.with_undistorted(TO.extract_orb(torch.tensor(img), tcfg),
-                              tcam.make_pinhole(FX, FY, CX, CY, DIST,
-                                                device="cpu"))
+    got = TO.with_undistorted(TO.extract_orb(torch.tensor(img), tcfg), tc)
     got = type(got)(*(x.numpy() for x in got))
 
     same = ((ref.xy == got.xy).all(1) & (ref.level == got.level)
             & (ref.valid == got.valid))
     live = ref.valid | got.valid
-    assert ref.valid.sum() > 250
+    assert ref.valid.sum() > min_valid
     # level 0 is the image itself: keypoints identical
     assert same[live & (ref.level == 0)].all()
     # higher levels come from float resizes: >= 99% identical
@@ -69,6 +64,32 @@ def test_extract_orb_matches_reference(i):
     ham = _hamming(got.desc[sh], ref.desc[sh])
     assert ham.max() <= 6 and ham.mean() <= 0.5, (ham.max(), ham.mean())
     assert (ham == 0).mean() >= 0.8
+
+
+@pytest.mark.parametrize("i", [0, 17])
+def test_extract_orb_matches_reference(i):
+    _assert_extraction_matches(
+        _frame(i), JO.OrbConfig(height=H, width=W, n_features=300,
+                                n_levels=4),
+        TO.OrbConfig(height=H, width=W, n_features=300, n_levels=4),
+        jcam.make_pinhole(FX, FY, CX, CY, DIST),
+        tcam.make_pinhole(FX, FY, CX, CY, DIST, device="cpu"), 250)
+
+
+def test_extract_orb_matches_reference_at_the_fixture_point():
+    """The reference fixture's operating point: its KB8 camera at 0.75x
+    (720x720), 8 levels, 700 features (768 slots), on a frame of the
+    fixture orbit; KB8 keeps the raw keypoints as its match space."""
+    cam = render.reference_kb8_cam(0.75)
+    R, t, _, _ = render.orbit_trajectory(240, 0.0, 450.0, radius=2.5,
+                                         bob=0.05)[40]
+    img = _SCENE.render(R, t, cam).astype(np.float32)
+    jcfg = JO.OrbConfig(height=720, width=720, n_features=700, n_levels=8)
+    tcfg = TO.OrbConfig(height=720, width=720, n_features=700, n_levels=8)
+    assert tcfg.capacity == 768
+    k = (cam.fx, cam.fy, cam.cx, cam.cy, *cam.k)
+    _assert_extraction_matches(img, jcfg, tcfg, jcam.make_kb8(*k),
+                               tcam.make_kb8(*k, device="cpu"), 650)
 
 
 def test_pyramid_blur_fast_nms_match_reference():

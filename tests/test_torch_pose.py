@@ -103,19 +103,33 @@ def test_pose_all_inliers_exact():
     assert int(n) == 256
 
 
-def test_batched_pinhole_entry_matches_single():
-    """cuda_pose.pose_optimization_pinhole on a CPU batch = per-problem
-    plain solves (the kernel's batch axis is one problem per agent)."""
-    ps = [_problem(s) for s in (7, 8)]
+def _batched_matches_single(ps):
     stack = lambda k: torch.tensor(np.stack([p[k] for p in ps]))
-    fxycxy = torch.tensor(np.stack([np.asarray(p["cam"].params[:4])
-                                    for p in ps]))
-    q, t, inl, n = cuda_pose.pose_optimization_pinhole(
-        stack("q0"), stack("t0"), fxycxy, stack("pts"), stack("uv"),
-        stack("w"), stack("valid"))
+    params = torch.tensor(np.stack([np.asarray(p["cam"].params) for p in ps]))
+    q, t, inl, n = cuda_pose.pose_optimization_batched(
+        stack("q0"), stack("t0"), params, ps[0]["cam"].kind, stack("pts"),
+        stack("uv"), stack("w"), stack("valid"))
     for b, p in enumerate(ps):
         q1, t1, inl1, n1 = _port(p)
         np.testing.assert_array_equal(q[b].numpy(), q1)
         np.testing.assert_array_equal(t[b].numpy(), t1)
         np.testing.assert_array_equal(inl[b].numpy(), inl1)
         assert int(n[b]) == int(n1)
+
+
+def test_batched_pinhole_entry_matches_single():
+    """cuda_pose.pose_optimization_batched on a CPU batch = per-problem
+    plain solves (the kernel's batch axis is one problem per agent)."""
+    _batched_matches_single([_problem(s) for s in (7, 8)])
+
+
+def test_batched_kb8_entry_matches_single():
+    """The same for KB8 cameras: the batched entry carries all 8 camera
+    parameters and the kind to each problem's solve."""
+    ps = [_problem(s, kind=jcam.KANNALA_BRANDT8) for s in (9, 10)]
+    _batched_matches_single(ps)
+    with pytest.raises(ValueError):
+        cuda_pose.pose_optimization_batched(
+            *(torch.zeros(1, *s) for s in ((4,), (3,), (8,))), 2,
+            torch.zeros(1, 4, 3), torch.zeros(1, 4, 2), torch.ones(1, 4),
+            torch.ones(1, 4, dtype=torch.bool))

@@ -59,6 +59,38 @@ def test_reconstruct_two_views_matches_reference(planar, seed):
                                rtol=1e-3, atol=1e-3)
 
 
+def test_triangulate_dlt_non_finite_rows_match_reference():
+    """A batch with non-finite pixels (a KB8 undistortion that diverged):
+    the port does not raise, its rows are NaN exactly where the
+    reference's are, and every other row is within 1e-5 (relative and
+    absolute) of the reference's."""
+    rng = np.random.default_rng(0)
+    n = 64
+    pts = np.stack([rng.uniform(-2, 2, n), rng.uniform(-2, 2, n),
+                    rng.uniform(2, 9, n)], axis=1)
+    R = jlie.quat_to_matrix(jnp.asarray([0.99, 0.0, 0.1, 0.02]) / np.sqrt(
+        0.99 ** 2 + 0.1 ** 2 + 0.02 ** 2))
+    P1 = np.concatenate([K, np.zeros((3, 1))], axis=1).astype(np.float32)
+    P2 = (K @ np.concatenate([np.asarray(R), [[0.4], [0.0], [0.02]]],
+                             axis=1)).astype(np.float32)
+
+    def proj(P):
+        uv = np.concatenate([pts, np.ones((n, 1))], axis=1) @ P.T
+        return (uv[:, :2] / uv[:, 2:3]).astype(np.float32)
+
+    uv1, uv2 = proj(P1), proj(P2)
+    uv1[3, 0], uv1[17, 1], uv2[40, 0], uv2[41, 1] = (np.nan, np.inf,
+                                                     -np.inf, np.nan)
+    args = (np.broadcast_to(P1, (n, 3, 4)), np.broadcast_to(P2, (n, 3, 4)),
+            uv1, uv2)
+    ref = np.asarray(jtv.triangulate_dlt(*map(jnp.asarray, args)))
+    got = ttv.triangulate_dlt(*map(_T, args)).numpy()
+    bad = np.isnan(ref).any(1)
+    assert sorted(np.flatnonzero(bad)) == [3, 17, 40, 41]
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
+    np.testing.assert_allclose(got[~bad], ref[~bad], rtol=1e-5, atol=1e-5)
+
+
 def test_reconstruct_refuses_pure_rotation():
     uv1, uv2, *_ = synth_pair(baseline=0.0, noise=0.3, n_outliers=0, seed=3)
     probe = torch.rand((200, 8), generator=torch.Generator().manual_seed(0))

@@ -1,26 +1,35 @@
 #!/usr/bin/env python3
-"""Half-size CPU rehearsal of chip_smoke.py phase 6 against the reference.
+"""CPU rehearsal of chip_smoke.py phases 6 and 7 against the reference.
 
-    python3 tools/chip_rehearsal.py [--loop] [--threads N]
+    python3 tools/chip_rehearsal.py [--loop | --facade] [--threads N]
 
-Renders phase 6's frames at half size (376x240, half the EuRoC cam0
-intrinsics, 500 features; arena caps 128 KF / 12288 MP, the other
-``SlamConfig`` and ``ServerConfig`` fields at their defaults) and feeds
-each frame to two systems in lockstep: the JAX package's ``SlamSystem`` +
-``LoopServer`` (JAX ``extract_orb`` + ``with_undistorted``) and the port's
-(``chip_smoke.frame_of``).  Default: 6a, the two-agent merge arcs;
-``--loop``: 6b, the one-agent loop arc.  Prints, per package, the server
-and system events and per agent the share of frames OK after init and the
-ATE after Sim3 alignment as a fraction of the arc's span: the figures
-from which chip_smoke.py's ATE bounds are derived.  Imports JAX, so it is
-not part of the port.
+Phase 6 (default 6a, the two-agent merge arcs; ``--loop``: 6b, the
+one-agent loop arc): renders the phase's frames at half size (376x240,
+half the EuRoC cam0 intrinsics, 500 features; arena caps 128 KF / 12288
+MP, the other ``SlamConfig`` and ``ServerConfig`` fields at their
+defaults) and feeds each frame to two systems in lockstep: the JAX
+package's ``SlamSystem`` + ``LoopServer`` (JAX ``extract_orb`` +
+``with_undistorted``) and the port's (``chip_smoke.frame_of``).
+
+Phase 7 (``--facade``): renders phase 7's 240 frames at 1/3 of the
+fixture camera (320x320 KB8; 8 levels, 700 features, bench.py's
+``SlamConfig``) and feeds each to both packages' ``MultiAgentSystem``,
+built from one settings file (``chip_smoke.facade_yaml``).
+
+Prints, per package, the server and system events, the keyframe and map
+point counts and per agent the share of frames OK after init and the ATE
+after Sim3 alignment as a fraction of the arc's span: the figures from
+which chip_smoke.py's ATE bounds are derived.  Imports JAX, so it is not
+part of the port.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -36,11 +45,13 @@ import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
+from mam3slam_tpu import api as japi  # noqa: E402
 from mam3slam_tpu.geometry import cameras as jcam  # noqa: E402
 from mam3slam_tpu.ops import orb as jorb  # noqa: E402
 from mam3slam_tpu.slam import server as jserver  # noqa: E402
 from mam3slam_tpu.slam import steps as jsteps  # noqa: E402
 from mam3slam_tpu.slam import system as jsystem  # noqa: E402
+from mam3slam_tpu_torch import api as tapi  # noqa: E402
 from mam3slam_tpu_torch.geometry import cameras  # noqa: E402
 from mam3slam_tpu_torch.io import render  # noqa: E402
 from mam3slam_tpu_torch.ops import orb as O  # noqa: E402
@@ -57,6 +68,8 @@ def summary(name, sys_, aids, arcs, states, ok_code):
     """Events, and per agent the OK share after init and ATE / span."""
     print(f"[{name}] server_events={sys_.server.events}", flush=True)
     print(f"[{name}] system_events={sys_.events}", flush=True)
+    print(f"[{name}] keyframes={int(np.asarray(sys_.ms.kf_valid).sum())} "
+          f"map_points={int(np.asarray(sys_.ms.mp_valid).sum())}", flush=True)
     for a, (aid, arc) in enumerate(zip(aids, arcs)):
         est, gt = [], []
         for ts, _, t_wc, st in sys_.trajectory_world(aid):
@@ -73,13 +86,55 @@ def summary(name, sys_, aids, arcs, states, ok_code):
               flush=True)
 
 
+def facade() -> None:
+    """Phase 7 at 1/3 of the fixture camera, both facades on one
+    settings file and the same frames."""
+    cam = render.reference_kb8_cam(1 / 3)
+    traj = render.orbit_trajectory(cs.FACADE_FRAMES, *cs.FACADE_ARC[:2],
+                                   radius=2.5, bob=cs.FACADE_ARC[2])
+    scene = render.RoomScene(seed=5, device="cpu")
+    tcfg = cs.facade_config(cam)
+    jcfg = jsystem.SlamConfig(**{f.name: getattr(tcfg, f.name)
+                                 for f in dataclasses.fields(tcfg)})
+    tmas = tapi.MultiAgentSystem(slam_config=tcfg, device="cpu",
+                                 server_config=tserver.ServerConfig())
+    jmas = japi.MultiAgentSystem(slam_config=jcfg,
+                                 server_config=jserver.ServerConfig())
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "kb8_fixture.yaml")
+        with open(path, "w") as f:
+            f.write(cs.facade_yaml(cam))
+        tmas.add_agent(path)
+        jmas.add_agent(path)
+    tstates, jstates = [], []
+    t0 = time.perf_counter()
+    for i, (R, t, _) in enumerate(traj):
+        img = scene.render(R, t, cam)
+        tstates.append(tmas.track_monocular(0, img, i * cs.DT)[0])
+        jstates.append(jmas.track_monocular(0, img.numpy(), i * cs.DT)[0])
+        if i % 50 == 0:
+            print(f"[progress] frame={i} s={time.perf_counter() - t0:.1f}",
+                  flush=True)
+    print(f"[setup] phase=7 size={cam.width}x{cam.height} "
+          f"features={cs.FIXTURE_FEATURES} frames={len(traj)} "
+          f"seconds={time.perf_counter() - t0:.1f}", flush=True)
+    summary("reference", jmas.sys, [0], [traj], [jstates], jsystem.OK)
+    summary("port", tmas.sys, [0], [traj], [tstates], tsystem.OK)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--loop", action="store_true",
-                    help="phase 6b (the loop arc) instead of 6a")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--loop", action="store_true",
+                      help="phase 6b (the loop arc) instead of 6a")
+    mode.add_argument("--facade", action="store_true",
+                      help="phase 7 (the facade at 1/3 of the fixture)")
     ap.add_argument("--threads", type=int, default=4)
     args = ap.parse_args()
     torch.set_num_threads(args.threads)
+    if args.facade:
+        facade()
+        return 0
 
     if args.loop:
         specs = [(cs.LOOP_FRAMES, cs.LOOP_ARC)]

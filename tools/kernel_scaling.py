@@ -48,6 +48,7 @@ def main() -> int:
         return torch.tensor(x, device=dev)
 
     fxycxy = T(np.float32([cs.FX, cs.FY, cs.CX, cs.CY]))
+    params = torch.cat([fxycxy, torch.zeros_like(fxycxy)])
     for n in (32, 256, 1024, 2048):
         pts = T(np.stack([rng.uniform(-4, 4, n), rng.uniform(-3, 3, n),
                           rng.uniform(3, 12, n)], 1).astype(np.float32))
@@ -55,12 +56,12 @@ def main() -> int:
         uv = uv + T(rng.normal(0, 0.6, (n, 2)).astype(np.float32))
         q0 = lie.so3_exp_quat(T(np.float32([0.02, -0.03, 0.01])))
         t0 = T(np.float32([0.05, -0.04, 0.08]))
-        args = (q0[None], t0[None], fxycxy[None], pts[None], uv[None],
+        args = (q0[None], t0[None], params[None], 0, pts[None], uv[None],
                 torch.ones(1, n, device=dev),
                 torch.ones(1, n, dtype=torch.bool, device=dev))
         for iters in (0, 5):
             ms, timer, _ = cs.device_ms(
-                lambda: CP.pose_optimization_pinhole(*args, iters=iters))
+                lambda: CP.pose_optimization_batched(*args, iters=iters))
             evals = 4 * (iters + 1)
             cs.log("pose", N=n, iters=iters, evaluations=evals, device_us=(
                 ms * 1e3), us_per_evaluation=ms * 1e3 / evals, timer=timer)
