@@ -79,11 +79,35 @@ raises (exit code != 0) and no result line is printed:
    frame, and, from a torch.profiler window over frames 40-59, every
    CUDA kernel and copy launched per frame and the device's busy ms per
    frame; and the phase's seconds.
+8. Slice 4b on phase 7's 240 pre-staged frames.  8a, bench.py's
+   configuration: ``MultiAgentSystem(pipeline=True)`` with
+   ``sys.pipeline_depth = 4`` and synchronous mapping; phase 7's gates,
+   and each of the first 60 completed frames' pinned read must equal a
+   blocking read of the same device tensor.  Prints frames per wall
+   second over frames 60-239 (``flush`` inside the timed wall, as
+   bench.py times it) and per-call ms p50 / p90 / p99 / max beside phase
+   7's, the refused insertions and the launches per frame.  8b, the
+   asynchronous system: the mapping worker, depth-4 pipelining and
+   ``ServerConfig(async_gba=True)``, frames fed at their 20 Hz stamps
+   and its back end drained (``flush``) every 5 frames, as the
+   reference's own test of this configuration feeds it; phase 7's gates,
+   no worker error, the worker joined, at least one background GBA
+   started and each applied or aborted.  8b-bare: the same system fed
+   the 20 Hz stamps alone, measured with the worker's gates only (the
+   reference, fed unthrottled in the CPU rehearsal, loses its map too).
+   Both print the refused insertions, the GBA events, the mapping
+   epochs and per-call ms.  8c: 8b's atlas
+   saved after shutdown (``save_atlas``) and loaded into a fresh facade
+   on the card (``load_atlas``): every field equal in value, dtype and
+   device; the resumed agent then tracks the orbit's next 20 frames,
+   rendered on the card, at least 18 of them OK.  Every phase-8 path
+   must launch the describe, masked-match and pose kernels with no plain
+   version called.
 
 It prints a JSON line of per-kernel results (``ms``: the median time of
 one wrapper call at the kernel's first caller shape; ``device_ms``: the
 device time per launch there; every caller shape's times and bound; the
-launches in phases 4-7 and per frame and epoch), the nvidia-smi line,
+launches in phases 4-8 and per frame and epoch), the nvidia-smi line,
 and as its last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -163,6 +187,17 @@ FACADE_MIN_OK_FRAC = 0.9
 FACADE_MAX_ATE_FRAC = 0.012
 FACADE_FILES = ("Trajectory_0.txt", "KF_traj.txt", "MapLogs.txt",
                 "TrackingStatus_0.txt", "TimesT_0.txt", "reloc.txt")
+# phase 8: bench.py's pipeline depth (bench.py:125), the completed frames
+# whose pinned read is held to a blocking read, and the orbit frames a
+# resumed checkpoint tracks (at least 18 of them OK)
+PIPELINE_DEPTH = 4
+READBACK_CHECKS = 60
+# phase 8b drains the asynchronous system's back end every 5 frames, as
+# the reference's test of asynchronous mapping with depth-4 pipelining
+# does (tests/test_async_mapping.py:205-222: "pace the camera", :77);
+# phase 8b-bare feeds the 20 Hz stamps alone
+ASYNC_DRAIN = 5
+RESUME_FRAMES, RESUME_MIN_OK = 20, 18
 
 # H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): f32 on the
 # CUDA cores (every SIMT op of a kernel is counted at this rate), int8 on
@@ -953,51 +988,63 @@ def cuda_census(prof) -> dict:
     return out
 
 
-def run_facade(mas, frames, out_dir: str, dev):
+def run_facade(mas, frames, out_dir: str, dev, census: bool = True,
+               pace: bool = False, drain: int = 0):
     """Feed ``frames`` (pre-staged on ``dev``) to agent 0 of ``mas``
-    through ``track_monocular`` at 20 Hz stamps; the frames from
-    ``FACADE_WARM`` on are timed (each frame's host wall, and the wall of all of them to
-    the end of ``flush``), then ``shutdown(out_dir)`` writes the
-    artifacts.  The ``FACADE_CENSUS`` frames just before them run under
-    torch.profiler, which counts every CUDA kernel they launch (the timed
-    frames run bare: the profiler adds host time to every launch).  The
-    kernel counters are zeroed just before the first frame and read just
-    after ``flush``."""
+    through ``track_monocular`` at 20 Hz stamps (``pace``: no call
+    before its stamp, as a camera delivers them; ``drain``: ``flush``
+    after every ``drain``-th frame, as the reference's asynchronous tests
+    feed their systems); ``flush`` after the
+    ``FACADE_WARM`` warm frames, as bench.py does, then the frames from
+    there on are timed (each call's host wall, and the wall of all of
+    them to the end of ``flush``), then ``shutdown(out_dir)`` writes the
+    artifacts.  With ``census`` the ``FACADE_CENSUS`` frames just before
+    the timed ones run under torch.profiler, which counts every CUDA
+    kernel they launch (the timed frames run bare: the profiler adds host
+    time to every launch).  The kernel counters are zeroed just before
+    the first frame and read just after the last ``flush``."""
     from torch.profiler import ProfilerActivity, profile
 
     from mam3slam_tpu_torch import _build
 
-    warm, census = FACADE_WARM, FACADE_CENSUS
+    warm, n_census = FACADE_WARM, FACADE_CENSUS
     states, frame_ms, n_events = [], [], []
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     _build.reset_counts()
     t_all = time.perf_counter()
     for i, img in enumerate(frames):
-        if i == warm - census:
+        if census and i == warm - n_census:
             sync(dev)
             own0 = collections.Counter(_build.LAUNCHES)
             prof.start()
         if i == warm:
+            mas.sys.flush()
             sync(dev)
-            prof.stop()
-            own = collections.Counter(_build.LAUNCHES) - own0
+            if census:
+                prof.stop()
+                own = collections.Counter(_build.LAUNCHES) - own0
             t0 = time.perf_counter()
+        if pace:
+            time.sleep(max(0.0, t_all + i * DT - time.perf_counter()))
         f0 = time.perf_counter()
         st, _ = mas.track_monocular(0, img, i * DT)
         frame_ms.append((time.perf_counter() - f0) * 1e3)
         n_events.append(len(mas.server.events))
         states.append(st)
+        if drain and i % drain == drain - 1:
+            mas.sys.flush()
     mas.sys.flush()
     sync(dev)
     wall = time.perf_counter() - t0
     counts = dict(launches=dict(_build.LAUNCHES),
                   plain=dict(_build.PLAIN_CALLS))
     mas.shutdown(out_dir=out_dir)
-    return dict(states=states, frame_ms=frame_ms, n_events=n_events,
-                wall=wall, run_s=time.perf_counter() - t_all,
-                census=dict(frames=(warm - census, warm - 1),
-                            **cuda_census(prof), own=per(own, census)),
-                **counts)
+    out = dict(states=states, frame_ms=frame_ms, n_events=n_events,
+               wall=wall, run_s=time.perf_counter() - t_all, **counts)
+    if census:
+        out["census"] = dict(frames=(warm - n_census, warm - 1),
+                             **cuda_census(prof), own=per(own, n_census))
+    return out
 
 
 def facade_results(mas, res, traj) -> dict:
@@ -1062,6 +1109,142 @@ def check_facade(r: dict, res: dict, out_dir: str) -> None:
             np.linalg.norm(q, axis=1) - 1).max() > 1e-4:
         raise AssertionError("facade: trajectory rows missing or quaternions "
                              "not unit")
+
+
+# ---------------------------------------------------------------------------
+# phase 8: pipelined tracking, the mapping worker, the background global
+# BA and checkpoints, on phase 7's frames
+# ---------------------------------------------------------------------------
+
+def check_readback(sys_, n: int) -> list:
+    """Hold the deferred read of each of the first ``n`` frames that
+    ``sys_`` completes (the pinned copy after its event) against a
+    blocking read of the same device tensor; returns their stamps."""
+    read = sys_._read_vec
+    checked = []
+
+    def compare(pend):
+        host = read(pend)
+        if len(checked) < n:
+            staged = pend.get("staged")
+            if staged is None or not staged[0].is_pinned():
+                raise AssertionError("a deferred frame has no pinned copy")
+            if not np.array_equal(host, pend["vec"].cpu().numpy()):
+                raise AssertionError(f"the pinned read of frame "
+                                     f"{pend['ts']} differs")
+            checked.append(pend["ts"])
+        return host
+
+    sys_._read_vec = compare
+    return checked
+
+
+def phase8_system(fix_cam, yaml_path: str, dev, **kw):
+    """A facade at the fixture point, pipelined to ``PIPELINE_DEPTH`` as
+    bench.py sets it (``kw``: the facade's other options)."""
+    from mam3slam_tpu_torch import api
+
+    mas = api.MultiAgentSystem(slam_config=facade_config(fix_cam),
+                               pipeline=True, device=dev, **kw)
+    mas.add_agent(yaml_path)
+    mas.sys.pipeline_depth = PIPELINE_DEPTH
+    return mas
+
+
+def timing(r: dict) -> dict:
+    return {k: r[k] for k in ("fps", "frame_ms_p50", "frame_ms_p90",
+                              "frame_ms_p99", "frame_ms_max", "lc_epoch_ms")}
+
+
+def run_async(fix_cam, yaml_path: str, dev, frames, traj, out_dir: str,
+              drain: int, smi: str, tag: str):
+    """The asynchronous facade (the mapping worker, depth-4 pipelining,
+    ``ServerConfig(async_gba=True)``) fed at the 20 Hz stamps, its back
+    end drained every ``drain`` frames (0: never).  Logs its results;
+    returns (facade, run, results)."""
+    from mam3slam_tpu_torch.slam.server import ServerConfig
+
+    mas = phase8_system(fix_cam, yaml_path, dev, async_mapping=True,
+                        server_config=ServerConfig(async_gba=True))
+    res = run_facade(mas, frames, out_dir, dev, census=False, pace=True,
+                     drain=drain)
+    r = facade_results(mas, res, traj)
+    gba = mas.server.gba
+    log(tag, drain_every=drain,
+        refused=mas.sys.agents[0].kf_insertions_refused,
+        gba_started=gba.started if gba is not None else [],
+        gba_events=[e for e in mas.server.events if e.startswith("GBA")],
+        **{k: v for k, v in r.items()
+           if not k.startswith(("fps", "frame_ms", "lc_", "launches"))})
+    log("counters", path=tag, launches=res["launches"],
+        plain_calls=res["plain"], per_frame=r["launches_per_frame"])
+    epochs = np.asarray(mas.sys.timers.series.get("LM_0", [0.0]))
+    log(f"{tag}_time", card=repr(smi), paced_hz=1 / DT, **timing(r),
+        epochs=len(mas.sys.epochs),
+        epoch_ms_median=float(np.median(epochs)),
+        epoch_ms_p90=float(np.percentile(epochs, 90)),
+        run_seconds=res["run_s"])
+    return mas, res, r
+
+
+def check_worker(mas, res: dict) -> None:
+    """The asynchronous system's own gates: no worker error, the worker
+    joined, every background GBA started applied or aborted, the
+    kernels launched and no plain version called."""
+    if mas.sys._worker_error is not None or mas.sys._worker.is_alive():
+        raise AssertionError("the mapping worker failed or was not joined")
+    gba = mas.server.gba
+    started = gba.started if gba is not None else []
+    ended = sum(e in ("GBA applied", "GBA aborted")
+                for e in mas.server.events)
+    if ended != len(started) or (gba is not None and gba.running):
+        raise AssertionError(f"background GBA: {len(started)} started, "
+                             f"{ended} applied or aborted")
+    if (any(res["launches"].get(k, 0) == 0 for k in SLAM_KERNELS)
+            or any(res["plain"].values())):
+        raise AssertionError("the asynchronous path did not run its "
+                             "kernels")
+
+
+def check_async(r: dict, res: dict, mas, out_dir: str) -> None:
+    """Phase 8b's gates: the facade's, the worker's, and at least one
+    background GBA started."""
+    check_facade(r, res, out_dir)
+    check_worker(mas, res)
+    if mas.server.gba is None or not mas.server.gba.started:
+        raise AssertionError("no background GBA started")
+
+
+def resume(mas8b, fix_cam, yaml_path: str, dev, scene, path: str):
+    """Phase 8c: checkpoint the asynchronous system, load it into a fresh
+    facade on the card, check every field, and track the orbit's next
+    ``RESUME_FRAMES`` frames with the resumed agent.  Returns (states,
+    launches, plain calls)."""
+    from mam3slam_tpu_torch import _build, api
+    from mam3slam_tpu_torch.io import render
+    from mam3slam_tpu_torch.mapstate import checkpoint
+    from mam3slam_tpu_torch.slam.server import ServerConfig
+
+    checkpoint.save_atlas(mas8b.sys, path, server=mas8b.server)
+    mas = api.MultiAgentSystem(slam_config=facade_config(fix_cam),
+                               server_config=ServerConfig(), device=dev)
+    mas.add_agent(yaml_path)
+    checkpoint.load_atlas(mas.sys, path, server=mas.server)
+    for name, a, b in zip(mas.sys.ms._fields, mas8b.sys.ms, mas.sys.ms):
+        if a.dtype != b.dtype or b.device != a.device or not torch.equal(
+                a, b):
+            raise AssertionError(f"checkpoint: field {name} differs")
+    n = FACADE_FRAMES + RESUME_FRAMES
+    more = render.orbit_trajectory(
+        n, FACADE_ARC[0], FACADE_ARC[1] * (n - 1) / (FACADE_FRAMES - 1),
+        radius=2.5, bob=FACADE_ARC[2])[FACADE_FRAMES:]
+    imgs = [scene.render(R, t, fix_cam) for R, t, _ in more]
+    _build.reset_counts()
+    states = [mas.track_monocular(0, img, (FACADE_FRAMES + i) * DT)[0]
+              for i, img in enumerate(imgs)]
+    mas.shutdown()
+    sync(dev)
+    return states, dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
 
 
 def sync(dev) -> None:
@@ -1285,13 +1468,76 @@ def main() -> int:
                 mas.server.timers.series.get("PR", [0]))),
             gba_runs=mas.server.gba_runs)
         check_facade(facade, fres, out_dir)
-    del mas, frames
+        del mas
+
+        # 8. slice 4b on the same frames.  8a: bench.py's configuration
+        # (pipelined to depth 4, synchronous mapping)
+        from mam3slam_tpu_torch.slam import system as tsys
+
+        t8 = time.perf_counter()
+        mas = phase8_system(fix_cam, yaml_path, dev,
+                            server_config=ServerConfig())
+        checked = check_readback(mas.sys, READBACK_CHECKS)
+        out8a = os.path.join(tmp, "output_8a")
+        res8a = run_facade(mas, frames, out8a, dev, census=False)
+        r8a = facade_results(mas, res8a, fix_traj)
+        log("pipelined", depth=PIPELINE_DEPTH, readback_checked=len(checked),
+            refused=mas.sys.agents[0].kf_insertions_refused,
+            **{k: v for k, v in r8a.items()
+               if not k.startswith(("fps", "frame_ms", "lc_", "launches"))})
+        log("counters", path="pipelined", launches=res8a["launches"],
+            plain_calls=res8a["plain"], per_frame=r8a["launches_per_frame"])
+        log("pipelined_time", card=repr(smi), **timing(r8a),
+            synchronous_phase7=timing(facade),
+            run_seconds=res8a["run_s"])
+        check_facade(r8a, res8a, out8a)
+        if len(checked) < READBACK_CHECKS:
+            raise AssertionError(f"only {len(checked)} deferred reads held "
+                                 f"to a blocking read")
+        del mas
+
+        # 8b: the asynchronous system (mapping worker, depth-4 pipeline,
+        # background GBA) at the 20 Hz stamps, drained as the reference's
+        # tests drain it; 8b-bare: the stamps alone, measured (the
+        # worker's own gates only)
+        out8b = os.path.join(tmp, "output_8b")
+        mas8b, res8b, r8b = run_async(fix_cam, yaml_path, dev, frames,
+                                      fix_traj, out8b, ASYNC_DRAIN, smi,
+                                      "async")
+        check_async(r8b, res8b, mas8b, out8b)
+        mas_bare, res_bare, _ = run_async(
+            fix_cam, yaml_path, dev, frames, fix_traj,
+            os.path.join(tmp, "output_8b_bare"), 0, smi, "async_bare")
+        check_worker(mas_bare, res_bare)
+        del mas_bare
+
+        # 8c: checkpoint 8b's atlas, resume it on the card, track on
+        states8c, launches8c, plain8c = resume(
+            mas8b, fix_cam, yaml_path, dev, scene,
+            os.path.join(tmp, "atlas.npz"))
+        n_ok = sum(s == tsys.OK for s in states8c)
+        log("resume", frames=len(states8c), ok=n_ok, fields="all equal",
+            launches=launches8c, plain_calls=plain8c,
+            phase8_seconds=time.perf_counter() - t8)
+        if n_ok < RESUME_MIN_OK:
+            raise AssertionError(f"resumed agent: {n_ok} of "
+                                 f"{len(states8c)} frames OK")
+        if (any(launches8c.get(k, 0) == 0 for k in SLAM_KERNELS)
+                or any(plain8c.values())):
+            raise AssertionError("the resumed path did not run its kernels")
+        del mas8b
+    del frames
+    phase8_launches = collections.Counter()
+    for counts in (res8a["launches"], res8b["launches"],
+                   res_bare["launches"], launches8c):
+        phase8_launches.update(counts)
 
     rows = {k: [r for r in timed if r["kernel"] == k] for k in KERNELS}
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": (launches[k] + slam_launches.get(k, 0)
-                      + server_launches[k] + fres["launches"].get(k, 0)),
+                      + server_launches[k] + fres["launches"].get(k, 0)
+                      + phase8_launches[k]),
          "max_abs_err": max(r["max_abs_err"] for r in rows[k]),
          "ms": rows[k][0]["wrapper_ms"], "device_ms": rows[k][0]["device_ms"],
          "plain_ms": rows[k][0]["plain_ms"],
@@ -1302,6 +1548,7 @@ def main() -> int:
          "launches_per_slam_frame": slam_per["per_frame"].get(k, 0),
          "launches_per_epoch": slam_per["per_epoch"].get(k, 0),
          "launches_per_facade_frame": facade["launches_per_frame"].get(k, 0),
+         "launches_phase8": phase8_launches[k],
          "callers": [{c: r[c] for c in (
              "caller", "device_ms", "timer", "wrapper_ms", "plain_ms",
              "bound_us", "bound_by", "share", "max_abs_err")}

@@ -10,8 +10,10 @@ the sources and flags: the first kernel launch of a process builds it
 when it is missing, so a fresh checkout needs no separate build step.
 
 Every kernel wrapper adds one to ``LAUNCHES[name]`` where it launches its
-kernel, and every plain PyTorch version adds one to ``PLAIN_CALLS[name]``,
-so a run can show which path it went through.
+kernel, and every plain PyTorch version adds one to ``PLAIN_CALLS[name]``
+(``count_plain``), so a run can show which path it went through.  Both
+counts are taken under one lock: the tracking thread and the mapping
+worker launch kernels concurrently.
 """
 
 from __future__ import annotations
@@ -51,14 +53,22 @@ _SIGNATURES = {
 }
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _lib = None
 build_seconds = None  # wall time of this process's nvcc runs (None: cached)
 build_log = ""        # their ptxas reports
 
 
 def reset_counts() -> None:
-    LAUNCHES.clear()
-    PLAIN_CALLS.clear()
+    with _count_lock:
+        LAUNCHES.clear()
+        PLAIN_CALLS.clear()
+
+
+def count_plain(name: str) -> None:
+    """One call of the plain version of kernel ``name``."""
+    with _count_lock:
+        PLAIN_CALLS[name] += 1
 
 
 def is_cuda(*tensors: torch.Tensor) -> bool:
@@ -158,7 +168,8 @@ def launch(name: str, *args) -> None:
     err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err}")
-    LAUNCHES[name.removeprefix("mam3_")] += 1
+    with _count_lock:
+        LAUNCHES[name.removeprefix("mam3_")] += 1
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:

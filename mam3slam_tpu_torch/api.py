@@ -9,8 +9,12 @@ given or found), agents may have their own intrinsics but share the image
 geometry and camera kind, and there is no viewer.
 
 The system runs on ``device``, the card unless the caller passes
-``device="cpu"``.  Tracking and mapping are synchronous: the
-asynchronous mapping worker and pipelined tracking are not ported yet.
+``device="cpu"``.  ``async_mapping=True`` runs the mapping and server
+epochs in a worker thread; ``pipeline=True`` defers each frame's result
+by one frame (``track_monocular`` then returns the previous frame's state
+and pose; set ``sys.pipeline_depth`` for a deeper lag, as bench.py does).
+``shutdown`` completes the deferred frames, the worker's jobs and a
+pending background global BA before it writes the artifacts.
 """
 
 from __future__ import annotations
@@ -81,10 +85,6 @@ class MultiAgentSystem:
                  pipeline: bool = False,
                  slam_overrides: Optional[dict] = None,
                  device=torch.device("cuda")):
-        if async_mapping or pipeline:
-            raise NotImplementedError(
-                "async_mapping and pipeline are not ported yet (slice 4b: "
-                "the mapping worker and pipelined tracking)")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("MultiAgentSystem: no CUDA device; pass "
@@ -95,6 +95,8 @@ class MultiAgentSystem:
         self._slam_cfg = slam_config
         self._slam_overrides = slam_overrides or {}
         self._seed = seed
+        self._async_mapping = async_mapping
+        self._pipeline = pipeline
         self.sys: Optional[SlamSystem] = None
         self.server: Optional[LoopServer] = None
         self._settings: List[settings_mod.Settings] = []
@@ -119,7 +121,9 @@ class MultiAgentSystem:
                     scale_factor=st.scale_factor).capacity)
             if self._slam_overrides:
                 cfg = dataclasses.replace(cfg, **self._slam_overrides)
-            self.sys = SlamSystem(cfg, cam, seed=self._seed)
+            self.sys = SlamSystem(cfg, cam, seed=self._seed,
+                                  async_mapping=self._async_mapping)
+            self.sys.pipeline = self._pipeline
             if self._active_lc:
                 self.server = LoopServer(self.sys, self._server_cfg,
                                          vocab=self._vocab, seed=self._seed)
@@ -173,8 +177,9 @@ class MultiAgentSystem:
 
     # -- reference: Shutdown + Save* ---------------------------------------
     def shutdown(self, out_dir: Optional[str] = None):
-        """Finish the system's pending work, then export the artifacts to
-        ``out_dir`` when given."""
+        """Complete the deferred frames, drain the worker's jobs and apply
+        a pending background GBA, join the worker, then export the
+        artifacts to ``out_dir`` when given."""
         if self.sys is not None:
             self.sys.shutdown()
         if out_dir:

@@ -156,7 +156,7 @@ def level_window_mask(pred_level, target_level, lo: int = 0, hi: int = 1):
 
 def fused_masked_match_plain(desc_q, q_uv, q_radius, q_level, q_valid,
                              desc_t, t_uv, t_level, t_valid):
-    _build.PLAIN_CALLS["masked_match"] += 1
+    _build.count_plain("masked_match")
     mask = (radius_mask(q_uv, t_uv, q_radius)
             & level_window_mask(q_level, t_level, 1, 1)
             & q_valid[:, None] & t_valid[None, :])
@@ -164,7 +164,7 @@ def fused_masked_match_plain(desc_q, q_uv, q_radius, q_level, q_valid,
 
 
 def min_hamming2_plain(desc_q, q_valid, desc_t, t_valid):
-    _build.PLAIN_CALLS["min_hamming2"] += 1
+    _build.count_plain("min_hamming2")
     mask = q_valid[:, None] & t_valid[None, :]
     return best_two(torch.where(mask, hamming_matrix(desc_q, desc_t), BIG))
 

@@ -119,7 +119,7 @@ def ic_brief_plain(raw: torch.Tensor, blur: torch.Tensor, xy: torch.Tensor,
     """Plain PyTorch describe: raw/blur [L, Hp, Wp] f32 stacks, xy [N, 2]
     i32 (x, y) level coords, lvl [N] i32, hw [N, 2] i32 (h, w) level
     extents -> (angle [N] f32, desc [N, 32] u8)."""
-    _build.PLAIN_CALLS["orb_desc"] += 1
+    _build.count_plain("orb_desc")
     idx, dy, dx = ic_taps(xy, lvl, raw.shape)
     patch = raw.reshape(-1)[idx]                              # [N, C]
     m10 = torch.sum(patch * dx.to(raw.dtype), dim=1)

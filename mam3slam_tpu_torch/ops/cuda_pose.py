@@ -40,7 +40,7 @@ def pose_optimization_plain(q0, t0, cam_params, kind: int, pts, uv, w, valid,
     """Plain PyTorch motion-only BA for one problem: q0 [4], t0 [3],
     cam_params [8], pts [N, 3], uv [N, 2], w [N], valid [N] bool ->
     (q [4], t [3], inlier [N] bool, n_inliers [] int32)."""
-    _build.PLAIN_CALLS["pose_opt"] += 1
+    _build.count_plain("pose_opt")
     delta2 = CHI2_MONO
     cam = cam_mod.Camera(cam_params, kind)
     eye6 = torch.eye(6, dtype=torch.float32, device=pts.device)

@@ -8,9 +8,12 @@ keyframes, closes a loop inside a map (Sim3 propagation over the
 covisible window, fuse, essential-graph PGO, conditional global BA) or
 merges the current map into an older one (Sim3 transform, relabel,
 retarget the agents, fuse, welding BA, merge PGO, conditional global BA).
-It runs synchronously between tracking steps, as the reference's
-synchronous epochs do.  The RANSAC draws come from the server's own
-seeded ``torch.Generator``.  Loop closure takes the Sim3 PGO: the 4DoF
+It runs between tracking steps, or in the system's mapping worker under
+asynchronous mapping.  With ``ServerConfig.async_gba`` the conditional
+global BA runs in the background (``slam/background_gba.py``) and is
+applied at a later keyframe or at ``flush_gba``; a new loop or merge
+aborts it.  The RANSAC draws come from the server's own seeded
+``torch.Generator``.  Loop closure takes the Sim3 PGO: the 4DoF
 PGO of inertial maps comes with the inertial slice.
 """
 
@@ -28,6 +31,7 @@ from mam3slam_tpu_torch.geometry import lie
 from mam3slam_tpu_torch.mapstate import state as S
 from mam3slam_tpu_torch.ops import bow
 from mam3slam_tpu_torch.ops import matching as M
+from mam3slam_tpu_torch.slam.background_gba import BackgroundGBA
 from mam3slam_tpu_torch.solvers import pgo as pgo_mod
 from mam3slam_tpu_torch.solvers import sim3 as sim3_mod
 from mam3slam_tpu_torch.utils.timing import Timers
@@ -61,6 +65,9 @@ class ServerConfig:
     pgo_min_covis_weight: int = 100
     vocab_k: int = 10
     vocab_depth: int = 3
+    # run the conditional global BA in the background and apply it at a
+    # later keyframe (the reference's GBA thread)
+    async_gba: bool = False
     max_kf_for_gba: int = 200
 
 
@@ -76,7 +83,11 @@ class LoopServer:
     per-agent hypotheses."""
 
     def __init__(self, system, cfg: ServerConfig = None,
-                 vocab: bow.Vocabulary = None, seed: int = 0):
+                 vocab: bow.Vocabulary = None, seed: int = 0,
+                 gba_device=None):
+        """``gba_device``: the CUDA stream the background global BA runs
+        on (None: a side stream of its own); the reference's other mesh
+        device."""
         self.sys = system
         self.cfg = cfg or ServerConfig()
         self.voc = None if vocab is None else vocab.to(system.device)
@@ -89,6 +100,8 @@ class LoopServer:
         self._pending_index: List[int] = []   # KFs awaiting the vocabulary
         self.events: List[str] = []
         self.gba_runs: List[int] = []          # map ids a global BA ran on
+        self.gba: Optional[BackgroundGBA] = None   # made at its first run
+        self.gba_device = gba_device
         self.timers = Timers()                 # PR / LC / MM series (ms)
         self.last_verify: dict = {}
 
@@ -164,6 +177,12 @@ class LoopServer:
             self._pending_index = []
         else:
             self._index_keyframe(kf)
+        # harvest a finished background GBA between epochs (the reference
+        # polls mbFinishedGBA in LoopClosing::Run)
+        if self.gba is not None and self.gba.running and self.gba.ready:
+            if self.gba.finish():
+                self.events.append("GBA applied")
+        ms = self.sys.ms
         hdr = torch.stack([
             ms.kf_map[kf],
             (ms.kf_valid & (ms.kf_map == ms.kf_map[kf])).sum().to(
@@ -411,12 +430,33 @@ class LoopServer:
 
     # ------------------------------------------------------------------
     def _run_gba(self, map_id: int):
-        """The conditional full-map BA, as a synchronous epoch."""
+        """The conditional full-map BA: a synchronous epoch, or started in
+        the background with ``cfg.async_gba`` (unless one is in flight)."""
         self.gba_runs.append(map_id)
-        self.sys.ms = self.sys.fns["global_ba"](self.sys.ms, map_id)
+        if self.cfg.async_gba:
+            if self.gba is None:
+                self.gba = BackgroundGBA(self.sys, stream=self.gba_device)
+            if not self.gba.running:
+                self.gba.start(map_id)
+        else:
+            self.sys.ms = self.sys.fns["global_ba"](self.sys.ms, map_id)
+
+    def flush_gba(self):
+        """Wait for and apply a pending background GBA.  It writes the
+        system's state, so under asynchronous mapping it takes the
+        system's lock (mapping jobs may still be in flight)."""
+        if self.gba is not None and self.gba.running:
+            with self.sys._structural_lock():
+                if self.gba.finish():
+                    self.events.append("GBA applied")
 
     def _trigger(self, agent_id: int, kf: int, h: Hypothesis):
         del self.hyp[agent_id]
+        # a new loop or merge invalidates a GBA in flight (the reference's
+        # mbStopGBA)
+        if self.gba is not None and self.gba.running:
+            self.gba.abort()
+            self.events.append("GBA aborted")
         ms = self.sys.ms
         maps = ms.kf_map[[kf, h.target_kf]].cpu().numpy()
         if h.is_merge or maps[0] != maps[1]:

@@ -1,22 +1,37 @@
 """SLAM system: the programs of tracking, local mapping and the loop
-server, and the synchronous multi-agent ``SlamSystem`` around them.
+server, and the multi-agent ``SlamSystem`` around them.
 
 Port of ``mam3slam_tpu.slam.system``: ``SlamConfig``, the tracking-state
 constants, ``programs`` (the reference's ``_compiled``: the same functions
 with the same arguments and return tuples, the packed ``vec``, the
 device-resident chain state and the packed culling decision included),
-and ``SlamSystem``'s synchronous state machine: monocular initialisation,
-tracking, relocalization, keyframe decisions, one local-mapping epoch per
-keyframe and then the optional ``LoopServer``'s epoch, for several agents
-in one shared arena.  PyTorch runs the programs eagerly; the host reads
-one packed vector per tracked frame and one packed array per mapping
-epoch, as the reference does.  The widened tracking retry is a host
-branch on the coarse stage's inlier count.
+and ``SlamSystem``'s state machine: monocular initialisation, tracking,
+relocalization, keyframe decisions, one local-mapping epoch per keyframe
+and then the optional ``LoopServer``'s epoch, for several agents in one
+shared arena.  PyTorch runs the programs eagerly; the host reads one
+packed vector per tracked frame and one packed array per mapping epoch,
+as the reference does.  The widened tracking retry is a host branch on
+the coarse stage's inlier count.
+
+Two options of the reference decouple the host from the device and the
+front end from the back end.  ``pipeline`` defers each frame's read of
+its packed vector and its state machine by up to ``pipeline_depth``
+frames (on the card the read is a non-blocking copy into pinned host
+memory, completed by an event).  ``async_mapping`` moves the mapping
+and server epochs to one worker thread fed by a bounded queue; tracking
+inserts a keyframe only when the worker has no mapping job, and counts
+the refusals.  Both threads launch on their current stream, the device's
+default stream, so every published ``MapState`` is ordered for the
+other thread; the mutators are functional, so a snapshot never changes
+under its reader.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import queue
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import List, Optional
@@ -149,7 +164,8 @@ def programs(cfg: SlamConfig, kind: int) -> dict:
     mapping (``add_kf_step``, ``cull_map_points``,
     ``triangulate_multi_step``, ``local_ba``, ``cull_pack``,
     ``remove_kf``, ``mapping_epoch``) and the loop server's (``fuse_step``,
-    ``refresh_stats``, ``welding_ba``, ``global_ba``)."""
+    ``refresh_stats``, ``welding_ba``, ``global_ba``; ``global_ba_masks``
+    for the background GBA)."""
     W, H = float(cfg.width), float(cfg.height)
     per_device = {}
 
@@ -446,16 +462,21 @@ def programs(cfg: SlamConfig, kind: int) -> dict:
         ms, pt_free, _ = _lba_core(ms, opt_mask)
         return ms, opt_mask, pt_free
 
-    def global_ba(ms, map_id):
+    def global_ba_masks(ms, map_id):
         """Full-map BA (RunGlobalBundleAdjustment, 10 iterations) with the
-        map's oldest KF fixed, on the dense solver at the arena's caps."""
+        map's oldest KF fixed, on the dense solver at the arena's caps.
+        Returns (ms, optimised KF mask, optimised point mask)."""
         in_map = ms.kf_valid & (ms.kf_map == map_id)
         anchor = torch.argmin(torch.where(in_map, ms.kf_seq, S.BIG_SEQ))
+        opt_mask = S.set_at(in_map, anchor, False)
         prob = steps.build_window_problem(
-            ms, S.set_at(in_map, anchor, False), consts(ms.mp_pos.device)[1],
-            cfg.max_kf, cfg.max_mp)
-        return steps.apply_window_result(
+            ms, opt_mask, consts(ms.mp_pos.device)[1], cfg.max_kf, cfg.max_mp)
+        ms2 = steps.apply_window_result(
             ms, prob, bw.run_window_ba_dense(prob, kind, iters=10))
+        return ms2, opt_mask, steps.window_pt_mask(ms, prob)
+
+    def global_ba(ms, map_id):
+        return global_ba_masks(ms, map_id)[0]
 
     def fuse_step(ms, kf, mp_mask):
         """Fuse the masked points into ``kf``, then rebuild the reverse
@@ -544,6 +565,7 @@ def programs(cfg: SlamConfig, kind: int) -> dict:
         "mapping_epoch": mapping_epoch,
         "welding_ba": welding_ba,
         "global_ba": global_ba,
+        "global_ba_masks": global_ba_masks,
         "fuse_step": fuse_step,
         "refresh_stats": refresh_stats,
     }
@@ -552,7 +574,7 @@ def programs(cfg: SlamConfig, kind: int) -> dict:
 @dataclass
 class AgentState:
     """Per-agent tracking state (the reference's AgentState without its
-    IMU and pipelining fields)."""
+    IMU fields)."""
 
     agent_id: int
     cam: cam_mod.Camera
@@ -572,19 +594,30 @@ class AgentState:
     ref_kf: int = -1
     ref_kf_tracked: int = 0
     frames_since_kf: int = 0
+    # keyframe insertions refused by a busy worker or a stale snapshot
+    kf_insertions_refused: int = 0
     next_agent_kf_id: int = 0
     frames_lost: int = 0
+    # deferred frames awaiting their state machine, oldest first
+    # (SlamSystem.pipeline; at most pipeline_depth)
+    pending_q: List = field(default_factory=list)
     trajectory: List = field(default_factory=list)  # (ts, ref, q, t, state)
     times_ms: List = field(default_factory=list)
 
 
 class SlamSystem:
-    """Shared map arena + N agents, synchronous: each keyframe runs its
-    local-mapping epoch before ``track`` returns (the reference with
-    ``async_mapping=False`` and no pipelining).  Tensors live on the
-    device of ``cam.params``."""
+    """Shared map arena + N agents.  Synchronous by default: each keyframe
+    runs its local-mapping epoch before ``track`` returns.  With
+    ``async_mapping`` a worker thread runs the mapping and server epochs
+    and is the only structural writer besides keyframe insertion and
+    initialisation, which take ``_ms_lock``; set ``pipeline`` (and
+    ``pipeline_depth``) to defer each frame's result, so ``track``
+    returns a lagged state.  Call ``flush`` before reading poses or
+    trajectories and ``shutdown`` at the end.  Tensors live on the device
+    of ``cam.params``."""
 
-    def __init__(self, cfg: SlamConfig, cam: cam_mod.Camera, seed: int = 0):
+    def __init__(self, cfg: SlamConfig, cam: cam_mod.Camera, seed: int = 0,
+                 async_mapping: bool = False):
         self.cfg = cfg
         self.cam = cam
         self.device = cam.params.device
@@ -603,22 +636,88 @@ class SlamSystem:
         self.kf_culled = 0       # keyframes removed by KeyFrameCulling
         # per mapping epoch: (agent, map, row 0 of the packed result)
         self.epochs: List[tuple] = []
+        # bumped by every structural change (initialisation, a mapping
+        # epoch, a server epoch): a frame's snapshot is structurally
+        # current while the epoch it read is
+        self.ms_epoch = 0
+        self.pipeline = False
+        self.pipeline_depth = 1
+        self.async_mapping = async_mapping
+        self._worker_error = None
+        # mapping jobs queued or running: the back-pressure signal (stats
+        # jobs do not refuse insertions)
+        self._pending_mapping = 0
+        if async_mapping:
+            self._ms_lock = threading.Lock()
+            self._jobs = queue.Queue(maxsize=8)
+            self._worker = threading.Thread(target=self._mapping_worker,
+                                            daemon=True)
+            self._worker.start()
 
     def _probe(self, shape) -> torch.Tensor:
         """Uniform RANSAC draws from the system's generator."""
         return torch.rand(shape, generator=self.gen).to(self.device)
 
+    def _structural_lock(self):
+        return (self._ms_lock if self.async_mapping
+                else contextlib.nullcontext())
+
+    def _mapping_worker(self):
+        """The back end: applies tracking's found/visible deltas and runs
+        the mapping epoch, then the server's, of each queued keyframe."""
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        while True:
+            job = self._jobs.get()
+            if job is None:
+                self._jobs.task_done()
+                return
+            try:
+                with self._ms_lock:
+                    if job[0] == "stats":
+                        # the deltas index point slots of their snapshot;
+                        # a mapping epoch since may have recycled them
+                        _, epoch, payload = job
+                        if epoch == self.ms_epoch:
+                            self.ms = self.fns["update_found_visible"](
+                                self.ms, *payload)
+                    else:
+                        _, aid, kf = job
+                        try:
+                            self._local_mapping(self.agents[aid], kf)
+                            self.ms_epoch += 1
+                            if self.server is not None:
+                                self.server.process_keyframe(aid, kf)
+                                self.ms_epoch += 1
+                        finally:
+                            self._pending_mapping -= 1
+            except Exception as e:   # re-raised by track() and flush()
+                self._worker_error = e
+            finally:
+                self._jobs.task_done()
+
+    def _raise_worker_error(self):
+        if self._worker_error is not None:
+            err, self._worker_error = self._worker_error, None
+            raise err
+
     def flush(self):
-        """Finish the work still queued behind the frames tracked so far.
-        The synchronous system queues none: each keyframe's mapping and
-        server epochs run inside its ``track``; a server with a
-        background global BA is drained when it has one."""
-        flush_gba = getattr(self.server, "flush_gba", None)
-        if flush_gba is not None:
-            flush_gba()
+        """Finish the work queued behind the frames tracked so far: the
+        deferred frames, the worker's jobs and a pending background global
+        BA; re-raise the worker's error."""
+        self.drain()
+        if self.async_mapping:
+            self._jobs.join()
+        if self.server is not None:
+            self.server.flush_gba()
+        self._raise_worker_error()
 
     def shutdown(self):
+        """Flush, then stop and join the worker."""
         self.flush()
+        if self.async_mapping and self._worker.is_alive():
+            self._jobs.put(None)
+            self._worker.join(timeout=30)
 
     def add_agent(self, cam: Optional[cam_mod.Camera] = None) -> int:
         """Register an agent (optionally with its own intrinsics, same
@@ -646,21 +745,45 @@ class SlamSystem:
     # ------------------------------------------------------------------
     def track(self, agent_id: int, frame: steps.FrameObs, ts: float):
         """Process one frame of one agent (reference Tracking::Track);
-        returns (state, (q, t) of T_cw or None)."""
+        returns (state, (q, t) of T_cw or None), lagged by the deferred
+        frames when pipelined."""
         t0 = time.perf_counter()
+        self._raise_worker_error()
         a = self.agents[agent_id]
+        # complete the oldest deferred frames down to the lag bound
+        while len(a.pending_q) >= max(self.pipeline_depth, 1):
+            self._complete_pending(a)
         if a.state in (NO_IMAGES_YET, NOT_INITIALIZED):
+            self.drain_agent(a)
             a.last_rel = None
             self._monocular_initialization(a, frame, ts)
+            self._post_frame(a, ts, t0)
         else:
-            self._track_frame(a, frame, ts)
-        self._post_frame(a, frame, ts, t0)
+            self._track_frame(a, frame, ts, t0)
+            if not self.pipeline:
+                self._post_frame(a, ts, t0)
         return a.state, (a.q, a.t) if a.q is not None else None
 
-    def _post_frame(self, a: AgentState, frame, ts, t0):
+    def _post_frame(self, a: AgentState, ts, t0):
         a.times_ms.append((time.perf_counter() - t0) * 1e3)
         if a.q is not None:
             self._record_trajectory(a, ts)
+
+    def _complete_pending(self, a: AgentState):
+        """Run the state machine of the agent's oldest deferred frame."""
+        pend = a.pending_q.pop(0)
+        a.last_rel = None
+        self._finish_frame(a, pend)
+        self._post_frame(a, pend["ts"], pend["t0"])
+
+    def drain_agent(self, a: AgentState):
+        while a.pending_q:
+            self._complete_pending(a)
+
+    def drain(self):
+        """Complete every agent's deferred frames."""
+        for a in self.agents:
+            self.drain_agent(a)
 
     # ------------------------------------------------------------------
     def _monocular_initialization(self, a: AgentState, frame, ts):
@@ -685,17 +808,19 @@ class SlamSystem:
         if not bool(rec.ok):
             return
         self._kf_capacity_check(2)
-        ms, kf1, kf2 = self.fns["create_initial_map"](
-            self.ms, a.init_frame, frame, lie.quat_from_matrix(rec.R21),
-            rec.t21, torch.arange(cfg.n_feat, dtype=torch.int32,
-                                  device=self.device),
-            torch.clamp(res.idx, min=0), rec.is_triangulated & res.ok,
-            rec.points3d, a.cam.params, a.map_id, a.agent_id,
-            float(a.init_ts), float(ts))
-        ms, ok = self.fns["initial_gba_and_rescale"](ms, kf1, a.map_id)
-        if not bool(ok):
-            return
-        self.ms = ms
+        with self._structural_lock():
+            ms, kf1, kf2 = self.fns["create_initial_map"](
+                self.ms, a.init_frame, frame, lie.quat_from_matrix(rec.R21),
+                rec.t21, torch.arange(cfg.n_feat, dtype=torch.int32,
+                                      device=self.device),
+                torch.clamp(res.idx, min=0), rec.is_triangulated & res.ok,
+                rec.points3d, a.cam.params, a.map_id, a.agent_id,
+                float(a.init_ts), float(ts))
+            ms, ok = self.fns["initial_gba_and_rescale"](ms, kf1, a.map_id)
+            if not bool(ok):
+                return
+            self.ms = ms
+            self.ms_epoch += 1
         kf2 = int(kf2)
         a.state = OK
         a.ref_kf = kf2
@@ -710,7 +835,12 @@ class SlamSystem:
                            f"mps={int(self.ms.mp_valid.sum())}")
 
     # ------------------------------------------------------------------
-    def _track_frame(self, a: AgentState, frame, ts):
+    def _track_frame(self, a: AgentState, frame, ts, t0):
+        # the epoch is read before the snapshot: a publication between the
+        # two reads pairs a newer map with an older epoch, which fails the
+        # insertion check conservatively, never the reverse
+        snap_epoch = self.ms_epoch
+        ms = self.ms
         # the chain state stays on the device between frames unless the
         # host pose diverged from it
         if a.dev_chain is not None:
@@ -720,22 +850,48 @@ class SlamSystem:
             has_vel = a.vel_q is not None
             vel_q = self._tensor(a.vel_q if has_vel else [1, 0, 0, 0])
             vel_t = self._tensor(a.vel_t if has_vel else np.zeros(3))
-        ms = self.ms
         (ms2, feat_mp, inlier, visible, vec,
          a.dev_chain) = self.fns["track_frame_step"](
             ms, frame, max(a.ref_kf, 0), vel_q, vel_t, has_vel, q_last,
             t_last, self._tensor([1, 0, 0, 0]), self._tensor(np.zeros(3)),
             False, a.cam.params)
-        self._finish_frame(a, dict(
-            ms=ms, ms2=ms2, feat_mp=feat_mp, inlier=inlier, frame=frame,
-            vec=vec, ts=ts, ref_kf=max(a.ref_kf, 0)))
+        pend = dict(ms=ms, ms2=ms2, feat_mp=feat_mp, inlier=inlier,
+                    visible=visible, vec=vec, frame=frame, ts=ts, t0=t0,
+                    snap_epoch=snap_epoch, ref_kf=max(a.ref_kf, 0))
+        if self.pipeline:
+            if vec.is_cuda:
+                # start the read now: a non-blocking copy into pinned
+                # memory (pageable memory would block) and an event
+                # after it on the current stream
+                host = torch.empty(vec.shape, dtype=vec.dtype,
+                                   pin_memory=True)
+                host.copy_(vec, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+                pend["staged"] = (host, done)
+            a.pending_q.append(pend)
+            return
+        self._finish_frame(a, pend)
+
+    def _read_vec(self, pend) -> np.ndarray:
+        """The frame's packed vector on the host (its one read): the
+        pinned copy started at dispatch once its event has completed, or
+        a plain read."""
+        staged = pend.get("staged")
+        if staged is None:
+            return pend["vec"].cpu().numpy()
+        host, done = staged
+        done.synchronize()
+        return host.numpy().copy()
 
     def _finish_frame(self, a: AgentState, pend):
         cfg = self.cfg
         ms, frame = pend["ms"], pend["frame"]
+        snap_epoch = pend["snap_epoch"]
+        # completions run in order: the host pose is the previous frame's
         q_last, t_last = a.q, a.t
         feat_mp, inlier = pend["feat_mp"], pend["inlier"]
-        vec = pend["vec"].cpu().numpy()       # the frame's one host read
+        vec = self._read_vec(pend)
         q, t = vec[0:4], vec[4:7]
         vel_q, vel_t = vec[7:11], vec[11:14]
         q_rel, t_rel = vec[14:18], vec[18:21]
@@ -762,10 +918,23 @@ class SlamSystem:
                 q_rel, t_rel = _se3_compose_np(q, t,
                                                *_se3_inverse_np(rq, rt))
 
-        # no structural change since the snapshot: keep the found/visible
-        # deltas the step applied
-        if self.ms is ms:
+        if self.async_mapping:
+            # found/visible deltas go through the worker, the single
+            # writer; a full queue drops them (they are heuristics)
+            try:
+                self._jobs.put_nowait(
+                    ("stats", snap_epoch, (feat_mp, inlier, pend["visible"])))
+            except queue.Full:
+                pass
+        elif self.ms is ms:
+            # no change since the snapshot: keep the deltas the step applied
             self.ms = pend["ms2"]
+        elif snap_epoch == self.ms_epoch:
+            # same structure, other contents: apply them to the live state
+            self.ms = self.fns["update_found_visible"](
+                self.ms, feat_mp, inlier, pend["visible"])
+        # else the deferred frame's snapshot is structurally stale (a
+        # keyframe or an epoch landed since): the deltas are dropped
 
         threshold = (cfg.min_track_inliers if a.state == OK
                      else cfg.min_track_inliers_lost)
@@ -795,7 +964,8 @@ class SlamSystem:
         a.last_rel = (q_rel, t_rel, pend["ref_kf"])
         a.frames_since_kf += 1
         if self._need_new_keyframe(a, n_in):
-            self._create_keyframe(a, frame, feat_mp, inlier, pend["ts"])
+            self._create_keyframe(a, frame, feat_mp, inlier, pend["ts"],
+                                  snap_epoch)
 
     def _relocalize(self, a: AgentState, frame) -> bool:
         """Tracking::Relocalization: BoW candidates over ALL maps (the
@@ -871,16 +1041,18 @@ class SlamSystem:
 
     # ------------------------------------------------------------------
     def _need_new_keyframe(self, a: AgentState, n_in: int) -> bool:
-        """Reference NeedNewKeyFrame, monocular core: interval bounds and
-        the tracked-vs-reference ratio (the refused-insertion condition
-        needs asynchronous mapping, which refuses insertions)."""
+        """Reference NeedNewKeyFrame, monocular core: interval bounds, the
+        tracked-vs-reference ratio, and condition c1d: more than 5 refused
+        insertions force the next weak frame in, so a busy worker cannot
+        starve keyframe creation."""
         cfg = self.cfg
         if a.state != OK:
             return False
         weak = n_in < cfg.kf_ref_ratio * max(a.ref_kf_tracked, 1)
         c1 = a.frames_since_kf >= cfg.kf_max_interval
         c2 = a.frames_since_kf >= cfg.kf_min_interval and weak
-        return (c1 or c2) and n_in > 15
+        c1d = a.kf_insertions_refused > 5 and weak
+        return (c1 or c2 or c1d) and n_in > 15
 
     def _kf_capacity_check(self, need: int = 1):
         n_live = int(self.ms.kf_valid.sum())
@@ -889,24 +1061,56 @@ class SlamSystem:
                 f"keyframe arena exhausted: {n_live} live + {need} needed "
                 f"> max_kf={self.cfg.max_kf} (raise SlamConfig.max_kf)")
 
-    def _create_keyframe(self, a: AgentState, frame, feat_mp, inlier, ts):
+    def _create_keyframe(self, a: AgentState, frame, feat_mp, inlier, ts,
+                         snap_epoch: int):
         self._kf_capacity_check(1)
         feat_mp_in = torch.where(inlier, feat_mp, S.NO_MP)
-        ms, kf = self.fns["add_kf_step"](
-            self.ms, frame, self._tensor(a.q), self._tensor(a.t), feat_mp_in,
-            a.agent_id, a.map_id, float(ts), a.next_agent_kf_id,
-            a.cam.params)
-        kf = int(kf)
-        self.ms = ms
+
+        def insert():
+            ms, kf = self.fns["add_kf_step"](
+                self.ms, frame, self._tensor(a.q), self._tensor(a.t),
+                feat_mp_in, a.agent_id, a.map_id, float(ts),
+                a.next_agent_kf_id, a.cam.params)
+            self.ms = ms
+            return int(kf)
+
+        if self.async_mapping:
+            # insert only while the worker has no mapping job and the
+            # frame's snapshot is structurally current (feat_mp indexes
+            # its point slots); else refuse and count (the reference's
+            # SetAcceptKeyFrames(false) back-pressure).  Stats jobs hold
+            # the lock briefly, so they are waited for, not refused on.
+            if self._pending_mapping > 0 or self._jobs.full():
+                a.kf_insertions_refused += 1
+                return
+            with self._ms_lock:
+                if snap_epoch != self.ms_epoch:
+                    a.kf_insertions_refused += 1
+                    return
+                kf = insert()
+                self._pending_mapping += 1
+            a.kf_insertions_refused = 0
+        elif self.pipeline and snap_epoch != self.ms_epoch:
+            # a deferred frame of a structurally stale snapshot
+            a.kf_insertions_refused += 1
+            return
+        else:
+            kf = insert()
         a.next_agent_kf_id += 1
         a.frames_since_kf = 0
         a.ref_kf = kf
+        # the new keyframe's pose is this frame's: rel = identity
         a.last_rel = (np.array([1, 0, 0, 0], np.float32),
                       np.zeros(3, np.float32), kf)
         a.ref_kf_tracked = int((feat_mp_in >= 0).sum())
+        if self.async_mapping:
+            self._jobs.put(("mapping", a.agent_id, kf))
+            return
         self._local_mapping(a, kf)
+        self.ms_epoch += 1
         if self.server is not None:
             self.server.process_keyframe(a.agent_id, kf)
+            self.ms_epoch += 1
 
     def _protected_refs(self) -> torch.Tensor:
         """KF slots culling never removes: every agent's reference KF."""

@@ -16,6 +16,7 @@ from typing import NamedTuple
 import torch
 
 from mam3slam_tpu_torch.geometry import lie
+from mam3slam_tpu_torch.utils import autodiff
 
 
 class PGOEdges(NamedTuple):
@@ -49,8 +50,8 @@ def batched_jacfwd(f, x: torch.Tensor):
         y = f(x + d)
         return y, y
 
-    J, y = torch.func.jacfwd(g, has_aux=True)(
-        torch.zeros(x.shape[-1], dtype=x.dtype, device=x.device))
+    J, y = autodiff.jacfwd(g, torch.zeros(x.shape[-1], dtype=x.dtype,
+                                          device=x.device), has_aux=True)
     return y, J
 
 

@@ -18,6 +18,7 @@ import torch
 
 from mam3slam_tpu_torch.geometry import cameras as cam_mod
 from mam3slam_tpu_torch.geometry import lie
+from mam3slam_tpu_torch.utils import autodiff
 
 
 class Sim3Result(NamedTuple):
@@ -129,7 +130,7 @@ def optimize_sim3(q12, t12, s12, pc1, pc2, uv1, uv2, valid,
     """Gauss-Newton refinement of S12 on bidirectional reprojection
     residuals of camera-frame points pc1 / pc2 (reference
     Optimizer::OptimizeSim3, Huber delta^2 = 100).  The [4N, 7] jacobian
-    is forward-mode (``torch.func.jacfwd``) in the tangent [rho, phi,
+    is forward-mode (``utils.autodiff.jacfwd``) in the tangent [rho, phi,
     sigma], left-perturbing the rotation.  Returns (q, t, s, inliers,
     n_inliers)."""
     sig1 = torch.sqrt(sigma2_1)[:, None]
@@ -159,7 +160,7 @@ def optimize_sim3(q12, t12, s12, pc1, pc2, uv1, uv2, valid,
             return r, r
 
         xi0 = torch.zeros(7, dtype=pc1.dtype, device=pc1.device)
-        J, r = torch.func.jacfwd(res_tangent, has_aux=True)(xi0)  # [4N, 7]
+        J, r = autodiff.jacfwd(res_tangent, xi0, has_aux=True)  # [4N, 7]
         chi = (r.reshape(-1, 2) ** 2).sum(-1)
         wh = torch.where(chi <= huber2, 1.0,
                          torch.sqrt(huber2 / torch.clamp(chi, min=1e-12)))

@@ -9,7 +9,7 @@ facades must agree on every frame's tracking state, the keyframe count,
 the live map points (within 1%), every camera centre (within 1e-3 of the
 arc's span) and the text of the artifacts (timestamps, agents, reference
 keyframes; poses within 1e-3 of the span).  Also: the INTER_AREA resize
-against cv2 and the facade's device and mode guards."""
+against cv2 and the facade's device and mode options."""
 
 import os
 
@@ -215,12 +215,28 @@ def test_facade_resizes_frames_as_the_settings_ask(tmp_path):
                                            cam.cx * 0.75, cam.cy * 0.75]))
 
 
-def test_facade_guards():
-    """Asynchronous mapping and pipelining are not ported: they raise.
-    The facade defaults to the card and raises where there is none."""
+def test_facade_guards(tmp_path):
+    """Asynchronous mapping and pipelining reach the system as the
+    reference's facade passes them (depth 1; the worker joined at
+    shutdown).  The facade defaults to the card and raises where there is
+    none."""
+    path = str(tmp_path / "kb8.yaml")
+    with open(path, "w") as f:
+        f.write(_yaml(jrender.reference_kb8_cam(1 / 3)))
     for kw in (dict(async_mapping=True), dict(pipeline=True)):
-        with pytest.raises(NotImplementedError, match="slice 4b"):
-            tapi.MultiAgentSystem(device="cpu", **kw)
+        mas = tapi.MultiAgentSystem(device="cpu", active_loop_closing=False,
+                                    slam_overrides=OVERRIDES, **kw)
+        mas.add_agent(path)
+        ref = japi.MultiAgentSystem(active_loop_closing=False,
+                                    slam_overrides=OVERRIDES, **kw)
+        assert (mas.sys.async_mapping, mas.sys.pipeline,
+                mas.sys.pipeline_depth) == (
+            kw.get("async_mapping", False), kw.get("pipeline", False), 1)
+        assert (ref._async_mapping, ref._pipeline) == (
+            mas._async_mapping, mas._pipeline)
+        mas.shutdown()
+        if mas.sys.async_mapping:
+            assert not mas.sys._worker.is_alive()
     if torch.cuda.is_available():
         assert tapi.MultiAgentSystem().device.type == "cuda"
     else:

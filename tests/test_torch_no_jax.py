@@ -11,6 +11,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import torch
@@ -46,9 +47,9 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert len(PORT_MODULES) >= 35
+    assert len(PORT_MODULES) >= 37
     for m in ("api", "io.settings", "io.stream", "io.euroc", "io.writers",
-              "utils.verbose"):
+              "utils.verbose", "slam.background_gba", "mapstate.checkpoint"):
         assert f"mam3slam_tpu_torch.{m}" in PORT_MODULES
 
 
@@ -149,6 +150,34 @@ def test_cpu_tensors_launch_no_kernel():
     assert sum(_build.LAUNCHES.values()) == 0
     assert set(_build.PLAIN_CALLS) == {"orb_desc", "min_hamming2",
                                        "masked_match", "pose_opt"}
+
+
+def test_counts_lose_no_update_across_threads():
+    """The tracking thread and the mapping worker both call kernels: the
+    plain calls of more threads than cores, switching as often as the
+    interpreter allows, are all counted."""
+    _build.reset_counts()
+    d = torch.zeros((4, 32), dtype=torch.uint8)
+    ok = torch.ones(4, dtype=torch.bool)
+    n_threads, n = 2 * (os.cpu_count() or 4), 100
+
+    def calls():
+        for _ in range(n):
+            cuda_match.min_hamming2(d, ok, d, ok)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=calls) for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert _build.PLAIN_CALLS["min_hamming2"] == n_threads * n
+    assert sum(_build.LAUNCHES.values()) == 0
 
 
 def test_dispatch_refuses_mixed_devices():

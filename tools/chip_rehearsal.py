@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""CPU rehearsal of chip_smoke.py phases 6 and 7 against the reference.
+"""CPU rehearsal of chip_smoke.py phases 6, 7 and 8 against the reference.
 
-    python3 tools/chip_rehearsal.py [--loop | --facade] [--threads N]
+    python3 tools/chip_rehearsal.py [--loop | --facade [--pipeline D |
+                                     --async]] [--threads N]
 
 Phase 6 (default 6a, the two-agent merge arcs; ``--loop``: 6b, the
 one-agent loop arc): renders the phase's frames at half size (376x240,
@@ -14,7 +15,16 @@ package's ``SlamSystem`` + ``LoopServer`` (JAX ``extract_orb`` +
 Phase 7 (``--facade``): renders phase 7's 240 frames at 1/3 of the
 fixture camera (320x320 KB8; 8 levels, 700 features, bench.py's
 ``SlamConfig``) and feeds each to both packages' ``MultiAgentSystem``,
-built from one settings file (``chip_smoke.facade_yaml``).
+built from one settings file (``chip_smoke.facade_yaml``).  Phase 8a
+(``--facade --pipeline 4``): the same, both facades pipelined to depth D
+with synchronous mapping (bench.py's configuration).  Phase 8b
+(``--facade --async``): both facades with the mapping worker, depth-4
+pipelining and ``ServerConfig(async_gba=True)``, fed as fast as they
+take the frames and never drained (as chip_smoke.py's 8b-bare; its 8b
+drains every 5 frames); the worker's timing makes the run differ
+between repeats.  Both phase-8 modes flush and shut the
+facades down before the summary and also print the refused keyframe
+insertions and the background GBAs.
 
 Prints, per package, the server and system events, the keyframe and map
 point counts and per agent the share of frames OK after init and the ATE
@@ -86,9 +96,10 @@ def summary(name, sys_, aids, arcs, states, ok_code):
               flush=True)
 
 
-def facade() -> None:
-    """Phase 7 at 1/3 of the fixture camera, both facades on one
-    settings file and the same frames."""
+def facade(pipeline: int = 0, async_: bool = False) -> None:
+    """Phase 7 (or 8a with ``pipeline``, 8b with ``async_``) at 1/3 of
+    the fixture camera, both facades on one settings file and the same
+    frames."""
     cam = render.reference_kb8_cam(1 / 3)
     traj = render.orbit_trajectory(cs.FACADE_FRAMES, *cs.FACADE_ARC[:2],
                                    radius=2.5, bob=cs.FACADE_ARC[2])
@@ -96,16 +107,23 @@ def facade() -> None:
     tcfg = cs.facade_config(cam)
     jcfg = jsystem.SlamConfig(**{f.name: getattr(tcfg, f.name)
                                  for f in dataclasses.fields(tcfg)})
-    tmas = tapi.MultiAgentSystem(slam_config=tcfg, device="cpu",
-                                 server_config=tserver.ServerConfig())
-    jmas = japi.MultiAgentSystem(slam_config=jcfg,
-                                 server_config=jserver.ServerConfig())
+    if async_:
+        pipeline = cs.PIPELINE_DEPTH
+    opts = dict(async_mapping=async_, pipeline=pipeline > 0)
+    tmas = tapi.MultiAgentSystem(
+        slam_config=tcfg, device="cpu", **opts,
+        server_config=tserver.ServerConfig(async_gba=async_))
+    jmas = japi.MultiAgentSystem(
+        slam_config=jcfg, **opts,
+        server_config=jserver.ServerConfig(async_gba=async_))
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "kb8_fixture.yaml")
         with open(path, "w") as f:
             f.write(cs.facade_yaml(cam))
         tmas.add_agent(path)
         jmas.add_agent(path)
+    for mas in (tmas, jmas):
+        mas.sys.pipeline_depth = max(pipeline, 1)
     tstates, jstates = [], []
     t0 = time.perf_counter()
     for i, (R, t, _) in enumerate(traj):
@@ -115,11 +133,20 @@ def facade() -> None:
         if i % 50 == 0:
             print(f"[progress] frame={i} s={time.perf_counter() - t0:.1f}",
                   flush=True)
-    print(f"[setup] phase=7 size={cam.width}x{cam.height} "
+    phase = "8b" if async_ else "8a" if pipeline else "7"
+    for mas in (tmas, jmas):
+        mas.shutdown()
+    print(f"[setup] phase={phase} size={cam.width}x{cam.height} "
           f"features={cs.FIXTURE_FEATURES} frames={len(traj)} "
+          f"depth={max(pipeline, 1) if pipeline else 0} async={async_} "
           f"seconds={time.perf_counter() - t0:.1f}", flush=True)
-    summary("reference", jmas.sys, [0], [traj], [jstates], jsystem.OK)
-    summary("port", tmas.sys, [0], [traj], [tstates], tsystem.OK)
+    for name, mas, states, ok in (("reference", jmas, jstates, jsystem.OK),
+                                  ("port", tmas, tstates, tsystem.OK)):
+        summary(name, mas.sys, [0], [traj], [states], ok)
+        if pipeline:
+            print(f"[{name}] refused="
+                  f"{mas.sys.agents[0].kf_insertions_refused} "
+                  f"gba_runs={mas.server.gba_runs}", flush=True)
 
 
 def main() -> int:
@@ -129,11 +156,19 @@ def main() -> int:
                       help="phase 6b (the loop arc) instead of 6a")
     mode.add_argument("--facade", action="store_true",
                       help="phase 7 (the facade at 1/3 of the fixture)")
+    sub = ap.add_mutually_exclusive_group()
+    sub.add_argument("--pipeline", type=int, default=0, metavar="D",
+                     help="with --facade: phase 8a, pipelined to depth D")
+    sub.add_argument("--async", dest="async_", action="store_true",
+                     help="with --facade: phase 8b, the mapping worker, "
+                     "depth-4 pipelining and the background GBA")
     ap.add_argument("--threads", type=int, default=4)
     args = ap.parse_args()
+    if (args.pipeline or args.async_) and not args.facade:
+        ap.error("--pipeline and --async go with --facade")
     torch.set_num_threads(args.threads)
     if args.facade:
-        facade()
+        facade(args.pipeline, args.async_)
         return 0
 
     if args.loop:
