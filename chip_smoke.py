@@ -103,11 +103,40 @@ raises (exit code != 0) and no result line is printed:
    rendered on the card, at least 18 of them OK.  Every phase-8 path
    must launch the describe, masked-match and pose kernels with no plain
    version called.
+9. Slice 4c through the example scripts' own code.  9a: phase 7's
+   frames written as u8 PNGs (``write_asl_sequence``) and read back by
+   ``euroc.frames`` with the native loader built for this host, each
+   equal to the frame written; then ``examples/torch_run_euroc.py``'s
+   ``build_system`` / ``run_sequences`` (ten frames drawn) / ``finish``
+   with bench.py's SlamConfig fields: phase 7's gates, ten annotated
+   frames and ``map.png``; prints fps over frames 60-239 beside phase
+   7's.  9b, the deployment the daemon exists for: a
+   ``MultiAgentSystem`` with two agents from two settings files at the
+   fixture point, fed phase 6's merge arcs (0-210 and 150-360 deg,
+   room seed 3) in 146 frames each, 1.44 deg apart as on the merge arcs
+   of examples/make_rendered_dataset.py, as u8 frames by two client
+   threads over loopback TCP (``FrameIngestServer``), each paced at
+   ``DAEMON_HZ``;
+   ``examples/torch_run_daemon.py``'s ``track_loop`` publishes every
+   tracked frame to an ``MjpegServer`` encoding on the card, its
+   ``map_view_loop`` renders the map at 1 Hz in its own thread, and
+   HTTP readers follow ``/agent0``, ``/agent1`` and ``/mapdata``.  Gates:
+   every taken frame equals by checksum the frame its client sent with
+   that stamp, a MERGE into one map, >= 90% of taken frames OK after
+   each agent's first OK, >= 10 whole JPEGs (SOI ... EOI, an SOF0 of the
+   published size) per agent view, ``/mapdata`` stats at most one
+   keyframe from the system's, all four kernels launched with no plain
+   call, the loop ending by itself after its clients.  Prints per agent
+   the frames pushed, taken and dropped, and per frame p50 / p90 / p99 /
+   max of ``track``, draw and JPEG encode, the JPEG bytes, the map
+   view's render ms and the wall time.  9c:
+   ``examples/torch_run_synthetic_demo.py`` on the card: both agents
+   OK, a MERGE in ``MapLogs.txt``, the artifact set and ``map.png``.
 
 It prints a JSON line of per-kernel results (``ms``: the median time of
 one wrapper call at the kernel's first caller shape; ``device_ms``: the
 device time per launch there; every caller shape's times and bound; the
-launches in phases 4-8 and per frame and epoch), the nvidia-smi line,
+launches in phases 4-9 and per frame and epoch), the nvidia-smi line,
 and as its last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -198,6 +227,24 @@ READBACK_CHECKS = 60
 # phase 8b-bare feeds the 20 Hz stamps alone
 ASYNC_DRAIN = 5
 RESUME_FRAMES, RESUME_MIN_OK = 20, 18
+# phase 9b: two agents at the fixture point fed over loopback TCP, each
+# client paced at DAEMON_HZ, on phase 6's merge arcs (0-210 and 150-360
+# deg, room seed 3) at the 1.44 deg a frame of the merge arcs of
+# examples/make_rendered_dataset.py:56-59 (0-190 / 170-360 deg in
+# int(240 x 0.55) = 132 frames).  Those arcs overlap only in agent 0's
+# last 15 frames, so on the card whether their MERGE came depended on
+# which frames the freshest-frame contract dropped (PERF.md §6);
+# a 60-deg overlap starts at agent 0's frame 104 of 146 (the CPU
+# rehearsal of both packages, tools/chip_rehearsal_9b.log).  Each client
+# sends at 2 Hz: at 4 Hz a client (8 frames/s in all) one of four runs on
+# the card dropped 44% of the frames, too few keyframes of agent 0 fell
+# in the overlap and no MERGE came; at 2 Hz few frames were dropped and
+# every run merged (tools/daemon_pacing.py,
+# PERF.md §6)
+DAEMON_SCENE_SEED = SERVER_SCENE_SEED
+DAEMON_FRAMES = 146
+DAEMON_ARCS = MERGE_ARCS
+DAEMON_HZ = 2.0
 
 # H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): f32 on the
 # CUDA cores (every SIMT op of a kernel is counted at this rate), int8 on
@@ -1247,6 +1294,350 @@ def resume(mas8b, fix_cam, yaml_path: str, dev, scene, path: str):
     return states, dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the EuRoC twin, the live daemon with two agents and the
+# synthetic demo twin, through the example scripts' own code
+# ---------------------------------------------------------------------------
+
+def example(name: str):
+    """The module ``examples/<name>.py`` of this checkout."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def kernels_ran(launches: dict, plain: dict, names) -> bool:
+    return all(launches.get(k, 0) > 0 for k in names) and not any(
+        plain.values())
+
+
+def pct(xs) -> dict:
+    """p50 / p90 / p99 / max of ``xs`` (ms)."""
+    a = np.asarray(xs, np.float64)
+    if not len(a):
+        return {}
+    return dict(p50=float(np.percentile(a, 50)), p90=float(np.percentile(a, 90)),
+                p99=float(np.percentile(a, 99)), max=float(a.max()))
+
+
+def run_euroc_twin(dev, scene, fix_cam, traj, frames, out: str) -> dict:
+    """Phase 9a: ``frames`` (u8 [H, W] numpy, the orbit ``traj`` of
+    ``scene``) written as an ASL sequence with ``write_asl_sequence``,
+    decoded back through ``euroc.frames`` (the native loader built for
+    this host), each equal to the frame written; then the EuRoC twin's
+    own code (``examples/torch_run_euroc.py``) at the fixture point:
+    ``build_system`` with bench.py's SlamConfig fields, ``run_sequences``
+    drawing every 24th frame (10 frames), ``finish`` (shutdown's
+    artifacts, ``map.png``, ATE.txt).  The counters are zeroed just before
+    ``run_sequences`` and read after ``finish``."""
+    from mam3slam_tpu_torch import _build
+    from mam3slam_tpu_torch.io import euroc, render
+
+    twin = example("torch_run_euroc")
+    seq = os.path.join(out, "seq")
+    render.write_asl_sequence(seq, scene, traj, fix_cam)
+    decoded = list(euroc.frames(seq))
+    if len(decoded) != len(frames) or any(
+            not np.array_equal(img, f) for (_, img), f in zip(decoded,
+                                                              frames)):
+        raise AssertionError("euroc twin: a decoded frame differs from the "
+                             "frame written")
+    mas, agents = twin.build_system([seq], out, dev, FIXTURE_FEATURES, 8,
+                                    FACADE_SLAM)
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    rows = twin.run_sequences(mas, agents, [seq], out,
+                              frames_png=len(frames) // 10)[agents[0]]
+    ate_lines = twin.finish(mas, agents, [seq], out)
+    sync(dev)
+    run_s = time.perf_counter() - t0
+    launches, plain = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
+    states = [r[1] for r in rows]
+    _, _, t_warm, _ = rows[FACADE_WARM]
+    _, _, t_last, ms_last = rows[-1]
+    res = dict(states=states, frame_ms=[r[3] for r in rows],
+               wall=t_last + ms_last / 1e3 - t_warm, n_events=[0] * len(rows),
+               launches=launches)
+    r = facade_results(mas, res, traj)
+    pngs = sorted(os.listdir(os.path.join(out, f"frames_{agents[0]}")))
+    return dict(r=r, res=dict(res, plain=plain), decoded=len(decoded),
+                loader=_build.host_library("loader")._name,
+                frames_png=len(pngs), ate_lines=ate_lines, run_s=run_s,
+                map_png=os.path.getsize(os.path.join(out, "map.png")))
+
+
+def check_euroc_twin(e: dict, out: str) -> None:
+    """Phase 9a's gates: phase 7's, ten annotated frames and map.png."""
+    check_facade(e["r"], e["res"], out)
+    if e["frames_png"] != 10 or e["map_png"] < 10000:
+        raise AssertionError(f"euroc twin: {e['frames_png']} frames drawn, "
+                             f"map.png of {e['map_png']} bytes")
+
+
+def recording_buffer():
+    """A ``LatestFrameBuffer`` that keeps (ts, crc32) of every frame the
+    tracking loop takes from it, in ``taken``."""
+    from mam3slam_tpu_torch.io.stream import LatestFrameBuffer
+
+    buf = LatestFrameBuffer()
+    buf.taken = []
+    take = buf.take
+
+    def recording_take(*args, **kw):
+        item = take(*args, **kw)
+        if item is not None:
+            buf.taken.append((item[0], zlib_crc(item[1])))
+        return item
+
+    buf.take = recording_take
+    return buf
+
+
+def zlib_crc(img: np.ndarray) -> int:
+    import zlib
+
+    return zlib.crc32(np.ascontiguousarray(img).tobytes())
+
+
+def multipart_jpegs(data: bytes) -> list:
+    """The JPEG parts of an ``MjpegServer`` stream's bytes (the parts cut
+    off at the end left out)."""
+    parts, pos = [], 0
+    key = b"Content-Length: "
+    while True:
+        i = data.find(key, pos)
+        if i < 0:
+            break
+        j = data.index(b"\r\n", i)
+        n = int(data[i + len(key):j])
+        start = j + 4
+        if start + n > len(data):
+            break
+        parts.append(data[start:start + n])
+        pos = start + n
+    return parts
+
+
+def jpeg_size(jpg: bytes):
+    """(height, width) of a baseline JPEG's SOF0, or None when the bytes
+    are not one whole SOI ... EOI JPEG with an SOF0."""
+    if jpg[:2] != b"\xff\xd8" or jpg[-2:] != b"\xff\xd9":
+        return None
+    i = jpg.find(b"\xff\xc0")
+    if i < 0:
+        return None
+    return tuple(int.from_bytes(jpg[i + k:i + k + 2], "big") for k in (5, 7))
+
+
+def http_reader(port: int, path: str, stop, out: list) -> None:
+    """Append every byte of ``GET path`` to ``out`` until ``stop``."""
+    import socket
+
+    with socket.create_connection(("127.0.0.1", port), timeout=5) as sock:
+        sock.sendall(f"GET {path} HTTP/1.0\r\n\r\n".encode())
+        sock.settimeout(0.2)
+        while not stop.is_set():
+            try:
+                chunk = sock.recv(1 << 20)
+            except TimeoutError:
+                continue
+            if not chunk:
+                return
+            out.append(chunk)
+
+
+def http_get(port: int, path: str) -> bytes:
+    import socket
+
+    data = b""
+    with socket.create_connection(("127.0.0.1", port), timeout=5) as sock:
+        sock.sendall(f"GET {path} HTTP/1.0\r\n\r\n".encode())
+        while True:
+            chunk = sock.recv(1 << 20)
+            if not chunk:
+                return data
+            data += chunk
+
+
+def camera_client(port: int, aid: int, frames, hz: float) -> None:
+    """One camera process's part: send ``frames`` (u8) as agent ``aid``
+    over its own TCP connection at 20 Hz stamps, paced at ``hz``."""
+    import socket
+
+    from mam3slam_tpu_torch.io.daemon import send_frame
+
+    with socket.create_connection(("127.0.0.1", port), timeout=10) as sock:
+        t0 = time.perf_counter()
+        for i, img in enumerate(frames):
+            time.sleep(max(0.0, t0 + i / hz - time.perf_counter()))
+            send_frame(sock, aid, i * DT, img)
+
+
+def run_daemon(dev, fix_cam, arcs, out: str, hz: float = DAEMON_HZ) -> dict:
+    """Phase 9b: the daemon's deployment with two agents.  Both arcs are
+    rendered from the room of ``DAEMON_SCENE_SEED`` as u8 frames; a
+    ``MultiAgentSystem`` gets one agent per settings file; a
+    ``FrameIngestServer`` on loopback takes two client threads' frames
+    (each paced at ``hz``) into recording mailboxes; an ``MjpegServer``
+    encodes on ``dev`` with ``map_view_loop`` at 1 Hz in its own thread
+    and three HTTP readers on ``/agent0``, ``/agent1`` and ``/mapdata``;
+    and ``examples/torch_run_daemon.track_loop`` tracks until it has
+    been idle 5 s after the clients closed.  The counters are zeroed just
+    before the clients start and read after the loop."""
+    import threading
+
+    from mam3slam_tpu_torch import _build, api
+    from mam3slam_tpu_torch.io import render
+    from mam3slam_tpu_torch.io.daemon import FrameIngestServer, MjpegServer
+    from mam3slam_tpu_torch.slam.server import ServerConfig
+
+    twin = example("torch_run_daemon")
+    scene = render.RoomScene(seed=DAEMON_SCENE_SEED, device=dev)
+    frames = [[scene.render(R, t, fix_cam).to(torch.uint8).cpu().numpy()
+               for R, t, _ in arc] for arc in arcs]
+    sent = [{i * DT: zlib_crc(f) for i, f in enumerate(fr)} for fr in frames]
+    mas = api.MultiAgentSystem(slam_config=facade_config(fix_cam),
+                               server_config=ServerConfig(), device=dev)
+    for k in range(len(arcs)):
+        path = os.path.join(out, f"agent{k}.yaml")
+        with open(path, "w") as f:
+            f.write(facade_yaml(fix_cam))
+        mas.add_agent(path)
+    buffers = {k: recording_buffer() for k in range(len(arcs))}
+    ingest = FrameIngestServer(buffers)
+    live = MjpegServer(device=dev)
+    stop, map_stop = threading.Event(), threading.Event()
+    map_stats = {}
+    streams = {p: [] for p in ("/agent0", "/agent1")}
+    threads = [threading.Thread(target=twin.map_view_loop,
+                                args=(mas, live, map_stop),
+                                kwargs=dict(stats=map_stats), daemon=True)]
+    threads += [threading.Thread(target=http_reader,
+                                 args=(live.port, p, stop, buf), daemon=True)
+                for p, buf in streams.items()]
+    clients = [threading.Thread(target=camera_client,
+                                args=(ingest.port, k, frames[k], hz),
+                                daemon=True) for k in range(len(arcs))]
+    try:
+        for th in threads:
+            th.start()
+        _build.reset_counts()
+        t0 = time.perf_counter()
+        for th in clients:
+            th.start()
+        stats = twin.track_loop(mas, buffers, live, idle_exit_s=5.0)
+        wall = time.perf_counter() - t0
+        sync(dev)
+        launches, plain = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
+        clients_alive = [th.is_alive() for th in clients]
+        # one more map view of the final state, then /mapdata
+        n_views = len(map_stats.get("render_ms", []))
+        t_wait = time.perf_counter()
+        while (len(map_stats.get("render_ms", [])) < n_views + 2
+               and "error" not in map_stats):
+            if time.perf_counter() - t_wait > 30:
+                raise AssertionError("daemon: the map view stopped")
+            time.sleep(0.05)
+        mapdata = http_get(live.port, "/mapdata").split(b"\r\n\r\n", 1)[1]
+    finally:
+        stop.set()
+        map_stop.set()
+        for th in threads + clients:
+            th.join(timeout=30)
+        ingest.close()
+        live.close()
+    if "error" in map_stats:
+        raise map_stats["error"]
+    ms = mas.sys.ms
+    res = dict(stats=stats, wall=wall, launches=launches, plain=plain,
+               clients_alive=clients_alive, sent=sent,
+               buffers={k: dict(pushed=b.n_pushed, taken=b.n_taken,
+                                dropped=b.n_dropped, taken_crc=b.taken)
+                        for k, b in buffers.items()},
+               jpegs={p: multipart_jpegs(b"".join(buf))
+                      for p, buf in streams.items()},
+               jpeg_hw=(fix_cam.height + 22, fix_cam.width),
+               mapdata=json.loads(mapdata), map_render_ms=map_stats["render_ms"],
+               events=list(mas.server.events),
+               system_events=list(mas.sys.events),
+               maps=[a.map_id for a in mas.sys.agents],
+               keyframes=int(ms.kf_valid.sum()),
+               map_points=int(ms.mp_valid.sum()))
+    mas.shutdown(out_dir=os.path.join(out, "output"))
+    return res
+
+
+def check_daemon(d: dict) -> None:
+    """Phase 9b's gates."""
+    for k, b in d["buffers"].items():
+        if not b["taken_crc"] or any(
+                d["sent"][k].get(ts) != crc for ts, crc in b["taken_crc"]):
+            raise AssertionError(f"daemon: agent {k} took a frame its "
+                                 f"client did not send with that stamp")
+        states = d["stats"][k]["states"]
+        first = states.index(2) if 2 in states else len(states)
+        ok = np.mean([s == 2 for s in states[first:]]) if states[first:] \
+            else 0.0
+        if ok < FACADE_MIN_OK_FRAC:
+            raise AssertionError(f"daemon: agent {k}: {ok:.3f} of taken "
+                                 f"frames OK after its first OK")
+    if not any(e.startswith("MERGE") for e in d["events"]) or len(
+            set(d["maps"])) != 1:
+        raise AssertionError(f"daemon: no merge into one map: {d['events']} "
+                             f"maps {d['maps']}")
+    for path, parts in d["jpegs"].items():
+        if len(parts) < 10 or any(jpeg_size(p) != d["jpeg_hw"]
+                                  for p in parts):
+            raise AssertionError(f"daemon: {path}: {len(parts)} JPEG parts, "
+                                 f"not all whole at {d['jpeg_hw']}")
+    st = d["mapdata"]["stats"]
+    if (abs(st["kfs"] - d["keyframes"]) > 1 or st["agents"] != 2 or (
+            st["kfs"] == d["keyframes"] and st["mps"] != d["map_points"])):
+        raise AssertionError(f"daemon: /mapdata stats {st} against "
+                             f"{d['keyframes']} KF / {d['map_points']} MP")
+    if not kernels_ran(d["launches"], d["plain"], KERNELS):
+        raise AssertionError("the daemon path did not run every kernel")
+    if any(d["clients_alive"]):
+        raise AssertionError("daemon: the loop ended before its clients")
+
+
+def run_demo_twin(dev, out: str) -> dict:
+    """Phase 9c: ``examples/torch_run_synthetic_demo.run`` on the card."""
+    from mam3slam_tpu_torch import _build
+
+    _build.reset_counts()
+    sys_ = example("torch_run_synthetic_demo").run(out, 50, dev)
+    sync(dev)
+    with open(os.path.join(out, "MapLogs.txt")) as f:
+        maplog = f.read()
+    return dict(states=[a.state for a in sys_.agents],
+                maps=[a.map_id for a in sys_.agents],
+                events=list(sys_.server.events),
+                maplog_merge="Merge of map" in maplog,
+                keyframes=int(sys_.ms.kf_valid.sum()),
+                map_points=int(sys_.ms.mp_valid.sum()),
+                files=sorted(os.listdir(out)),
+                launches=dict(_build.LAUNCHES), plain=dict(_build.PLAIN_CALLS))
+
+
+def check_demo_twin(c: dict) -> None:
+    """Phase 9c's gates: surface 1 of the verify recipe."""
+    need = {"map.png", "Trajectory_0.txt", "Trajectory_1.txt", "KF_traj.txt",
+            "MapLogs.txt"}
+    if (c["states"] != [2, 2] or not c["maplog_merge"]
+            or not need <= set(c["files"])):
+        raise AssertionError(f"demo twin: states {c['states']}, events "
+                             f"{c['events']}, files {c['files']}")
+    if not kernels_ran(c["launches"], c["plain"],
+                       ("masked_match", "pose_opt")):
+        raise AssertionError("the demo twin did not run its kernels")
+
+
 def sync(dev) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -1526,18 +1917,87 @@ def main() -> int:
                 or any(plain8c.values())):
             raise AssertionError("the resumed path did not run its kernels")
         del mas8b
+
+        # 9. slice 4c through the example scripts' own code.  9a: the
+        # EuRoC twin on phase 7's frames written as PNGs and read back
+        t9 = time.perf_counter()
+        out9a = os.path.join(tmp, "euroc")
+        e9 = run_euroc_twin(dev, scene, fix_cam, fix_traj,
+                            [f.to(torch.uint8).cpu().numpy() for f in frames],
+                            out9a)
+        r9 = e9["r"]
+        log("euroc_twin", decoded_equal=e9["decoded"], loader=e9["loader"],
+            frames_drawn=e9["frames_png"], map_png_bytes=e9["map_png"],
+            ate_txt=e9["ate_lines"],
+            **{k: v for k, v in r9.items()
+               if not k.startswith(("fps", "frame_ms", "lc_", "launches"))})
+        log("counters", path="euroc_twin", launches=e9["res"]["launches"],
+            plain_calls=e9["res"]["plain"], per_frame=r9["launches_per_frame"])
+        log("euroc_twin_time", card=repr(smi), fps_frames_60_239=r9["fps"],
+            phase7_fps_frames_60_239=facade["fps"],
+            **{k: r9[k] for k in ("frame_ms_p50", "frame_ms_p90",
+                                  "frame_ms_p99", "frame_ms_max")},
+            run_seconds=e9["run_s"])
+        check_euroc_twin(e9, out9a)
+
+        # 9b: the live daemon, two agents over loopback TCP
+        daemon_arcs = [render.orbit_trajectory(DAEMON_FRAMES, a0, a1,
+                                               radius=2.5, bob=b)
+                       for a0, a1, b in DAEMON_ARCS]
+        out9b = os.path.join(tmp, "daemon")
+        os.makedirs(out9b)
+        d9 = run_daemon(dev, fix_cam, daemon_arcs, out9b)
+        for k, b in d9["buffers"].items():
+            st = d9["stats"][k]
+            stamps = [round(ts / DT) for ts, _ in b["taken_crc"]]
+            log("daemon_agent", agent=k, pace_hz=DAEMON_HZ,
+                pushed=b["pushed"], taken=b["taken"], dropped=b["dropped"],
+                largest_gap_frames=int(np.diff(stamps).max(initial=0)),
+                tracked=st["tracked"], ok=st["states"].count(2),
+                map=d9["maps"][k], jpeg_parts=len(d9["jpegs"][f"/agent{k}"]),
+                jpeg_bytes_mean=float(np.mean(st["jpeg_bytes"])))
+        log("daemon", events=d9["events"], system_events=d9["system_events"],
+            keyframes=d9["keyframes"], map_points=d9["map_points"],
+            mapdata_stats=d9["mapdata"]["stats"])
+        log("daemon_time", card=repr(smi), pace_hz=DAEMON_HZ,
+            frames_per_s=sum(b["taken"] for b in d9["buffers"].values())
+            / d9["wall"], wall_s=d9["wall"],
+            **{f"{key}_{k}": v for key in ("track_ms", "draw_ms", "encode_ms")
+               for k, v in pct([x for st in d9["stats"].values()
+                                for x in st[key]]).items()},
+            draw_plus_encode_ms_p50=float(np.median(
+                [a + b for st in d9["stats"].values()
+                 for a, b in zip(st["draw_ms"], st["encode_ms"])])),
+            map_views=len(d9["map_render_ms"]),
+            **{f"map_render_ms_{k}": v
+               for k, v in pct(d9["map_render_ms"]).items()})
+        log("counters", path="daemon", launches=d9["launches"],
+            plain_calls=d9["plain"])
+        check_daemon(d9)
+
+        # 9c: the synthetic demo twin on the card
+        c9 = run_demo_twin(dev, os.path.join(tmp, "demo"))
+        log("demo_twin", states=c9["states"], maps=c9["maps"],
+            events=c9["events"], keyframes=c9["keyframes"],
+            map_points=c9["map_points"], files=c9["files"],
+            launches=c9["launches"], plain_calls=c9["plain"],
+            phase9_seconds=time.perf_counter() - t9)
+        check_demo_twin(c9)
     del frames
     phase8_launches = collections.Counter()
     for counts in (res8a["launches"], res8b["launches"],
                    res_bare["launches"], launches8c):
         phase8_launches.update(counts)
+    phase9_launches = collections.Counter()
+    for counts in (e9["res"]["launches"], d9["launches"], c9["launches"]):
+        phase9_launches.update(counts)
 
     rows = {k: [r for r in timed if r["kernel"] == k] for k in KERNELS}
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": (launches[k] + slam_launches.get(k, 0)
                       + server_launches[k] + fres["launches"].get(k, 0)
-                      + phase8_launches[k]),
+                      + phase8_launches[k] + phase9_launches[k]),
          "max_abs_err": max(r["max_abs_err"] for r in rows[k]),
          "ms": rows[k][0]["wrapper_ms"], "device_ms": rows[k][0]["device_ms"],
          "plain_ms": rows[k][0]["plain_ms"],
@@ -1549,6 +2009,8 @@ def main() -> int:
          "launches_per_epoch": slam_per["per_epoch"].get(k, 0),
          "launches_per_facade_frame": facade["launches_per_frame"].get(k, 0),
          "launches_phase8": phase8_launches[k],
+         "launches_phase9": phase9_launches[k],
+         "launches_daemon": d9["launches"].get(k, 0),
          "callers": [{c: r[c] for c in (
              "caller", "device_ms", "timer", "wrapper_ms", "plain_ms",
              "bound_us", "bound_by", "share", "max_abs_err")}

@@ -36,6 +36,12 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "mam3slam_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# the repository's host-side C++ (native/*.cc), built for the host that
+# runs it: no -march=native, so a library never meets a CPU it was not
+# built on
+NATIVE_DIR = os.path.join(os.path.dirname(_PKG_DIR), "native")
+HOST_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
+HOST_LIBS = ("-lz", "-lpthread")
 
 LAUNCHES: collections.Counter = collections.Counter()
 PLAIN_CALLS: collections.Counter = collections.Counter()
@@ -54,7 +60,9 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()
+_host_lock = threading.Lock()
 _lib = None
+_host_libs = {}
 build_seconds = None  # wall time of this process's nvcc runs (None: cached)
 build_log = ""        # their ptxas reports
 
@@ -182,3 +190,23 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+
+
+def host_library(name: str) -> ctypes.CDLL:
+    """``native/<name>.cc`` built with this host's g++ into ``BUILD_DIR``
+    on first use (named by a hash of the source and flags) and loaded;
+    raises when the build or the load fails."""
+    with _host_lock:
+        if name not in _host_libs:
+            src = os.path.join(NATIVE_DIR, f"{name}.cc")
+            h = hashlib.sha256(" ".join(HOST_FLAGS + HOST_LIBS).encode())
+            with open(src, "rb") as f:
+                h.update(f.read())
+            out = os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
+            if not os.path.exists(out):
+                os.makedirs(BUILD_DIR, exist_ok=True)
+                tmp = f"{out}.{os.getpid()}.so"
+                _run_all([["g++", *HOST_FLAGS, src, *HOST_LIBS, "-o", tmp]])
+                os.replace(tmp, out)
+            _host_libs[name] = ctypes.CDLL(out)
+        return _host_libs[name]

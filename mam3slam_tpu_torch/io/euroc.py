@@ -3,9 +3,9 @@
 Port of ``mam3slam_tpu.io.euroc`` (host code): iterates
 ``mav0/cam0/data.csv`` timestamps + PNGs and ground truth from
 ``state_groundtruth_estimate0`` for ATE evaluation.  Frames decode
-through the repository's native loader (``native/libloader.so``, ctypes:
-zlib PNG decode on a prefetch thread); the cv2 backend is imported only
-when asked for, or when the native library is missing.
+through the repository's native loader (``images.native_loader``:
+``native/loader.cc`` built for the host on first use and called through
+ctypes, zlib PNG decode on a prefetch thread), or cv2 when asked for.
 """
 
 from __future__ import annotations
@@ -15,6 +15,8 @@ import os
 from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
+
+from mam3slam_tpu_torch.io import images
 
 
 def load_image_index(seq_dir: str, cam: str = "cam0") -> List[Tuple[float, str]]:
@@ -50,51 +52,14 @@ def load_groundtruth(seq_dir: str) -> np.ndarray:
     return np.array(rows)
 
 
-_LOADER_LIB = None
-
-
-def _load_native():
-    """ctypes handle to the repository's native/libloader.so (PNG decode
-    + prefetch ring), or None when it does not load."""
-    global _LOADER_LIB
-    if _LOADER_LIB is not None:
-        return _LOADER_LIB or None
-    import ctypes
-
-    path = os.path.join(os.path.dirname(__file__), "..", "..", "native",
-                        "libloader.so")
-    try:
-        lib = ctypes.CDLL(os.path.abspath(path))
-        lib.loader_open.restype = ctypes.c_void_p
-        lib.loader_open.argtypes = [ctypes.POINTER(ctypes.c_char_p),
-                                    ctypes.c_int64, ctypes.c_int64]
-        lib.loader_next.restype = ctypes.c_int
-        lib.loader_next.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                    ctypes.c_int64,
-                                    ctypes.POINTER(ctypes.c_int),
-                                    ctypes.POINTER(ctypes.c_int)]
-        lib.loader_close.argtypes = [ctypes.c_void_p]
-        lib.decode_png_gray.restype = ctypes.c_int
-        lib.decode_png_gray.argtypes = [ctypes.c_char_p, ctypes.c_void_p,
-                                        ctypes.c_int64,
-                                        ctypes.POINTER(ctypes.c_int),
-                                        ctypes.POINTER(ctypes.c_int)]
-        _LOADER_LIB = lib
-    except OSError:
-        _LOADER_LIB = False
-        return None
-    return _LOADER_LIB
-
-
 def frames(seq_dir: str, cam: str = "cam0",
-           max_frames: Optional[int] = None, backend: str = "auto",
+           max_frames: Optional[int] = None, backend: str = "native",
            max_hw: Tuple[int, int] = (1536, 2048)
            ) -> Iterator[Tuple[float, np.ndarray]]:
     """Yield (timestamp_s, grayscale f32 [H, W]) frames.
 
-    ``backend`` "auto" prefers the native C++ loader (zlib PNG decode on a
-    prefetch thread, native/loader.cc), falling back to cv2; "native" or
-    "cv2" insist on one.
+    ``backend`` "native": the native loader (``images.native_loader``;
+    a failed build raises); "cv2": ``cv2.imread``.
     """
     import ctypes
 
@@ -102,8 +67,8 @@ def frames(seq_dir: str, cam: str = "cam0",
     if max_frames:
         index = index[:max_frames]
 
-    lib = _load_native() if backend in ("auto", "native") else None
-    if lib is not None:
+    if backend == "native":
+        lib = images.native_loader()
         paths = (ctypes.c_char_p * len(index))(
             *[p.encode() for _, p in index])
         handle = lib.loader_open(paths, len(index), 8)
@@ -124,9 +89,8 @@ def frames(seq_dir: str, cam: str = "cam0",
         finally:
             lib.loader_close(handle)
         return
-    if backend == "native":
-        raise RuntimeError("native loader unavailable (run native/build.sh)")
-
+    if backend != "cv2":
+        raise ValueError(f"unknown backend {backend!r}")
     import cv2
 
     for ts, path in index:

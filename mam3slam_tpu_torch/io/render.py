@@ -14,14 +14,14 @@ from __future__ import annotations
 
 import hashlib
 import os
-import struct
 import zipfile
-import zlib
 from dataclasses import dataclass
 from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from mam3slam_tpu_torch.io import images
 
 _REPO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..")
 
@@ -263,24 +263,6 @@ def _rot_to_quat_wxyz(Rm: np.ndarray) -> np.ndarray:
     return np.array([q[3], q[0], q[1], q[2]])
 
 
-def write_png_gray(path: str, img: np.ndarray) -> None:
-    """An 8-bit grayscale PNG of ``img`` [H, W] u8 (no filtering, zlib
-    level 6)."""
-    img = np.ascontiguousarray(img, np.uint8)
-    h, w = img.shape
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), img], axis=1)
-
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + tag + data
-                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n"
-                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
-                + chunk(b"IEND", b""))
-
-
 def write_asl_sequence(seq_dir: str, scene: RoomScene, traj: Sequence,
                        cam: RenderCam, t0: float = 0.0) -> None:
     """Render ``traj`` ((R, t, C) per frame) and write a EuRoC ASL
@@ -318,7 +300,7 @@ def write_asl_sequence(seq_dir: str, scene: RoomScene, traj: Sequence,
         ts_ns = int(round((t0 + i * dt) * 1e9))
         name = f"{ts_ns}.png"
         img = scene.render(R, t, cam).cpu().numpy().astype(np.uint8)
-        write_png_gray(os.path.join(img_dir, name), img)
+        images.write_png(os.path.join(img_dir, name), img)
         q = _rot_to_quat_wxyz(np.asarray(R).T)
         rows_cam.append(f"{ts_ns},{name}")
         rows_gt.append(f"{ts_ns},{C[0]:.6f},{C[1]:.6f},{C[2]:.6f},"

@@ -591,6 +591,10 @@ class AgentState:
     dev_chain: Optional[tuple] = None
     init_frame: Optional[steps.FrameObs] = None
     init_ts: float = 0.0
+    # the viewer's inputs, left on the device: the last completed frame
+    # and its features' map points (set where the tracked pose is)
+    last_frame: Optional[steps.FrameObs] = None
+    last_feat_mp: Optional[torch.Tensor] = None
     ref_kf: int = -1
     ref_kf_tracked: int = 0
     frames_since_kf: int = 0
@@ -757,14 +761,15 @@ class SlamSystem:
             self.drain_agent(a)
             a.last_rel = None
             self._monocular_initialization(a, frame, ts)
-            self._post_frame(a, ts, t0)
+            self._post_frame(a, frame, ts, t0)
         else:
             self._track_frame(a, frame, ts, t0)
             if not self.pipeline:
-                self._post_frame(a, ts, t0)
+                self._post_frame(a, frame, ts, t0)
         return a.state, (a.q, a.t) if a.q is not None else None
 
-    def _post_frame(self, a: AgentState, ts, t0):
+    def _post_frame(self, a: AgentState, frame, ts, t0):
+        a.last_frame = frame
         a.times_ms.append((time.perf_counter() - t0) * 1e3)
         if a.q is not None:
             self._record_trajectory(a, ts)
@@ -774,7 +779,7 @@ class SlamSystem:
         pend = a.pending_q.pop(0)
         a.last_rel = None
         self._finish_frame(a, pend)
-        self._post_frame(a, pend["ts"], pend["t0"])
+        self._post_frame(a, pend["frame"], pend["ts"], pend["t0"])
 
     def drain_agent(self, a: AgentState):
         while a.pending_q:
@@ -826,6 +831,7 @@ class SlamSystem:
         a.ref_kf = kf2
         a.q = self.ms.kf_q[kf2].cpu().numpy()
         a.t = self.ms.kf_t[kf2].cpu().numpy()
+        a.last_feat_mp = self.ms.kf_feat_mp[kf2]
         a.vel_q, a.vel_t = None, None
         a.next_agent_kf_id = 2
         a.frames_since_kf = 0
@@ -962,6 +968,7 @@ class SlamSystem:
         a.vel_q, a.vel_t = vel_q, vel_t
         a.q, a.t = q, t
         a.last_rel = (q_rel, t_rel, pend["ref_kf"])
+        a.last_feat_mp = feat_mp
         a.frames_since_kf += 1
         if self._need_new_keyframe(a, n_in):
             self._create_keyframe(a, frame, feat_mp, inlier, pend["ts"],
@@ -1009,7 +1016,7 @@ class SlamSystem:
             if not bool(pr.ok):
                 continue
             local_mask = self.fns["local_mp_mask"](ms, cand, 32)
-            _, _, q, t, _, n_in, _ = self.fns["match_and_pose"](
+            feat_mp, _, q, t, _, n_in, _ = self.fns["match_and_pose"](
                 ms, frame, pr.q, pr.t, a.cam.params, local_mask, 4.0,
                 M.TH_HIGH, 0.9)
             if int(n_in) < 30:
@@ -1019,6 +1026,7 @@ class SlamSystem:
             a.vel_q = a.vel_t = None
             a.dev_chain = None
             a.ref_kf = cand
+            a.last_feat_mp = feat_mp
             a.frames_lost = 0
             a.map_id = new_map            # cross-map re-entry when it differs
             self.events.append(f"RELOC agent={a.agent_id} kf={cand} map "
@@ -1180,10 +1188,12 @@ class SlamSystem:
         a.trajectory.append((ts, ref, np.asarray(q_rel), np.asarray(t_rel),
                              a.state))
 
-    def resolve_ref(self, ref, q_rel, t_rel):
-        """Walk culled ancestors until a live reference KF; returns (ref,
-        (q, t) relative to it)."""
-        kf_valid = self.ms.kf_valid.cpu().numpy()
+    def resolve_ref(self, ref, q_rel, t_rel, kf_valid=None):
+        """Walk culled ancestors until a live reference KF (of
+        ``kf_valid``, default the live map's); returns (ref, (q, t)
+        relative to it)."""
+        if kf_valid is None:
+            kf_valid = self.ms.kf_valid.cpu().numpy()
         seen = 0
         while ref >= 0 and not kf_valid[ref] and seen < 64:
             ent = self.culled_kf.get(ref)
@@ -1195,14 +1205,18 @@ class SlamSystem:
             seen += 1
         return ref, (q_rel, t_rel)
 
-    def trajectory_world(self, agent_id: int):
+    def trajectory_world(self, agent_id: int, ms=None):
         """Camera-to-world trajectory (TUM convention, Twc): rows (ts, q,
-        t, state)."""
-        kf_q = self.ms.kf_q.cpu().numpy()
-        kf_t = self.ms.kf_t.cpu().numpy()
+        t, state), against ``ms`` (default the live map state; a reader
+        in another thread passes the one snapshot it holds)."""
+        ms = self.ms if ms is None else ms
+        kf_q = ms.kf_q.cpu().numpy()
+        kf_t = ms.kf_t.cpu().numpy()
+        kf_valid = ms.kf_valid.cpu().numpy()
         out = []
-        for ts, ref, q_rel, t_rel, state in self.agents[agent_id].trajectory:
-            ref2, (q_r, t_r) = self.resolve_ref(ref, q_rel, t_rel)
+        for ts, ref, q_rel, t_rel, state in list(
+                self.agents[agent_id].trajectory):
+            ref2, (q_r, t_r) = self.resolve_ref(ref, q_rel, t_rel, kf_valid)
             q_cw, t_cw = _se3_compose_np(q_r, t_r, kf_q[ref2], kf_t[ref2])
             q_wc, t_wc = _se3_inverse_np(q_cw, t_cw)
             out.append((ts, q_wc, t_wc, state))

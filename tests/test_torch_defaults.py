@@ -13,7 +13,7 @@ import torch
 
 from mam3slam_tpu_torch import api, convert
 from mam3slam_tpu_torch.geometry import cameras
-from mam3slam_tpu_torch.io import render, settings
+from mam3slam_tpu_torch.io import daemon, render, settings
 from mam3slam_tpu_torch.mapstate import checkpoint
 from mam3slam_tpu_torch.mapstate import state as S
 from mam3slam_tpu_torch.slam import system
@@ -31,6 +31,7 @@ ENTRY_POINTS = {
     "convert.vocabulary_from_numpy": convert.vocabulary_from_numpy,
     "MultiAgentSystem": api.MultiAgentSystem,
     "Settings.camera": settings.Settings.camera,
+    "MjpegServer": daemon.MjpegServer,
 }
 
 

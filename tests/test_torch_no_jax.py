@@ -14,6 +14,7 @@ import sys
 import threading
 
 import numpy as np
+import pytest
 import torch
 
 import mam3slam_tpu_torch
@@ -49,25 +50,52 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
     assert len(PORT_MODULES) >= 37
     for m in ("api", "io.settings", "io.stream", "io.euroc", "io.writers",
-              "utils.verbose", "slam.background_gba", "mapstate.checkpoint"):
+              "utils.verbose", "slam.background_gba", "mapstate.checkpoint",
+              "io.viewer", "io.daemon", "io.images"):
         assert f"mam3slam_tpu_torch.{m}" in PORT_MODULES
+
+
+EXAMPLES = ("torch_run_synthetic_demo", "torch_run_euroc",
+            "torch_run_daemon", "torch_make_rendered_dataset")
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_examples_import_no_jax_or_image_library(name):
+    """Each example twin, imported in a fresh interpreter (its ``main``
+    not run), loads no JAX, nothing of the reference package and no image
+    or YAML library; neither does the port's viewer and daemon."""
+    code = ("import importlib.util, sys\n"
+            f"path = {os.path.join(REPO, 'examples', name + '.py')!r}\n"
+            "spec = importlib.util.spec_from_file_location('ex', path)\n"
+            "mod = importlib.util.module_from_spec(spec)\n"
+            "spec.loader.exec_module(mod)\n"
+            "import mam3slam_tpu_torch.io.viewer, mam3slam_tpu_torch.io.daemon\n"
+            "assert hasattr(mod, 'main')\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', "
+            "'jaxlib', 'mam3slam_tpu', 'cv2', 'matplotlib', 'PIL', 'yaml')]\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
 
 
 def test_port_imports_no_cv2_or_yaml():
     """Importing every port module and chip_smoke.py in a fresh
-    interpreter loads neither cv2 nor yaml (they are imported only inside
-    the functions that need them, off the card's path)."""
+    interpreter loads neither cv2 nor yaml, nor matplotlib or PIL (cv2 is
+    imported only inside the functions that ask for it, off the card's
+    path)."""
     code = ("import sys, importlib\n"
             f"for m in {PORT_MODULES!r} + ['chip_smoke']:\n"
             "    importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('cv2', 'yaml')]\n"
+            "('cv2', 'yaml', 'matplotlib', 'PIL')]\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    pat = re.compile(r"^(import (cv2|yaml)|from (cv2|yaml)[ .])", re.M)
+    pat = re.compile(r"^(import (cv2|yaml|matplotlib|PIL)|"
+                     r"from (cv2|yaml|matplotlib|PIL)[ .])", re.M)
     for path in [os.path.join(REPO, "chip_smoke.py"), *_port_sources()]:
         with open(path) as f:
             assert not pat.search(f.read()), path

@@ -15,6 +15,7 @@ import pytest
 from mam3slam_tpu.io import euroc as jeuroc
 from mam3slam_tpu.io import render as J
 from mam3slam_tpu_torch.io import euroc as teuroc
+from mam3slam_tpu_torch.io import images
 from mam3slam_tpu_torch.io import render as P
 
 
@@ -145,8 +146,8 @@ def test_render_sequence_cached_round_trip_and_keys(tmp_path):
 
 
 def test_png_writer_is_standard(tmp_path):
-    """write_png_gray's files decode byte-exactly with cv2."""
+    """The port's gray PNG files decode byte-exactly with cv2."""
     img = np.random.default_rng(5).integers(0, 256, (37, 53), dtype=np.uint8)
-    P.write_png_gray(str(tmp_path / "a.png"), img)
+    images.write_png(str(tmp_path / "a.png"), img)
     np.testing.assert_array_equal(
         cv2.imread(str(tmp_path / "a.png"), cv2.IMREAD_UNCHANGED), img)

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""CPU rehearsal of chip_smoke.py phases 6, 7 and 8 against the reference.
+"""CPU rehearsal of chip_smoke.py phases 6-8 and 9b against the reference.
 
     python3 tools/chip_rehearsal.py [--loop | --facade [--pipeline D |
-                                     --async]] [--threads N]
+                                     --async] | --daemon] [--threads N]
 
 Phase 6 (default 6a, the two-agent merge arcs; ``--loop``: 6b, the
 one-agent loop arc): renders the phase's frames at half size (376x240,
@@ -25,6 +25,13 @@ drains every 5 frames); the worker's timing makes the run differ
 between repeats.  Both phase-8 modes flush and shut the
 facades down before the summary and also print the refused keyframe
 insertions and the background GBAs.
+
+Phase 9b (``--daemon``): the daemon's system at 1/3 of the fixture
+camera, both packages' ``MultiAgentSystem`` with two agents (each from
+its own settings file) fed phase 9b's arcs (``chip_smoke.DAEMON_ARCS``
+in ``DAEMON_FRAMES`` frames, room seed 3) as u8 frames, interleaved and
+none dropped: whether and where the reference merges on these arcs (its
+output: ``tools/chip_rehearsal_9b.log``).
 
 Prints, per package, the server and system events, the keyframe and map
 point counts and per agent the share of frames OK after init and the ATE
@@ -149,6 +156,53 @@ def facade(pipeline: int = 0, async_: bool = False) -> None:
                   f"gba_runs={mas.server.gba_runs}", flush=True)
 
 
+def daemon() -> None:
+    """Phase 9b's system and frames at 1/3 of the fixture camera: both
+    packages' facades with two agents, each added from its own settings
+    file, fed phase 9b's arcs (``chip_smoke.DAEMON_ARCS``, room seed 3)
+    interleaved, one frame of each agent per round and none dropped."""
+    cam = render.reference_kb8_cam(1 / 3)
+    arcs = [render.orbit_trajectory(cs.DAEMON_FRAMES, a0, a1, radius=2.5,
+                                    bob=b) for a0, a1, b in cs.DAEMON_ARCS]
+    scene = render.RoomScene(seed=cs.DAEMON_SCENE_SEED, device="cpu")
+    tcfg = cs.facade_config(cam)
+    jcfg = jsystem.SlamConfig(**{f.name: getattr(tcfg, f.name)
+                                 for f in dataclasses.fields(tcfg)})
+    tmas = tapi.MultiAgentSystem(slam_config=tcfg, device="cpu",
+                                 server_config=tserver.ServerConfig())
+    jmas = japi.MultiAgentSystem(slam_config=jcfg,
+                                 server_config=jserver.ServerConfig())
+    with tempfile.TemporaryDirectory() as tmp:
+        for k in range(len(arcs)):
+            path = os.path.join(tmp, f"agent{k}.yaml")
+            with open(path, "w") as f:
+                f.write(cs.facade_yaml(cam))
+            tmas.add_agent(path)
+            jmas.add_agent(path)
+    tstates, jstates = [[] for _ in arcs], [[] for _ in arcs]
+    t0 = time.perf_counter()
+    for i in range(cs.DAEMON_FRAMES):
+        for k, arc in enumerate(arcs):
+            R, t, _ = arc[i]
+            # the daemon's clients send u8 frames
+            img = scene.render(R, t, cam).to(torch.uint8)
+            tstates[k].append(tmas.track_monocular(k, img, i * cs.DT)[0])
+            jstates[k].append(jmas.track_monocular(k, img.numpy(),
+                                                   i * cs.DT)[0])
+        if i % 25 == 0:
+            print(f"[progress] frame={i} s={time.perf_counter() - t0:.1f}",
+                  flush=True)
+    for mas in (tmas, jmas):
+        mas.shutdown()
+    print(f"[setup] phase=9b size={cam.width}x{cam.height} "
+          f"features={cs.FIXTURE_FEATURES} frames={cs.DAEMON_FRAMES}x2 "
+          f"arcs={cs.DAEMON_ARCS} seconds={time.perf_counter() - t0:.1f}",
+          flush=True)
+    for name, mas, states, ok in (("reference", jmas, jstates, jsystem.OK),
+                                  ("port", tmas, tstates, tsystem.OK)):
+        summary(name, mas.sys, [0, 1], arcs, states, ok)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     mode = ap.add_mutually_exclusive_group()
@@ -156,6 +210,9 @@ def main() -> int:
                       help="phase 6b (the loop arc) instead of 6a")
     mode.add_argument("--facade", action="store_true",
                       help="phase 7 (the facade at 1/3 of the fixture)")
+    mode.add_argument("--daemon", action="store_true",
+                      help="phase 9b (two agents on the merge arcs at 1/3 "
+                      "of the fixture)")
     sub = ap.add_mutually_exclusive_group()
     sub.add_argument("--pipeline", type=int, default=0, metavar="D",
                      help="with --facade: phase 8a, pipelined to depth D")
@@ -169,6 +226,9 @@ def main() -> int:
     torch.set_num_threads(args.threads)
     if args.facade:
         facade(args.pipeline, args.async_)
+        return 0
+    if args.daemon:
+        daemon()
         return 0
 
     if args.loop:
