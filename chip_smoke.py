@@ -132,11 +132,31 @@ raises (exit code != 0) and no result line is printed:
    view's render ms and the wall time.  9c:
    ``examples/torch_run_synthetic_demo.py`` on the card: both agents
    OK, a MERGE in ``MapLogs.txt``, the artifact set and ``map.png``.
+10. The mono-inertial path at the EuRoC point, ``SlamSystem.track(...,
+   imu=)`` with a 200 Hz IMU synthesised from the orbit's closed form
+   (``OrbitMotion``: body = camera, gravity along the room's vertical
+   axis, white noise at the default calibration's densities, constant
+   biases).  10a: one agent on phase 6b's room and loop arc with a
+   ``LoopServer``: an IMU_INIT no later than the first loop, every LOOP
+   closed by the 4DoF PGO (``pgo=4dof``), the scale against the Umeyama
+   scale of the trajectory to the truth and the gravity against the
+   room's within their bounds, >= 95% OK and the ATE bound; describe,
+   masked match, pose and best-two launched with no plain call.  Prints
+   per-frame ``track`` ms with IMU and with the constant-velocity model
+   beside phase 6b's, the port's launches per frame of each kind, every
+   CUDA kernel and copy of single frames of each kind and of the
+   preintegration + prediction alone (``torch.profiler``), the IMU_INIT
+   frame's ms and the 4DoF ``LC`` ms beside phase 6b's Sim3 ``LC``.
+   10b: 100 frames on the same room with a vertical shake and a 6-frame
+   yaw burst of 7 deg a frame at frame 60, once with IMU and once
+   without: tests/test_inertial_tracking.py's gates (the IMU_INIT
+   before the burst, >= 13 of the 15 frames from the burst OK,
+   ``n_fallback`` with IMU below the constant-velocity run's and <= 1).
 
 It prints a JSON line of per-kernel results (``ms``: the median time of
 one wrapper call at the kernel's first caller shape; ``device_ms``: the
 device time per launch there; every caller shape's times and bound; the
-launches in phases 4-9 and per frame and epoch), the nvidia-smi line,
+launches in phases 4-10 and per frame and epoch), the nvidia-smi line,
 and as its last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -245,6 +265,44 @@ DAEMON_SCENE_SEED = SERVER_SCENE_SEED
 DAEMON_FRAMES = 146
 DAEMON_ARCS = MERGE_ARCS
 DAEMON_HZ = 2.0
+# phase 10: the mono-inertial path at the EuRoC point.  10a: phase 6b's
+# room and loop arc with IMU; 10b: a 6-frame yaw burst of 7 deg a frame
+# (tests/test_inertial_tracking.py:25-40) on the same room at 0.8 deg a
+# frame, run with IMU and without.  The orbit alone is a degenerate
+# motion for the inertial initialisation (yaw about gravity only, 0.2
+# m/s^2 of centripetal acceleration against the visual poses' noise; on
+# an H100 its first estimate that passes the range check came at frame
+# 463 with the scale 1.4% of the truth, PERF.md §6): 10b's camera also
+# oscillates vertically by 5 cm at 1 Hz (2 m/s^2 peak, a hand-held or
+# aerial rig's excitation), so that its initialisation comes before the
+# burst.  The IMU is ORB-SLAM3's EuRoC
+# monocular-inertial rig: 200 Hz (10 samples a frame at the 20 Hz
+# stamps), body frame = camera frame, white noise at the default
+# calibration's densities (slam/system.py _default_imu_calib), constant
+# biases of tests/test_vi.py:23-25, gravity along the room's vertical y
+# axis (the axis orbit_trajectory's bob moves along)
+IMU_RATE = 200.0
+IMU_SIGMA_G, IMU_SIGMA_A = 1.7e-4, 2e-3
+IMU_BIAS_G = (0.004, -0.003, 0.002)
+IMU_BIAS_A = (0.03, -0.02, 0.04)
+GRAVITY_W = (0.0, -9.81, 0.0)
+BURST_FRAMES, BURST_AT, BURST_LEN, BURST_DEG = 100, 60, 6, 7.0
+BURST_SHAKE = (0.05, 1.0)   # m, Hz
+BURST_MIN_OK, BURST_MAX_FALLBACK = 13, 1     # of the 15 frames from BURST_AT
+INERTIAL_KERNELS = SLAM_KERNELS + ("min_hamming2",)
+INERTIAL_CENSUS = 5   # profiled frames of each kind (IMU / constant velocity)
+# phase-10 bounds: 1.5x what the reference SlamSystem (+ LoopServer in
+# 10a) reaches on phase 10's own frames and IMU at the EuRoC camera, arena
+# cut to 128 KF / 12288 MP (tools/chip_rehearsal.py --inertial, its
+# output in tools/chip_rehearsal_10.log).  On 10a's degenerate orbit the
+# reference's estimate is the collapsed one (scale 0.0351 against 2.497
+# metres per map unit, first accepted at frame 463), so its scale bound
+# holds nothing there; 10b's shaken orbit is where the scale is held
+INERTIAL_MAX_SCALE_ERR = 1.5 * 0.98594   # |imu_scale / Umeyama scale - 1|
+INERTIAL_MAX_GRAVITY_DEG = 1.5 * 0.9963  # against the true map-frame one
+INERTIAL_MAX_ATE_FRAC = 1.5 * 0.004475
+BURST_MAX_SCALE_ERR = 1.5 * 0.29778
+BURST_MAX_GRAVITY_DEG = 1.5 * 0.9275
 
 # H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): f32 on the
 # CUDA cores (every SIMT op of a kernel is counted at this rate), int8 on
@@ -823,14 +881,8 @@ def run_slam(dev, scene, cam_r, cam, orb_cfg, cfg, arcs, server_cfg=None):
 
 def ate_rmse(est: np.ndarray, gt: np.ndarray) -> float:
     """RMSE of camera centres after Sim3 (Umeyama) alignment."""
-    mx, my = est.mean(0), gt.mean(0)
-    Xc, Yc = est - mx, gt - my
-    U, D, Vt = np.linalg.svd(Yc.T @ Xc / len(est))
-    S = np.eye(3)
-    if np.linalg.det(U) * np.linalg.det(Vt) < 0:
-        S[2, 2] = -1
-    s = np.trace(np.diag(D) @ S) / (Xc ** 2).sum() * len(est)
-    aligned = (s * (U @ S @ Vt @ Xc.T)).T + my
+    s, Rm, t = umeyama(est, gt)
+    aligned = s * est @ Rm.T + t
     return float(np.sqrt(((aligned - gt) ** 2).sum(1).mean()))
 
 
@@ -1638,6 +1690,370 @@ def check_demo_twin(c: dict) -> None:
         raise AssertionError("the demo twin did not run its kernels")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the mono-inertial path
+# ---------------------------------------------------------------------------
+
+class OrbitMotion:
+    """The closed form of ``render.orbit_trajectory``'s arc at the 20 Hz
+    stamps (frame i at t = i DT), with an optional yaw ``burst`` (first
+    frame, frames, deg a frame) about the room's vertical axis, spread
+    evenly over the frame intervals as tests/test_inertial_tracking.py
+    spreads its burst over frames, and an optional vertical ``shake``
+    (amplitude m, Hz)."""
+
+    def __init__(self, n_frames: int, start_deg: float, end_deg: float,
+                 bob: float, radius: float = 2.5, burst=None, shake=None):
+        self.n, self.r, self.bob, self.burst = n_frames, radius, bob, burst
+        self.shake = shake
+        self.th0 = math.radians(start_deg)
+        self.w = math.radians(end_deg - start_deg) / ((n_frames - 1) * DT)
+
+    def _heading(self, t: float):
+        """(extra yaw, its rate) at time t."""
+        if self.burst is None:
+            return 0.0, 0.0
+        at, n, deg = self.burst
+        rate = math.radians(deg) / DT
+        u = t - (at - 1) * DT
+        return (rate * min(max(u, 0.0), n * DT),
+                rate if 0.0 <= u < n * DT else 0.0)
+
+    def state(self, t: float):
+        """(R_wb [3, 3] f64, camera centre C, world acceleration, yaw
+        rate about the body's y axis) at time t."""
+        th = self.th0 + self.w * t
+        psi, dpsi = self._heading(t)
+        p = th + psi
+        # columns: the camera's x, y, z axes in the room (render.orbit_pose)
+        R_wb = np.array([[-math.sin(p), 0.0, math.cos(p)],
+                         [0.0, -1.0, 0.0],
+                         [math.cos(p), 0.0, math.sin(p)]])
+        C = np.array([self.r * math.cos(th), self.bob * math.sin(4 * th),
+                      self.r * math.sin(th)])
+        w2 = self.w * self.w
+        a_w = np.array([-self.r * w2 * math.cos(th),
+                        -16.0 * self.bob * w2 * math.sin(4 * th),
+                        -self.r * w2 * math.sin(th)])
+        if self.shake is not None:     # a vertical oscillation
+            amp, hz = self.shake
+            k = 2 * math.pi * hz
+            C[1] += amp * math.sin(k * t)
+            a_w[1] -= amp * k * k * math.sin(k * t)
+        return R_wb, C, a_w, self.w + dpsi
+
+    def frames(self):
+        """(R, t, C) per frame, as orbit_trajectory returns them."""
+        out = []
+        for i in range(self.n):
+            R_wb, C, _, _ = self.state(i * DT)
+            R = R_wb.T.astype(np.float32)
+            out.append((R, (-R @ C.astype(np.float32)).astype(np.float32),
+                        C))
+        return out
+
+    def imu(self, seed: int):
+        """Per frame the (gyro [10, 3], acc [10, 3], dts [10]) measured
+        since the previous frame (None for frame 0): the body rates and
+        specific force at each sample's midpoint, plus the biases and
+        white noise at the calibration's densities."""
+        rng = np.random.default_rng(seed)
+        n, dt = int(round(IMU_RATE * DT)), 1.0 / IMU_RATE
+        g_w = np.asarray(GRAVITY_W)
+        out = [None]
+        for i in range(1, self.n):
+            gyro, acc = np.zeros((n, 3)), np.zeros((n, 3))
+            for k in range(n):
+                R_wb, _, a_w, rate = self.state((i - 1) * DT + (k + 0.5) * dt)
+                gyro[k] = (0.0, rate, 0.0)
+                acc[k] = R_wb.T @ (a_w - g_w)
+            gyro += (np.asarray(IMU_BIAS_G)
+                     + rng.normal(0, IMU_SIGMA_G * IMU_RATE ** 0.5, (n, 3)))
+            acc += (np.asarray(IMU_BIAS_A)
+                    + rng.normal(0, IMU_SIGMA_A * IMU_RATE ** 0.5, (n, 3)))
+            out.append((gyro.astype(np.float32), acc.astype(np.float32),
+                        np.full(n, dt, np.float32)))
+        return out
+
+
+def run_inertial(dev, scene, cam_r, cam, orb_cfg, cfg, traj, imus,
+                 server_cfg=None, census: int = 0) -> dict:
+    """One agent through ``SlamSystem.track(..., imu=)`` (a
+    ``LoopServer`` of ``server_cfg`` attached when given), ``imus[i]``
+    fed with frame i.  Per frame: the state, and the host wall of extract
+    + ``track`` (synchronised) of OK frames that ran no mapping epoch,
+    split by the frame's prediction (IMU or constant velocity), with the
+    port's kernel launches of each kind; the IMU_INIT frame, its ms and
+    the initialisation call's own ms; the server events' frame.  With
+    ``census``, that many frames of each kind (no epoch) run alone under
+    torch.profiler, which counts every CUDA kernel and copy they launch
+    (those frames are left out of the timings)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mam3slam_tpu_torch.slam import system
+    from mam3slam_tpu_torch.slam.server import LoopServer
+
+    sys_ = system.SlamSystem(cfg, cam, seed=0)
+    if server_cfg is not None:
+        sys_.server = LoopServer(sys_, server_cfg)
+    aid = sys_.add_agent()
+    a = sys_.agents[aid]
+    r = dict(sys=sys_, aid=aid, states=[], ms=dict(imu=[], cv=[]),
+             launches=dict(imu=collections.Counter(),
+                           cv=collections.Counter()),
+             census=dict(imu=[], cv=[]), init_frame=None, init_ms=None,
+             init_call_ms=None, server_frames=[])
+    buffer_and_init = sys_._imu_buffer_and_init
+
+    def timed_init(*args):
+        """The initialisation's own ms (synchronised) on its frame."""
+        before = a.imu_initialized
+        sync(dev)
+        t0 = time.perf_counter()
+        buffer_and_init(*args)
+        sync(dev)
+        if a.imu_initialized and not before:
+            r["init_call_ms"] = (time.perf_counter() - t0) * 1e3
+
+    sys_._imu_buffer_and_init = timed_init
+    for i, (R, t, _) in enumerate(traj):
+        img = scene.render(R, t, cam_r)
+        kind = ("imu" if imus[i] is not None and a.q is not None
+                and a.imu_initialized and a.imu_init_map == a.map_id
+                else "cv")
+        before, n_epochs = a.state, len(sys_.epochs)
+        n_srv = len(sys_.server.events) if sys_.server else 0
+        prof = None
+        if (census and before == system.OK and i % 3 == 0
+                and len(r["census"][kind]) < census):
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+            prof.start()
+        sync(dev)
+        n0 = launches_now()
+        t0 = time.perf_counter()
+        state, _ = sys_.track(aid, frame_of(img, orb_cfg, cam), i * DT,
+                              imu=imus[i])
+        sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        clean = (before == state == system.OK
+                 and len(sys_.epochs) == n_epochs)
+        if prof is not None:
+            prof.stop()
+            if clean:
+                r["census"][kind].append(dict(frame=i, ms=ms,
+                                              **cuda_census(prof)))
+        elif r["init_frame"] is None and a.imu_initialized:
+            r["init_frame"], r["init_ms"] = i, ms
+        elif clean:
+            r["ms"][kind].append(ms)
+            r["launches"][kind].update(launches_now() - n0)
+        r["states"].append(state)
+        if sys_.server and len(sys_.server.events) > n_srv:
+            r["server_frames"].append((i, sys_.server.events[n_srv:]))
+    return r
+
+
+def umeyama(est: np.ndarray, gt: np.ndarray):
+    """Sim3 (s, R, t) with gt ~ s R est + t (Umeyama)."""
+    mx, my = est.mean(0), gt.mean(0)
+    Xc, Yc = est - mx, gt - my
+    U, D, Vt = np.linalg.svd(Yc.T @ Xc / len(est))
+    S = np.eye(3)
+    if np.linalg.det(U) * np.linalg.det(Vt) < 0:
+        S[2, 2] = -1
+    s = np.trace(np.diag(D) @ S) / (Xc ** 2).sum() * len(est)
+    Rm = U @ S @ Vt
+    return s, Rm, my - s * Rm @ mx
+
+
+def inertial_results(r: dict, traj) -> dict:
+    """The phase-10 figures of a ``run_inertial`` run: the OK share after
+    the first OK, ATE after Sim3 and its share of the span, the IMU
+    estimate against the truth (``imu_scale`` against the Umeyama scale
+    from map units to metres; ``gravity_w`` against the room's gravity
+    carried into the map frame by the Umeyama rotation), the events and
+    n_fallback."""
+    from mam3slam_tpu_torch.slam import system
+
+    sys_, a = r["sys"], r["sys"].agents[r["aid"]]
+    states = r["states"]
+    out = dict(n_fallback=a.n_fallback, init_frame=r["init_frame"],
+               events=list(sys_.events),
+               server=[e for _, ev in r["server_frames"] for e in ev],
+               loop_frames=[i for i, ev in r["server_frames"]
+                            if any(e.startswith("LOOP") for e in ev)])
+    if system.OK not in states:
+        return out
+    first_ok = states.index(system.OK)
+    est, gt = [], []
+    for ts, _, t_wc, st in sys_.trajectory_world(r["aid"]):
+        if st == system.OK:
+            est.append(t_wc)
+            gt.append(traj[int(round(ts / DT))][2])
+    est, gt = np.asarray(est, np.float64), np.asarray(gt, np.float64)
+    s, Rm, _ = umeyama(est, gt)
+    span = float(np.ptp(gt, axis=0).max())
+    out.update(first_ok=first_ok,
+               ok_frac=float(np.mean([x == system.OK
+                                      for x in states[first_ok:]])),
+               ate_frac=ate_rmse(est, gt) / span, span=span)
+    if a.imu_initialized:
+        g_true = Rm.T @ np.asarray(GRAVITY_W)
+        g = np.asarray(a.gravity_w, np.float64)
+        cos = g @ g_true / (np.linalg.norm(g) * np.linalg.norm(g_true))
+        out.update(imu_scale=a.imu_scale, true_scale=s,
+                   scale_err=abs(a.imu_scale / s - 1),
+                   gravity_deg=math.degrees(math.acos(min(max(cos, -1), 1))))
+    return out
+
+
+def check_inertial(r10: dict, res: dict, burst: dict) -> None:
+    """The phase-10 gates: 10a an IMU_INIT before the loop, the scale,
+    gravity, OK-share and ATE bounds, a ``LOOP ... pgo=4dof``, the
+    describe, masked-match, pose and best-two kernels launched with no
+    plain call; 10b tests/test_inertial_tracking.py:91-105's gates and
+    the scale and gravity bounds."""
+    from mam3slam_tpu_torch.slam import system
+
+    if r10["init_frame"] is None:
+        raise AssertionError("10a: no IMU_INIT")
+    loops = [e for e in r10["server"] if e.startswith("LOOP")]
+    if not loops or not all(e.endswith(" pgo=4dof") for e in loops):
+        raise AssertionError(f"10a: loops {loops}, not all 4DoF")
+    # (in the loop's own frame the initialisation runs before the
+    # keyframe's server epoch, which the 4DoF PGO above shows)
+    if r10["init_frame"] > r10["loop_frames"][0]:
+        raise AssertionError("10a: IMU_INIT after the loop")
+    if r10["scale_err"] > INERTIAL_MAX_SCALE_ERR:
+        raise AssertionError(f"10a: scale error {r10['scale_err']:.4f}")
+    if r10["gravity_deg"] > INERTIAL_MAX_GRAVITY_DEG:
+        raise AssertionError(f"10a: gravity {r10['gravity_deg']:.3f} deg "
+                             "from the truth")
+    if r10["ok_frac"] < SERVER_MIN_OK_FRAC:
+        raise AssertionError(f"10a: {r10['ok_frac']:.3f} of frames OK")
+    if r10["ate_frac"] >= INERTIAL_MAX_ATE_FRAC:
+        raise AssertionError(f"10a: ATE {r10['ate_frac']:.5f} of the span")
+    if (not kernels_ran(res["launches"], res["plain"], INERTIAL_KERNELS)):
+        raise AssertionError("10a: the inertial path did not run its "
+                             "kernels")
+    imu, cv = burst["imu"], burst["cv"]
+    if imu["init_frame"] is None or imu["init_frame"] >= BURST_AT:
+        raise AssertionError("10b: no IMU_INIT before the burst")
+    ok = imu["states"][BURST_AT:BURST_AT + 15].count(system.OK)
+    if ok < BURST_MIN_OK:
+        raise AssertionError(f"10b: {ok} of 15 burst frames OK")
+    if not (imu["n_fallback"] < cv["n_fallback"]
+            and imu["n_fallback"] <= BURST_MAX_FALLBACK):
+        raise AssertionError(f"10b: fallbacks {imu['n_fallback']} with IMU, "
+                             f"{cv['n_fallback']} without")
+    if (imu["scale_err"] > BURST_MAX_SCALE_ERR
+            or imu["gravity_deg"] > BURST_MAX_GRAVITY_DEG):
+        raise AssertionError(f"10b: scale error {imu['scale_err']:.4f}, "
+                             f"gravity {imu['gravity_deg']:.3f} deg")
+
+
+def run_phase10(dev, scene, cam_r, cam, orb_cfg, cfg, loop_arc, loop6b,
+                smi: str):
+    """Phase 10 (the gates are ``check_inertial``'s): 10a, one agent
+    with IMU on phase 6b's frames through ``SlamSystem`` + ``LoopServer``
+    with their defaults; 10b, the burst frames with IMU and without (no
+    server).  Prints the figures and the timings beside phase 6b's."""
+    from mam3slam_tpu_torch import _build
+    from mam3slam_tpu_torch.slam import system
+    from mam3slam_tpu_torch.slam.server import ServerConfig
+
+    imus = OrbitMotion(LOOP_FRAMES, *LOOP_ARC[:2], bob=LOOP_ARC[2]).imu(10)
+    _build.reset_counts()
+    r10 = run_inertial(dev, scene, cam_r, cam, orb_cfg, cfg, loop_arc, imus,
+                       ServerConfig(), census=INERTIAL_CENSUS)
+    sync(dev)
+    res10 = dict(launches=dict(_build.LAUNCHES),
+                 plain=dict(_build.PLAIN_CALLS))
+    r10["per_frame"] = {k: per(r10["launches"][k], len(r10["ms"][k]))
+                        for k in ("imu", "cv")}
+    i10 = inertial_results(r10, loop_arc)
+    sys_ = r10["sys"]
+    log("inertial", frames=len(loop_arc), **{
+        k: v for k, v in i10.items() if k not in ("events", "server")})
+    log("server_events", path="inertial", events=i10["server"],
+        system=i10["events"], gba_runs=sys_.server.gba_runs)
+    log("counters", path="inertial", launches=res10["launches"],
+        plain_calls=res10["plain"], per_imu_frame=r10["per_frame"]["imu"],
+        per_cv_frame=r10["per_frame"]["cv"])
+    # every CUDA kernel and copy of single frames (torch.profiler), and
+    # of the preintegration + prediction alone
+    from torch.profiler import ProfilerActivity, profile
+
+    a = sys_.agents[r10["aid"]]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sys_._imu_predict(a, imus[-1])
+        sync(dev)
+    predict = cuda_census(prof)
+    predict_ms = median_ms(lambda: sys_._imu_predict(a, imus[-1]))
+
+    def mean_of(rows, key):
+        return float(np.mean([c[key] for c in rows])) if rows else None
+
+    log("inertial_census", card=repr(smi), **{
+        f"{kind}_{key}": mean_of(r10["census"][kind], key)
+        for kind in ("imu", "cv") for key in ("kernels", "copies",
+                                              "busy_us")},
+        imu_frames=[c["frame"] for c in r10["census"]["imu"]],
+        cv_frames=[c["frame"] for c in r10["census"]["cv"]],
+        predict_kernels=predict["kernels"], predict_copies=predict["copies"],
+        predict_busy_us=predict["busy_us"], predict_ms=predict_ms)
+    lc = sys_.server.timers.series.get("LC", [])
+    log("inertial_time", card=repr(smi),
+        **{f"track_ms_{kind}_{k}": v for kind in ("imu", "cv")
+           for k, v in pct(r10["ms"][kind]).items()},
+        **{f"phase6b_track_ms_{k}": v
+           for k, v in pct(loop6b["track_ms"]).items()},
+        imu_frames=len(r10["ms"]["imu"]), cv_frames=len(r10["ms"]["cv"]),
+        init_frame=r10["init_frame"], init_frame_ms=r10["init_ms"],
+        init_call_ms=r10["init_call_ms"],
+        lc_4dof_ms=[round(v, 3) for v in lc],
+        phase6b_lc_sim3_ms=[round(v, 3) for v in loop6b["lc_ms"]])
+    del sys_, a, r10["sys"]
+
+    motion = OrbitMotion(BURST_FRAMES, 0.0, 0.8 * (BURST_FRAMES - 1),
+                         bob=LOOP_ARC[2], burst=(BURST_AT, BURST_LEN,
+                                                 BURST_DEG),
+                         shake=BURST_SHAKE)
+    btraj, bimus = motion.frames(), motion.imu(11)
+    _build.reset_counts()
+    burst = {}
+    for kind, feed in (("imu", bimus), ("cv", [None] * len(bimus))):
+        rb = run_inertial(dev, scene, cam_r, cam, orb_cfg, cfg, btraj, feed)
+        burst[kind] = dict(states=rb["states"], init_frame=rb["init_frame"],
+                           n_fallback=rb["sys"].agents[0].n_fallback,
+                           ms=pct(rb["ms"]["imu"] + rb["ms"]["cv"]),
+                           init_frame_ms=rb["init_ms"],
+                           init_call_ms=rb["init_call_ms"],
+                           **{k: v for k, v in inertial_results(
+                               rb, btraj).items() if k in (
+                                   "ok_frac", "ate_frac", "scale_err",
+                                   "gravity_deg")})
+        del rb
+    sync(dev)
+    res10b = dict(launches=dict(_build.LAUNCHES),
+                  plain=dict(_build.PLAIN_CALLS))
+    log("burst", at=BURST_AT, frames=len(btraj), **{
+        f"{kind}_{k}": v for kind, b in burst.items() for k, v in (
+            ("init_frame", b["init_frame"]), ("n_fallback", b["n_fallback"]),
+            ("ok_in_burst", b["states"][BURST_AT:BURST_AT + 15].count(
+                system.OK)),
+            ("track_ms", b["ms"]), ("init_frame_ms", b["init_frame_ms"]),
+            ("init_call_ms", b["init_call_ms"]),
+            ("ok_frac", b.get("ok_frac")),
+            ("ate_frac", b.get("ate_frac")),
+            ("scale_err", b.get("scale_err")),
+            ("gravity_deg", b.get("gravity_deg")))},
+        launches=res10b["launches"], plain_calls=res10b["plain"])
+    return r10, res10, i10, burst, res10b
+
+
 def sync(dev) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -1802,6 +2218,9 @@ def main() -> int:
     check_slam(sys6, agents6, [loop_arc], LOOP_MAX_ATE_FRAC,
                SERVER_MIN_OK_FRAC)
     server_times(sys6, smi, "loop")
+    # phase 10 prints its times beside these
+    loop6b = dict(track_ms=list(agents6[0]["track_ms"]),
+                  lc_ms=list(sys6.server.timers.series.get("LC", [])))
     server_launches = {k: merge_launches.get(k, 0) + loop_launches.get(k, 0)
                        for k in KERNELS}
     if (any(n == 0 for n in server_launches.values()) or any(
@@ -1984,6 +2403,19 @@ def main() -> int:
             phase9_seconds=time.perf_counter() - t9)
         check_demo_twin(c9)
     del frames
+
+    # 10. the mono-inertial path: 10a phase 6b's loop with IMU, 10b the
+    # yaw burst with and without
+    t10 = time.perf_counter()
+    r10, res10, i10, burst, res10b = run_phase10(
+        dev, scene6, cam_r, cam, orb_cfg, cfg, loop_arc, loop6b, smi)
+    log("inertial_done", phase10_seconds=time.perf_counter() - t10)
+    check_inertial(i10, res10, burst)
+    if not kernels_ran(res10b["launches"], res10b["plain"], SLAM_KERNELS):
+        raise AssertionError("10b: the burst runs did not run their kernels")
+    phase10_launches = collections.Counter(res10["launches"])
+    phase10_launches.update(res10b["launches"])
+
     phase8_launches = collections.Counter()
     for counts in (res8a["launches"], res8b["launches"],
                    res_bare["launches"], launches8c):
@@ -1997,7 +2429,8 @@ def main() -> int:
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": (launches[k] + slam_launches.get(k, 0)
                       + server_launches[k] + fres["launches"].get(k, 0)
-                      + phase8_launches[k] + phase9_launches[k]),
+                      + phase8_launches[k] + phase9_launches[k]
+                      + phase10_launches[k]),
          "max_abs_err": max(r["max_abs_err"] for r in rows[k]),
          "ms": rows[k][0]["wrapper_ms"], "device_ms": rows[k][0]["device_ms"],
          "plain_ms": rows[k][0]["plain_ms"],
@@ -2011,6 +2444,9 @@ def main() -> int:
          "launches_phase8": phase8_launches[k],
          "launches_phase9": phase9_launches[k],
          "launches_daemon": d9["launches"].get(k, 0),
+         "launches_phase10": phase10_launches[k],
+         "launches_per_imu_frame": r10["per_frame"]["imu"].get(k, 0),
+         "launches_per_cv_frame": r10["per_frame"]["cv"].get(k, 0),
          "callers": [{c: r[c] for c in (
              "caller", "device_ms", "timer", "wrapper_ms", "plain_ms",
              "bound_us", "bound_by", "share", "max_abs_err")}

@@ -5,7 +5,10 @@ Every function takes numpy-convertible leaves (numpy arrays, or anything
 (the card unless the caller names another);
 ``to_numpy`` maps a tensor tree back to numpy arrays.  The loop server's
 keyframe database (``kf_bow_words``, ``kf_bow_vals``) is numpy in both
-packages and carries over as it is.
+packages and carries over as it is.  The inertial state converts the
+same way: ``ImuCalib``, ``Preintegrated`` (batched or not) and
+``InertialEdges`` by field, and an agent's IMU fields, which both
+packages keep on the host, by value.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from mam3slam_tpu_torch.geometry import cameras as cam_mod
 from mam3slam_tpu_torch.mapstate import state as S
 from mam3slam_tpu_torch.ops import bow
 from mam3slam_tpu_torch.slam import steps
+from mam3slam_tpu_torch.solvers import imu, vi
 
 CUDA = torch.device("cuda")
 
@@ -55,6 +59,49 @@ def vocabulary_from_numpy(voc, device=CUDA) -> bow.Vocabulary:
         idf=tensor(voc.idf, device), k=int(voc.k), depth=int(voc.depth),
         leaf_map=None if voc.leaf_map is None
         else tensor(voc.leaf_map, device))
+
+
+def imu_calib_from_numpy(calib, device=CUDA) -> imu.ImuCalib:
+    """Any object with the ImuCalib fields -> ImuCalib of f32 scalars."""
+    return imu.ImuCalib(*(tensor(np.asarray(getattr(calib, f), np.float32),
+                                 device) for f in imu.ImuCalib._fields))
+
+
+def preintegrated_from_numpy(p, device=CUDA) -> imu.Preintegrated:
+    """Any object with the Preintegrated fields (any leading axes)."""
+    return from_numpy(imu.Preintegrated, p, device)
+
+
+def inertial_edges_from_numpy(edges, device=CUDA) -> vi.InertialEdges:
+    """Any object with ``i, j, preint, valid`` -> InertialEdges."""
+    return vi.InertialEdges(
+        i=tensor(edges.i, device), j=tensor(edges.j, device),
+        preint=preintegrated_from_numpy(edges.preint, device),
+        valid=tensor(edges.valid, device))
+
+
+# an agent's IMU state (AgentState fields of either package)
+AGENT_IMU_FIELDS = ("vel_w", "bias_g", "bias_a", "imu_initialized",
+                    "imu_init_map", "imu_scale", "gravity_w", "last_ts",
+                    "n_fallback")
+
+
+def agent_imu_from_numpy(src, dst, device=CUDA):
+    """Set the port's agent ``dst``'s IMU fields from ``src`` (an
+    AgentState of either package): host vectors as f32 numpy, the
+    calibration as the port's on ``device``, the buffered (ts, q, t,
+    gyro, acc, dts) entries as numpy."""
+    def host(x):
+        return None if x is None else np.array(x, np.float32)
+
+    for f in AGENT_IMU_FIELDS:
+        v = getattr(src, f)
+        setattr(dst, f, host(v) if f in ("vel_w", "bias_g", "bias_a",
+                                          "gravity_w") else v)
+    dst.imu_calib = (None if src.imu_calib is None
+                     else imu_calib_from_numpy(src.imu_calib, device))
+    dst.imu_buf = [(e[0],) + tuple(host(x) for x in e[1:])
+                   for e in src.imu_buf]
 
 
 def to_numpy(tree):

@@ -13,8 +13,9 @@ asynchronous mapping.  With ``ServerConfig.async_gba`` the conditional
 global BA runs in the background (``slam/background_gba.py``) and is
 applied at a later keyframe or at ``flush_gba``; a new loop or merge
 aborts it.  The RANSAC draws come from the server's own seeded
-``torch.Generator``.  Loop closure takes the Sim3 PGO: the 4DoF
-PGO of inertial maps comes with the inertial slice.
+``torch.Generator``.  A loop in a map that an agent's inertial
+initialisation belongs to takes the 4DoF PGO (yaw about gravity and
+translation, scale held at 1); any other loop takes the Sim3 PGO.
 """
 
 from __future__ import annotations
@@ -468,10 +469,10 @@ class LoopServer:
     # ------------------------------------------------------------------
     def correct_loop(self, agent_id: int, kf: int, h: Hypothesis):
         """CorrectLoop: Sim3-correct the current KF's covisible window,
-        essential-graph PGO over the map, move the points with their
-        reference KFs, record the loop edge, fuse duplicates around the
-        loop, and run the global BA while the map is small and alone in
-        the atlas."""
+        essential-graph PGO over the map (4DoF in an inertial map), move
+        the points with their reference KFs, record the loop edge, fuse
+        duplicates around the loop, and run the global BA while the map
+        is small and alone in the atlas."""
         t0 = time.perf_counter()
         sysm = self.sys
         ms = sysm.ms
@@ -496,8 +497,22 @@ class LoopServer:
         edges = self._essential_edges(ms, kf, h.target_kf, S_corr, in_map)
         fixed = ~in_map_t
         fixed[h.target_kf] = True
-        q_n, t_n, s_n = pgo_mod.optimize_essential_graph(
-            q0, t0_, s0, fixed, edges, iters=12)
+        # an inertial map (an agent's VI initialisation belongs to it):
+        # gravity observes roll and pitch and the map is metric, so only
+        # yaw about the map's up axis and translation move (the
+        # reference's OptimizeEssentialGraph4DoF)
+        inertial = next((a for a in sysm.agents if a.imu_initialized
+                         and a.imu_init_map == kf_map), None)
+        if inertial is not None:
+            g = inertial.gravity_w
+            q_n, t_n = pgo_mod.optimize_essential_graph_4dof(
+                q0, t0_, fixed, edges, iters=12,
+                gravity_axis=None if g is None
+                else -np.asarray(g) / np.linalg.norm(g))
+            s_n = torch.ones(K, device=self.device)
+        else:
+            q_n, t_n, s_n = pgo_mod.optimize_essential_graph(
+                q0, t0_, s0, fixed, edges, iters=12)
         new_pos = pgo_mod.correct_points_by_ref(
             ms.mp_pos, ms.mp_ref_kf, ms.mp_valid & (ms.mp_map == kf_map),
             ms.kf_q, ms.kf_t, torch.ones(K, device=self.device), q_n, t_n,
@@ -521,7 +536,8 @@ class LoopServer:
                 and int(sysm.ms.map_valid.sum()) == 1):
             self._run_gba(kf_map)
         self.events.append(f"LOOP agent={agent_id} kf={kf} "
-                           f"target={h.target_kf} map={kf_map}")
+                           f"target={h.target_kf} map={kf_map}"
+                           + (" pgo=4dof" if inertial is not None else ""))
         self.timers.add("LC", (time.perf_counter() - t0) * 1e3)
 
     def _essential_edges(self, ms, kf, target_kf, S_corr, in_map):

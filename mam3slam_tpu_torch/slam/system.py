@@ -8,7 +8,12 @@ device-resident chain state and the packed culling decision included),
 and ``SlamSystem``'s state machine: monocular initialisation, tracking,
 relocalization, keyframe decisions, one local-mapping epoch per keyframe
 and then the optional ``LoopServer``'s epoch, for several agents in one
-shared arena.  PyTorch runs the programs eagerly; the host reads one
+shared arena.  With IMU measurements (``track(..., imu=)``) an agent
+buffers its tracked poses with their IMU windows, initialises gravity,
+scale, biases and velocities over ``imu_init_window_s`` of contiguous
+tracking (``solvers/vi.py``), and from then on predicts each frame's pose
+by preintegration (``solvers/imu.py``) in place of the constant-velocity
+model.  PyTorch runs the programs eagerly; the host reads one
 packed vector per tracked frame and one packed array per mapping epoch,
 as the reference does.  The widened tracking retry is a host branch on
 the coarse stage's inlier count.
@@ -46,8 +51,10 @@ from mam3slam_tpu_torch.ops import bow
 from mam3slam_tpu_torch.ops import matching as M
 from mam3slam_tpu_torch.slam import steps
 from mam3slam_tpu_torch.solvers import ba_window as bw
+from mam3slam_tpu_torch.solvers import imu as imu_mod
 from mam3slam_tpu_torch.solvers import pnp
 from mam3slam_tpu_torch.solvers import twoview
+from mam3slam_tpu_torch.solvers import vi as vi_mod
 from mam3slam_tpu_torch.utils.timing import Timers
 
 NO_IMAGES_YET = 0
@@ -87,8 +94,8 @@ class MapCapacityError(RuntimeError):
 @dataclass(frozen=True)
 class SlamConfig:
     """Names and defaults of the reference's SlamConfig.  The motion
-    search fields, the IMU window and the CG iteration count are read by
-    paths not ported yet."""
+    search fields and the CG iteration count are read by paths not ported
+    yet."""
 
     width: int
     height: int
@@ -573,8 +580,7 @@ def programs(cfg: SlamConfig, kind: int) -> dict:
 
 @dataclass
 class AgentState:
-    """Per-agent tracking state (the reference's AgentState without its
-    IMU fields)."""
+    """Per-agent tracking state (the reference's AgentState)."""
 
     agent_id: int
     cam: cam_mod.Camera
@@ -584,6 +590,24 @@ class AgentState:
     t: Optional[np.ndarray] = None
     vel_q: Optional[np.ndarray] = None    # constant-velocity model
     vel_t: Optional[np.ndarray] = None
+    # mono-inertial state, body frame == camera frame: world velocity
+    # (map units / s) and the gyro / acc biases
+    imu_calib: Optional[imu_mod.ImuCalib] = None
+    vel_w: Optional[np.ndarray] = None
+    bias_g: Optional[np.ndarray] = None
+    bias_a: Optional[np.ndarray] = None
+    # the monocular map is neither metric nor gravity-aligned: the IMU
+    # prediction waits for a gravity / scale / bias estimate over a
+    # buffered window, and holds only in the map it was made in
+    imu_initialized: bool = False
+    imu_init_map: int = -1
+    imu_scale: float = 1.0                 # metres per map unit
+    gravity_w: Optional[np.ndarray] = None  # metric gravity, map frame
+    imu_buf: List = field(default_factory=list)  # (ts, q, t, gyro, acc, dts)
+    last_ts: Optional[float] = None
+    # frames the coarse stage lost and the widened search rescued (the
+    # prediction's quality; the IMU should keep it near zero)
+    n_fallback: int = 0
     # ref-KF-relative pose of the current frame from the tracking step
     last_rel: Optional[tuple] = None
     # device-resident (q, t, vel_q, vel_t, has_vel) for the next frame's
@@ -747,10 +771,14 @@ class SlamSystem:
         return torch.as_tensor(np.asarray(x, np.float32), device=self.device)
 
     # ------------------------------------------------------------------
-    def track(self, agent_id: int, frame: steps.FrameObs, ts: float):
+    def track(self, agent_id: int, frame: steps.FrameObs, ts: float,
+              imu=None):
         """Process one frame of one agent (reference Tracking::Track);
         returns (state, (q, t) of T_cw or None), lagged by the deferred
-        frames when pipelined."""
+        frames when pipelined.  ``imu``: optional (gyro [N, 3], acc [N, 3],
+        dts [N]) measured since the previous frame, numpy or tensors;
+        after the inertial initialisation they predict the pose in place
+        of the constant-velocity model."""
         t0 = time.perf_counter()
         self._raise_worker_error()
         a = self.agents[agent_id]
@@ -763,7 +791,7 @@ class SlamSystem:
             self._monocular_initialization(a, frame, ts)
             self._post_frame(a, frame, ts, t0)
         else:
-            self._track_frame(a, frame, ts, t0)
+            self._track_frame(a, frame, ts, t0, imu)
             if not self.pipeline:
                 self._post_frame(a, frame, ts, t0)
         return a.state, (a.q, a.t) if a.q is not None else None
@@ -773,6 +801,7 @@ class SlamSystem:
         a.times_ms.append((time.perf_counter() - t0) * 1e3)
         if a.q is not None:
             self._record_trajectory(a, ts)
+        a.last_ts = ts
 
     def _complete_pending(self, a: AgentState):
         """Run the state machine of the agent's oldest deferred frame."""
@@ -789,6 +818,115 @@ class SlamSystem:
         """Complete every agent's deferred frames."""
         for a in self.agents:
             self.drain_agent(a)
+
+    # ------------------------------------------------------------------
+    def _default_imu_calib(self) -> imu_mod.ImuCalib:
+        """EuRoC's IMU noise (ORB-SLAM3's EuRoC monocular-inertial
+        settings)."""
+        return imu_mod.ImuCalib(*(torch.tensor(x, device=self.device)
+                                  for x in (1.7e-4, 2e-3, 1.9e-5, 3e-3)))
+
+    def _imu_tensor(self, x) -> torch.Tensor:
+        if isinstance(x, torch.Tensor):
+            return x.to(self.device, torch.float32)
+        return self._tensor(x)
+
+    def _imu_predict(self, a: AgentState, imu):
+        """Reference Tracking::PredictStateIMU, after the inertial
+        initialisation: the last pose and world velocity propagated
+        through the frame's preintegrated window in metric units
+        (``imu_scale``) under the estimated map-frame gravity, then mapped
+        back to map units.  Returns the predicted (q_cw, t_cw) on the
+        device."""
+        gyro, acc, dts = (self._imu_tensor(x) for x in imu)
+        calib = a.imu_calib or self._default_imu_calib()
+        z3 = np.zeros(3, np.float32)
+        bg = self._tensor(z3 if a.bias_g is None else a.bias_g)
+        ba = self._tensor(z3 if a.bias_a is None else a.bias_a)
+        pre = imu_mod.preintegrate(
+            gyro, acc, dts, torch.ones(dts.shape[0], dtype=torch.bool,
+                                       device=self.device), bg, ba, calib)
+        R_wb = lie.quat_to_matrix(self._tensor(a.q)).T   # body == camera
+        C = -R_wb @ self._tensor(a.t)
+        s = a.imu_scale
+        v_w = self._tensor(z3 if a.vel_w is None else a.vel_w)
+        g_w = self._tensor([0.0, 0.0, -imu_mod.GRAVITY]
+                           if a.gravity_w is None else a.gravity_w)
+        R2, _, p2 = imu_mod.predict_state(pre, R_wb, s * v_w, s * C, bg, ba,
+                                          gravity=g_w)
+        return lie.quat_from_matrix(R2.T), -R2.T @ (p2 / s)
+
+    def _imu_buffer_and_init(self, a: AgentState, ts: float, imu):
+        """Buffer the tracked pose with its IMU window and, once the
+        buffer spans ``imu_init_window_s`` of contiguous tracking, run the
+        mono-inertial initialisation (reference LocalMapping::InitializeIMU
+        -> InertialOptimization): the visual poses held fixed, gravity
+        direction, map scale, shared biases and per-state velocities
+        estimated.  A result out of range drops the oldest half of the
+        buffer."""
+        def host(x):
+            if isinstance(x, torch.Tensor):
+                return x.detach().to(torch.float32).cpu().numpy()
+            return np.asarray(x, np.float32)
+
+        a.imu_buf.append((ts, np.asarray(a.q, np.float32),
+                          np.asarray(a.t, np.float32),
+                          *(host(x) for x in imu)))
+        if len(a.imu_buf) > 64:
+            a.imu_buf = a.imu_buf[-64:]
+        if a.imu_initialized and a.imu_init_map == a.map_id:
+            return
+        buf = a.imu_buf
+        if (len(buf) < 8
+                or buf[-1][0] - buf[0][0] < self.cfg.imu_init_window_s):
+            return
+        # at most 16 nav states; the samples between two selected states
+        # are concatenated (preintegrating the merged window)
+        K = len(buf)
+        sel = np.unique(np.linspace(0, K - 1, min(K, 16)).round()
+                        .astype(int))
+        segs = [[np.concatenate([buf[i][c] for i in range(lo + 1, hi + 1)])
+                 for c in (3, 4, 5)] for lo, hi in zip(sel[:-1], sel[1:])]
+        E, Lmax = len(segs), max(g.shape[0] for g, _, _ in segs)
+        G = np.zeros((E, Lmax, 3), np.float32)
+        Ac = np.zeros((E, Lmax, 3), np.float32)
+        Dt = np.zeros((E, Lmax), np.float32)
+        Vm = np.zeros((E, Lmax), bool)
+        for m, (g, ac, dt) in enumerate(segs):
+            n = g.shape[0]
+            G[m, :n], Ac[m, :n], Dt[m, :n], Vm[m, :n] = g, ac, dt, True
+        calib = a.imu_calib or self._default_imu_calib()
+        z3 = torch.zeros(3, device=self.device)
+        pre = imu_mod.preintegrate(
+            self._tensor(G), self._tensor(Ac), self._tensor(Dt),
+            torch.as_tensor(Vm, device=self.device), z3, z3, calib)
+        Ks = len(sel)
+        idx = torch.arange(Ks, dtype=torch.int32, device=self.device)
+        iedges = vi_mod.InertialEdges(
+            i=idx[:-1], j=idx[1:], preint=pre,
+            valid=torch.ones(Ks - 1, dtype=torch.bool, device=self.device))
+        Rwg, s, bg, ba, vel = vi_mod.inertial_optimization(
+            self._tensor(np.stack([buf[i][1] for i in sel])),
+            self._tensor(np.stack([buf[i][2] for i in sel])),
+            torch.ones(Ks, dtype=torch.bool, device=self.device), iedges,
+            calib, fix_scale=False, iters=40)
+        g0 = torch.tensor([0.0, 0.0, -imu_mod.GRAVITY], device=self.device)
+        res = torch.cat([s[None], bg, ba, Rwg @ g0, vel[-1],
+                         vel.reshape(-1)]).cpu().numpy()   # one read
+        s_f = float(res[0])
+        if not (np.isfinite(s_f) and 0.02 < s_f < 50.0
+                and np.isfinite(res[1:7]).all()
+                and np.isfinite(res[13:]).all()):
+            a.imu_buf = a.imu_buf[len(a.imu_buf) // 2:]
+            return
+        a.bias_g, a.bias_a = res[1:4], res[4:7]
+        a.imu_scale = s_f
+        a.gravity_w = res[7:10]
+        a.vel_w = res[10:13] / np.float32(s_f)       # map units / s
+        a.imu_initialized = True
+        a.imu_init_map = a.map_id
+        self.events.append(f"IMU_INIT agent={a.agent_id} map={a.map_id} "
+                           f"scale={s_f:.4f}")
 
     # ------------------------------------------------------------------
     def _monocular_initialization(self, a: AgentState, frame, ts):
@@ -841,7 +979,18 @@ class SlamSystem:
                            f"mps={int(self.ms.mp_valid.sum())}")
 
     # ------------------------------------------------------------------
-    def _track_frame(self, a: AgentState, frame, ts, t0):
+    def _track_frame(self, a: AgentState, frame, ts, t0, imu=None):
+        # an IMU prediction starts from the host's current pose: the
+        # agent's deferred frames complete first
+        use_imu = (imu is not None and a.q is not None
+                   and a.last_ts is not None and a.imu_initialized
+                   and a.imu_init_map == a.map_id)
+        if use_imu:
+            self.drain_agent(a)
+            q_ext, t_ext = self._imu_predict(a, imu)
+        else:
+            q_ext = self._tensor([1, 0, 0, 0])
+            t_ext = self._tensor(np.zeros(3))
         # the epoch is read before the snapshot: a publication between the
         # two reads pairs a newer map with an older epoch, which fails the
         # insertion check conservatively, never the reverse
@@ -859,11 +1008,10 @@ class SlamSystem:
         (ms2, feat_mp, inlier, visible, vec,
          a.dev_chain) = self.fns["track_frame_step"](
             ms, frame, max(a.ref_kf, 0), vel_q, vel_t, has_vel, q_last,
-            t_last, self._tensor([1, 0, 0, 0]), self._tensor(np.zeros(3)),
-            False, a.cam.params)
+            t_last, q_ext, t_ext, use_imu, a.cam.params)
         pend = dict(ms=ms, ms2=ms2, feat_mp=feat_mp, inlier=inlier,
                     visible=visible, vec=vec, frame=frame, ts=ts, t0=t0,
-                    snap_epoch=snap_epoch, ref_kf=max(a.ref_kf, 0))
+                    imu=imu, snap_epoch=snap_epoch, ref_kf=max(a.ref_kf, 0))
         if self.pipeline:
             if vec.is_cuda:
                 # start the read now: a non-blocking copy into pinned
@@ -903,6 +1051,8 @@ class SlamSystem:
         q_rel, t_rel = vec[14:18], vec[18:21]
         n_in = int(vec[21])
         q_pred, t_pred = vec[24:28], vec[28:31]
+        if vec[22]:   # the widened retry ran
+            a.n_fallback += 1
 
         if (n_in < cfg.min_track_inliers_lost and a.ref_kf >= 0
                 and a.state == OK):
@@ -958,7 +1108,9 @@ class SlamSystem:
                 a.state = LOST
                 self._create_map_in_atlas(a)
                 return
-            # keep the predicted pose; velocity unchanged
+            # keep the predicted pose; velocity unchanged.  The pose
+            # chain broke: the IMU buffer needs contiguous tracked poses
+            a.imu_buf.clear()
             a.q, a.t = q_pred, t_pred
             a.frames_since_kf += 1
             return
@@ -966,10 +1118,19 @@ class SlamSystem:
         if a.state == RECENTLY_LOST:
             a.state = OK
         a.vel_q, a.vel_t = vel_q, vel_t
+        ts = pend["ts"]
+        if a.last_ts is not None and ts > a.last_ts:
+            # the world-velocity estimate of the IMU prediction
+            # (camera centres: the translations of the inverse poses)
+            a.vel_w = ((_se3_inverse_np(q, t)[1]
+                        - _se3_inverse_np(q_last, t_last)[1])
+                       / (ts - a.last_ts))
         a.q, a.t = q, t
         a.last_rel = (q_rel, t_rel, pend["ref_kf"])
         a.last_feat_mp = feat_mp
         a.frames_since_kf += 1
+        if pend["imu"] is not None:
+            self._imu_buffer_and_init(a, ts, pend["imu"])
         if self._need_new_keyframe(a, n_in):
             self._create_keyframe(a, frame, feat_mp, inlier, pend["ts"],
                                   snap_epoch)

@@ -1,9 +1,14 @@
-"""Motion-only pose optimisation (reference Optimizer::PoseOptimization).
+"""Motion-only pose optimisation (reference Optimizer::PoseOptimization)
+and the edge helpers of the visual-inertial solvers.
 
 Port of ``mam3slam_tpu.solvers.ba.pose_optimization``.  A problem on CUDA
 tensors runs the pose kernel of ``ops/cuda_pose.py`` for either camera
 kind (the reference sends only PINHOLE to its Pallas kernel and KB8 to
-XLA); CPU tensors take the plain version.
+XLA); CPU tensors take the plain version.  ``Obs``, ``_edge_linearize``
+and ``_segsum`` are the reference's reprojection-edge helpers that
+``solvers/vi.py`` uses (its Huber weight and 3x3 SPD inverse are
+``ba_window``'s).  ``run_ba`` and ``build_local_ba_problem`` are not
+ported.
 """
 
 from __future__ import annotations
@@ -13,9 +18,42 @@ from typing import NamedTuple
 import torch
 
 from mam3slam_tpu_torch import _build
+from mam3slam_tpu_torch.geometry import cameras as cam_mod
+from mam3slam_tpu_torch.geometry import lie
 from mam3slam_tpu_torch.ops import cuda_pose
 
 CHI2_MONO = cuda_pose.CHI2_MONO
+
+
+class Obs(NamedTuple):
+    """Observation edges, [E]-shaped tensors."""
+
+    cam: torch.Tensor    # [E] i32 camera index
+    pt: torch.Tensor     # [E] i32 point index
+    uv: torch.Tensor     # [E, 2] measured pixel
+    w: torch.Tensor      # [E] information 1 / sigma^2
+    valid: torch.Tensor  # [E] bool
+
+
+def _edge_linearize(cam_q, cam_t, cam_params, kind, pts, obs: Obs):
+    """Residuals r = pred - uv [E, 2], analytic jacobians Jc [E, 2, 6]
+    (left se3 tangent [rho, phi]) and Jp [E, 2, 3], and depth > 1e-3."""
+    ci, pi = obs.cam.long(), obs.pt.long()
+    q = cam_q[ci]
+    Xc = lie.quat_rotate(q, pts[pi]) + cam_t[ci]
+    cam = cam_mod.Camera(cam_params[ci], kind)
+    r = cam_mod.project_ideal(cam, Xc) - obs.uv
+    dpi = cam_mod.project_jac(cam, Xc)
+    Jc = torch.cat([dpi, -dpi @ lie.hat(Xc)], -1)
+    Jp = dpi @ lie.quat_to_matrix(q)
+    return r, Jc, Jp, Xc[..., 2] > 1e-3
+
+
+def _segsum(vals: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """Segment sum of per-edge values into ``n`` vertex rows."""
+    out = torch.zeros((n,) + vals.shape[1:], dtype=vals.dtype,
+                      device=vals.device)
+    return out.index_add_(0, idx.long(), vals)
 
 
 class PoseOptResult(NamedTuple):

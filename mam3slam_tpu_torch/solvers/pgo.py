@@ -7,6 +7,12 @@ edges carry relative Sim3 measurements, the residual of edge (i, j) is
 jacobians by forward mode, assembles the dense [7K, 7K] normal system with
 accumulating scatters (one keyframe pair may carry several edges) and
 solves it by Cholesky; a step is kept only when it lowers the cost.
+
+``optimize_essential_graph_4dof`` is the inertial variant
+(OptimizeEssentialGraph4DoF): for a map whose roll and pitch gravity
+observes, only the yaw about the gravity axis and the translation of each
+keyframe move, the scale held at 1, with the same LM machinery on a dense
+[4K, 4K] system.
 """
 
 from __future__ import annotations
@@ -124,6 +130,85 @@ def optimize_essential_graph(q_kw, t_kw, s_kw, fixed, edges: PGOEdges,
         s = torch.where(accept, ns, s)
         cost = torch.where(accept, new_cost, cost)
     return q, t, s
+
+
+def optimize_essential_graph_4dof(q_kw, t_kw, fixed, edges: PGOEdges,
+                                  iters: int = 20, lam0: float = 1e-4,
+                                  gravity_axis=None):
+    """Damped Gauss-Newton over yaw + translation vertices (the
+    reference's VertexPose4DoF / Edge4DoF): each step right-composes a
+    world-frame perturbation T_cw o [Rot(axis, dyaw) | dt], the full SE3
+    edge residual is evaluated (roll / pitch discrepancies cost but cannot
+    be absorbed), scale stays 1.  ``gravity_axis`` defaults to world z.
+    Returns the corrected (q, t)."""
+    K = q_kw.shape[0]
+    dev, dt = q_kw.device, q_kw.dtype
+    axis = torch.as_tensor([0.0, 0.0, 1.0] if gravity_axis is None
+                           else gravity_axis, dtype=dt, device=dev)
+    axis = axis / torch.clamp(torch.linalg.norm(axis), min=1e-9)
+    ei, ej = edges.i.long(), edges.j.long()
+    w = torch.where(edges.valid, edges.w, 0.0)
+    meas = (edges.q, edges.t, edges.s)
+    one = torch.ones(ei.shape[0], dtype=dt, device=dev)
+
+    def residual(qi, ti, qj, tj):
+        return edge_residual(qi, ti, one, qj, tj, one, *meas)
+
+    def cost_of(q, t):
+        r = residual(q[ei], t[ei], q[ej], t[ej])
+        return (w * (r * r).sum(-1)).sum()
+
+    def perturb(xi, qq, tt):
+        half = 0.5 * xi[..., :1]
+        dq = torch.cat([torch.cos(half), torch.sin(half) * axis], -1)
+        return lie.quat_mul(qq, dq), tt + lie.quat_rotate(qq, xi[..., 1:4])
+
+    eye4 = torch.eye(4, dtype=dt, device=dev)
+    diag = torch.arange(K, device=dev)
+    q, t = q_kw, t_kw
+    lam = torch.tensor(lam0, dtype=dt, device=dev)
+    cost = cost_of(q, t)
+    for _ in range(iters):
+        qi, ti, qj, tj = q[ei], t[ei], q[ej], t[ej]
+        r, J = batched_jacfwd(lambda x: residual(
+            *perturb(x[:, :4], qi, ti), *perturb(x[:, 4:], qj, tj)),
+            torch.zeros(ei.shape[0], 8, dtype=dt, device=dev))
+        Ji = J[..., :4] * (~fixed[ei])[:, None, None]
+        Jj = J[..., 4:] * (~fixed[ej])[:, None, None]
+
+        Hij = torch.einsum("eki,ekj,e->eij", Ji, Jj, w)
+        H = torch.zeros(K, K, 4, 4, dtype=dt, device=dev)
+        H.index_put_((ei, ei), torch.einsum("eki,ekj,e->eij", Ji, Ji, w),
+                     accumulate=True)
+        H.index_put_((ej, ej), torch.einsum("eki,ekj,e->eij", Jj, Jj, w),
+                     accumulate=True)
+        H.index_put_((ei, ej), Hij, accumulate=True)
+        H.index_put_((ej, ei), Hij.transpose(-1, -2), accumulate=True)
+        g = torch.zeros(K, 4, dtype=dt, device=dev)
+        g.index_add_(0, ei, torch.einsum("eki,ek,e->ei", Ji, r, w))
+        g.index_add_(0, ej, torch.einsum("eki,ek,e->ei", Jj, r, w))
+
+        Hd = H[diag, diag]
+        damp = lam * torch.clamp(torch.diagonal(Hd, dim1=-2, dim2=-1),
+                                 min=1e-6) + 1e-8
+        H[diag, diag] = (Hd + torch.where(fixed[:, None, None], eye4, 0.0)
+                         + damp[..., None] * eye4)
+        L, info = torch.linalg.cholesky_ex(
+            H.permute(0, 2, 1, 3).reshape(4 * K, 4 * K))
+        dx = torch.cholesky_solve(-g.reshape(4 * K, 1), L).reshape(K, 4)
+        dx = torch.where((info == 0) & torch.isfinite(dx).all(), dx, 0.0)
+        dx = torch.where(fixed[:, None], 0.0, dx)
+
+        nq, nt = perturb(dx, q, t)
+        nq = lie.quat_normalize(nq)
+        new_cost = cost_of(nq, nt)
+        accept = new_cost < cost
+        lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-7),
+                          torch.clamp(lam * 5.0, max=1e5))
+        q = torch.where(accept, nq, q)
+        t = torch.where(accept, nt, t)
+        cost = torch.where(accept, new_cost, cost)
+    return q, t
 
 
 def correct_points_by_ref(mp_pos, mp_ref_kf, mp_mask, q_old, t_old, s_old,

@@ -48,10 +48,11 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert len(PORT_MODULES) >= 37
+    assert len(PORT_MODULES) >= 39
     for m in ("api", "io.settings", "io.stream", "io.euroc", "io.writers",
               "utils.verbose", "slam.background_gba", "mapstate.checkpoint",
-              "io.viewer", "io.daemon", "io.images"):
+              "io.viewer", "io.daemon", "io.images", "solvers.imu",
+              "solvers.vi"):
         assert f"mam3slam_tpu_torch.{m}" in PORT_MODULES
 
 

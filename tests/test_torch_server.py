@@ -16,6 +16,7 @@ import copy
 import numpy as np
 import jax.numpy as jnp
 import pytest
+import torch
 
 from mam3slam_tpu.geometry import cameras as jcam
 from mam3slam_tpu.mapstate import state as JS
@@ -27,8 +28,8 @@ from mam3slam_tpu_torch.slam import server as tserver
 from test_slam_e2e import CX, CY, FX, FY, SyntheticWorld
 from test_server_merge import arc_trajectory
 from test_torch_mapping import _T, _np, assert_maps_match
-from test_torch_server_e2e import (port_frame, port_system,  # noqa: F401
-                                    torch_threads_per_worker)
+from test_torch_server_e2e import (empty_frame, port_frame,  # noqa: F401
+                                    port_system, torch_threads_per_worker)
 
 SERVER_CFG = dict(min_kfs_in_map=4, vocab_k=8, vocab_depth=3)
 
@@ -163,3 +164,52 @@ def test_merge_maps_matches_reference(snap):
     assert _ang(a_t.q, np.asarray(a_j.q)) < 1e-3
     np.testing.assert_allclose(a_t.t, np.asarray(a_j.t), atol=1e-3)
     assert tsys_.server.events == jsys_.server.events
+
+
+def test_merge_gates_imu_prediction_until_reinit(snap, monkeypatch):
+    """An inertial agent that a MERGE moves into another map stops
+    predicting from the IMU (its estimate belongs to the old map's
+    frame and scale: ``imu_init_map != map_id``) until IMU_INIT fires
+    again in the new map, after which the prediction is back."""
+    import chip_smoke
+    from mam3slam_tpu_torch.geometry import lie as tlie
+
+    tsys_, _ = _pair(snap)
+    aid, kf = snap["agent_id"], snap["kf"]
+    a = tsys_.agents[aid]
+    old_map = a.map_id
+    a.imu_initialized, a.imu_init_map = True, old_map
+    a.gravity_w = np.array([0.0, 9.81, 0.0], np.float32)
+    a.vel_w = np.zeros(3, np.float32)
+    a.last_ts = 200.0
+    tsys_.server.merge_maps(aid, kf, tserver.Hypothesis(**vars(snap["h"])))
+    assert a.map_id != old_map == a.imu_init_map
+    calls = []
+    predict = tsys_._imu_predict
+    monkeypatch.setattr(tsys_, "_imu_predict",
+                        lambda *args: calls.append(1) or predict(*args))
+    imu = (np.zeros((10, 3), np.float32),
+           np.tile(np.float32([0.0, -9.81, 0.0]), (10, 1)),
+           np.full(10, 0.005, np.float32))
+    tsys_.track(aid, empty_frame(), 200.05, imu=imu)
+    assert calls == []
+    # a window of tracked poses and their IMU in the new map: the
+    # initialisation runs again there and the prediction comes back
+    monkeypatch.setattr(chip_smoke, "IMU_SIGMA_G", 0.0)
+    monkeypatch.setattr(chip_smoke, "IMU_SIGMA_A", 0.0)
+    monkeypatch.setattr(chip_smoke, "IMU_BIAS_G", (0.0, 0.0, 0.0))
+    monkeypatch.setattr(chip_smoke, "IMU_BIAS_A", (0.0, 0.0, 0.0))
+    motion = chip_smoke.OrbitMotion(43, 0.0, 42 * 0.8, bob=0.05)
+    poses, imus = motion.frames(), motion.imu(0)
+    a.imu_buf = []
+    for i in range(1, 43):
+        R, _, C = poses[i]
+        a.q = tlie.quat_from_matrix(torch.from_numpy(R)).numpy()
+        a.t = (-R @ (C / 2.5)).astype(np.float32)
+        tsys_._imu_buffer_and_init(a, 300.0 + i * 0.05, imus[i])
+    assert tsys_.events[-1] == (f"IMU_INIT agent={aid} map={a.map_id} "
+                                f"scale={a.imu_scale:.4f}")
+    assert a.imu_init_map == a.map_id and 0.02 < a.imu_scale < 50.0
+    a.last_ts = 302.1
+    tsys_.track(aid, empty_frame(), 302.15, imu=imu)
+    assert calls == [1]

@@ -254,3 +254,76 @@ def test_ml_refine_matches_reference():
     for r, g in zip(ref_b, got_b):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-4,
                                    atol=1e-4 * np.abs(np.asarray(r)).max())
+
+
+def _drifted_ring_4dof(axis, K=40):
+    """tests/test_sim3_pgo.py's 4DoF ring (tilted poses, exact chain and
+    loop edges), drifted by a growing yaw about ``axis`` (world frame,
+    right-composed) and a growing translation."""
+    rng = np.random.default_rng(3)
+    tilt = Rsc.from_euler("x", 0.15).as_matrix()
+    qs, ts = [], []
+    for k in range(K):
+        a = 2 * np.pi * k / K
+        c, s = np.cos(a), np.sin(a)
+        R = (np.stack([[s, 0.0, -c], [0.0, 1.0, 0.0], [c, 0.0, s]])
+             @ tilt).astype(np.float32)
+        qs.append(np.asarray(jlie.quat_from_matrix(jnp.asarray(R))))
+        ts.append(-R @ np.array([2.0 * c, 0.0, 2.0 * s], np.float32))
+    qs, ts = np.stack(qs), np.stack(ts).astype(np.float32)
+    ei = np.r_[np.arange(K - 1), [K - 1]].astype(np.int32)
+    ej = np.r_[np.arange(1, K), [0]].astype(np.int32)
+    qrel = np.asarray(jlie.quat_mul(jnp.asarray(qs[ej]),
+                                    jlie.quat_conj(jnp.asarray(qs[ei]))))
+    trel = ts[ej] - np.asarray(jlie.quat_rotate(jnp.asarray(qrel),
+                                                jnp.asarray(ts[ei])))
+    edges = dict(i=ei, j=ej, q=qrel, t=trel.astype(np.float32),
+                 s=np.ones(K, np.float32), w=np.ones(K, np.float32),
+                 valid=np.ones(K, bool))
+    ax = np.array([0.0, 0.0, 1.0] if axis is None else axis, np.float32)
+    ax /= np.linalg.norm(ax)
+    qd, td = [qs[0]], [ts[0]]
+    for k in range(1, K):
+        half = 0.5 * 0.012 * k
+        dq = np.r_[np.cos(half), np.sin(half) * ax].astype(np.float32)
+        qd.append(np.asarray(jlie.quat_mul(jnp.asarray(qs[k]),
+                                           jnp.asarray(dq))))
+        td.append(ts[k] + np.asarray(jlie.quat_rotate(
+            jnp.asarray(qs[k]), jnp.asarray(
+                rng.normal(0, 0.01 * k, 3).astype(np.float32)))))
+    return (np.stack(qd), np.stack(td).astype(np.float32)), edges, \
+        (qs, ts), ax
+
+
+@pytest.mark.parametrize("axis", [None, (0.2, -1.0, 0.1)],
+                         ids=["z", "tilted"])
+def test_essential_graph_4dof_matches_reference(axis):
+    """The port's 4DoF PGO against the reference's on tests/
+    test_sim3_pgo.py's ring, about world z and about a gravity axis that
+    is not z: rotations within 1e-3 rad, translations within 1e-3 x the
+    largest; then the reference test's gates on the port (poses within
+    0.02 rad of the truth; every correction rotation leaves the gravity
+    axis where it was)."""
+    (qd, td), edges, (qs, _), ax = _drifted_ring_4dof(axis)
+    K = qd.shape[0]
+    fixed = np.zeros(K, bool)
+    fixed[0] = True
+    ref = jax.jit(lambda *a: jpgo.optimize_essential_graph_4dof(
+        *a, iters=25, gravity_axis=axis))(
+        jnp.asarray(qd), jnp.asarray(td), jnp.asarray(fixed),
+        jpgo.PGOEdges(**{k: jnp.asarray(v) for k, v in edges.items()}))
+    got = tpgo.optimize_essential_graph_4dof(
+        _T(qd), _T(td), _T(fixed),
+        convert.from_numpy(tpgo.PGOEdges, tpgo.PGOEdges(**edges),
+                           device="cpu"), iters=25, gravity_axis=axis)
+    ref = [np.asarray(x) for x in ref]
+    got = [x.numpy() for x in got]
+    assert max(_ang(a, b) for a, b in zip(got[0], ref[0])) < 1e-3
+    np.testing.assert_allclose(got[1], ref[1],
+                               atol=1e-3 * np.abs(ref[1]).max())
+    # the reference test's gates, on the port
+    assert max(_ang(a, b) for a, b in zip(got[0], qs)) < 0.02
+    for k in range(K):
+        R_i = np.asarray(jlie.quat_to_matrix(jnp.asarray(qd[k])))
+        R_o = np.asarray(jlie.quat_to_matrix(jnp.asarray(got[0][k])))
+        np.testing.assert_allclose(R_o.T @ R_i @ ax, ax, atol=1e-4)

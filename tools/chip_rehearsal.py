@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""CPU rehearsal of chip_smoke.py phases 6-8 and 9b against the reference.
+"""CPU rehearsal of chip_smoke.py phases 6-10 against the reference.
 
     python3 tools/chip_rehearsal.py [--loop | --facade [--pipeline D |
-                                     --async] | --daemon] [--threads N]
+                                     --async] | --daemon | --inertial]
+                                    [--threads N]
 
 Phase 6 (default 6a, the two-agent merge arcs; ``--loop``: 6b, the
 one-agent loop arc): renders the phase's frames at half size (376x240,
@@ -32,6 +33,17 @@ its own settings file) fed phase 9b's arcs (``chip_smoke.DAEMON_ARCS``
 in ``DAEMON_FRAMES`` frames, room seed 3) as u8 frames, interleaved and
 none dropped: whether and where the reference merges on these arcs (its
 output: ``tools/chip_rehearsal_9b.log``).
+
+Phase 10 (``--inertial``): phase 10's own frames and IMU
+(``chip_smoke.OrbitMotion``) at the EuRoC camera (752x480, 1000
+features, 8 levels) with the arena cut to 128 KF / 12288 MP, fed in
+lockstep to both packages' ``SlamSystem.track(..., imu=)``: 10a phase
+6b's loop arc with a ``LoopServer`` each, 10b the yaw-burst frames (with
+the vertical shake) with IMU and without (no server).  Prints per
+package the events, the OK share and ATE / span, the IMU_INIT frame, the
+scale error against the Umeyama scale, the gravity error in the map
+frame and ``n_fallback``: the figures phase 10's bounds come from (its
+output: ``tools/chip_rehearsal_10.log``, 20 min here).
 
 Prints, per package, the server and system events, the keyframe and map
 point counts and per agent the share of frames OK after init and the ATE
@@ -203,6 +215,76 @@ def daemon() -> None:
         summary(name, mas.sys, [0, 1], arcs, states, ok)
 
 
+def inertial() -> None:
+    """Phase 10 at the EuRoC camera, arena 128 KF / 12288 MP, both
+    packages on the same frames and IMU windows."""
+    cam_r = render.RenderCam(cs.W, cs.H, cs.FX, cs.FY, cs.CX, cs.CY)
+    scene = render.RoomScene(seed=cs.SERVER_SCENE_SEED, device="cpu")
+    orb_cfg = O.OrbConfig(height=cs.H, width=cs.W, n_features=cs.N_FEATURES)
+    jorb_cfg = jorb.OrbConfig(height=cs.H, width=cs.W,
+                              n_features=cs.N_FEATURES)
+    tcam = cameras.make_pinhole(cs.FX, cs.FY, cs.CX, cs.CY, device="cpu")
+    jcam_ = jcam.make_pinhole(cs.FX, cs.FY, cs.CX, cs.CY)
+    caps = dict(width=cs.W, height=cs.H, n_feat=orb_cfg.capacity,
+                max_kf=MAX_KF, max_mp=MAX_MP)
+
+    @jax.jit
+    def jextract(img):
+        return jorb.with_undistorted(jorb.extract_orb(img, jorb_cfg), jcam_)
+
+    def systems(server: bool):
+        tsys_ = tsystem.SlamSystem(tsystem.SlamConfig(**caps), tcam, seed=0)
+        jsys_ = jsystem.SlamSystem(jsystem.SlamConfig(**caps), jcam_, seed=0)
+        if server:
+            tsys_.server = tserver.LoopServer(tsys_, tserver.ServerConfig())
+            jsys_.server = jserver.LoopServer(jsys_, jserver.ServerConfig())
+        return tsys_, jsys_
+
+    def lockstep(name, traj, imus, server):
+        pair = systems(server)
+        rs = [dict(sys=s_, aid=s_.add_agent(), states=[], init_frame=None,
+                   server_frames=[]) for s_ in pair]
+        t0 = time.perf_counter()
+        for i, (R, t, _) in enumerate(traj):
+            img = scene.render(R, t, cam_r)
+            f = jextract(jnp.asarray(img.numpy()))
+            frames = (cs.frame_of(img, orb_cfg, tcam),
+                      jsteps.FrameObs(f.uv, f.level, f.angle, f.desc,
+                                      f.valid))
+            for r, frame in zip(rs, frames):
+                s_, a = r["sys"], r["sys"].agents[r["aid"]]
+                n_srv = len(s_.server.events) if server else 0
+                r["states"].append(int(s_.track(r["aid"], frame, i * cs.DT,
+                                                imu=imus[i])[0]))
+                if r["init_frame"] is None and a.imu_initialized:
+                    r["init_frame"] = i
+                if server and len(s_.server.events) > n_srv:
+                    r["server_frames"].append((i, s_.server.events[n_srv:]))
+            if i % 50 == 0:
+                print(f"[progress] {name} frame={i} "
+                      f"s={time.perf_counter() - t0:.1f}", flush=True)
+        print(f"[setup] phase={name} size={cs.W}x{cs.H} "
+              f"features={cs.N_FEATURES} caps={MAX_KF}/{MAX_MP} "
+              f"frames={len(traj)} imu={imus[1] is not None} "
+              f"seconds={time.perf_counter() - t0:.1f}", flush=True)
+        for pkg, r in zip(("port", "reference"), rs):
+            res = cs.inertial_results(r, traj)
+            print(f"[{pkg}] {name} " + " ".join(
+                f"{k}={v}" for k, v in res.items()), flush=True)
+
+    loop = render.orbit_trajectory(cs.LOOP_FRAMES, *cs.LOOP_ARC[:2],
+                                   radius=2.5, bob=cs.LOOP_ARC[2])
+    lockstep("10a", loop, cs.OrbitMotion(cs.LOOP_FRAMES, *cs.LOOP_ARC[:2],
+                                         bob=cs.LOOP_ARC[2]).imu(10), True)
+    motion = cs.OrbitMotion(cs.BURST_FRAMES, 0.0, 0.8 * (cs.BURST_FRAMES - 1),
+                            bob=cs.LOOP_ARC[2], burst=(
+                                cs.BURST_AT, cs.BURST_LEN, cs.BURST_DEG),
+                            shake=cs.BURST_SHAKE)
+    btraj, bimus = motion.frames(), motion.imu(11)
+    lockstep("10b-imu", btraj, bimus, False)
+    lockstep("10b-cv", btraj, [None] * len(btraj), False)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     mode = ap.add_mutually_exclusive_group()
@@ -213,6 +295,9 @@ def main() -> int:
     mode.add_argument("--daemon", action="store_true",
                       help="phase 9b (two agents on the merge arcs at 1/3 "
                       "of the fixture)")
+    mode.add_argument("--inertial", action="store_true",
+                      help="phase 10 (the mono-inertial loop and burst at "
+                      "the EuRoC camera)")
     sub = ap.add_mutually_exclusive_group()
     sub.add_argument("--pipeline", type=int, default=0, metavar="D",
                      help="with --facade: phase 8a, pipelined to depth D")
@@ -229,6 +314,9 @@ def main() -> int:
         return 0
     if args.daemon:
         daemon()
+        return 0
+    if args.inertial:
+        inertial()
         return 0
 
     if args.loop:
