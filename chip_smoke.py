@@ -153,10 +153,41 @@ raises (exit code != 0) and no result line is printed:
    before the burst, >= 13 of the 15 frames from the burst OK,
    ``n_fallback`` with IMU below the constant-velocity run's and <= 1).
 
+11. Slice 6, the multi-device solvers, at the EuRoC point on phase 6's
+   room (seed 3).  11a: a one-rank NCCL mesh (``parallel/mesh.py``) and
+   ``SlamSystem`` + ``LoopServer(ServerConfig(gba_mesh=mesh))`` with
+   four agents on arcs 0-150, 90-240, 180-330 and 270-420 deg (188
+   frames each, interleaved): >= 3 MERGEs into one map holding every
+   agent and live keyframe, every global BA through
+   ``dist_global_ba`` (the single-card programs counted: none ran), >=
+   95% OK and the ATE bound per agent (1.5x the reference's on these
+   arcs, ``tools/chip_rehearsal_11a.log``), observations agreeing, all
+   four kernels with no plain call.  Then on the merged map, with
+   deterministic CUDA sums: ``dist_global_ba``'s dense branch against
+   the single-card ``global_ba`` and its psum-CG branch against the
+   single-device CG solver, compared after the similarity that aligns
+   the camera centres (centres within 5e-3 / 2e-2; the dense branch's
+   points that >= 3 keyframes observe within 2e-2, as the reference's
+   test holds the points of its dense branch); ``dist_run_ba`` against
+   ``run_ba`` (cameras 1e-2, the cost no worse than 1.001x the start);
+   the pose kernel at the agent batches B = 4 and 8 of
+   ``batched_pose_optimization`` against its plain version (phase 3's
+   tolerance), timed.  Prints the ms of each GBA the server ran, the
+   single-card and distributed epochs on one state (median of 3), the
+   pose kernel's device us per launch and the launches per frame.  11b:
+   two NCCL ranks on the one card (refused: "Duplicate GPU detected",
+   logged), then 11a's atlas (``save_atlas``) loaded by 2 and 4 gloo
+   ranks and a ("host", "chip") = (2, 2) mesh sharing the card, spawned
+   against a deadline: rank 0 runs the server's ``_run_gba`` while the
+   others follow in ``dist_window_ba.serve``, and every rank runs the
+   distributed solvers on a window with each agent's oldest keyframe
+   fixed, each held to the one-rank results; prints ms per solve at 1,
+   2 and 4 ranks (the collectives' cost on one card, not scaling).
+
 It prints a JSON line of per-kernel results (``ms``: the median time of
 one wrapper call at the kernel's first caller shape; ``device_ms``: the
 device time per launch there; every caller shape's times and bound; the
-launches in phases 4-10 and per frame and epoch), the nvidia-smi line,
+launches in phases 4-11 and per frame and epoch), the nvidia-smi line,
 and as its last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -303,6 +334,27 @@ INERTIAL_MAX_GRAVITY_DEG = 1.5 * 0.9963  # against the true map-frame one
 INERTIAL_MAX_ATE_FRAC = 1.5 * 0.004475
 BURST_MAX_SCALE_ERR = 1.5 * 0.29778
 BURST_MAX_GRAVITY_DEG = 1.5 * 0.9275
+
+# phase 11: four agents on phase 6's room (seed 3) and orbit, on arcs
+# that overlap by 60 deg (15-frame overlaps merged unreliably on the
+# card), at phase 6's 0.8 deg a frame; the server's global BA on a
+# one-rank NCCL mesh (11a), then on 2 and 4 gloo ranks sharing the card
+# (11b).  ATE bounds: 1.5x what the reference SlamSystem + LoopServer
+# (its global BA on a one-device mesh) reaches on these arcs at half size
+# (tools/chip_rehearsal.py --four, tools/chip_rehearsal_11a.log)
+PHASE11_ARCS = ((0.0, 150.0, 0.05), (90.0, 240.0, 0.05),
+                (180.0, 330.0, 0.05), (270.0, 420.0, 0.05))
+PHASE11_FRAMES = 188
+PHASE11_MIN_MERGES = 3
+PHASE11_MAX_ATE_FRAC = (1.5 * 0.00748, 1.5 * 0.01325, 1.5 * 0.00553,
+                        1.5 * 0.05726)
+PHASE11_POSE_B = (4, 8)
+# the points whose solutions are compared: those >= 3 keyframes observe
+# (a point seen once or twice moves along its rays with the LM damping,
+# not the data: up to 0.24 between two solvers on the card, PERF.md §6)
+PHASE11_MIN_OBS = 3
+PHASE11_MESHES = (((2,), ("shard",)), ((4,), ("shard",)),
+                  ((2, 2), ("host", "chip")))
 
 # H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): f32 on the
 # CUDA cores (every SIMT op of a kernel is counted at this rate), int8 on
@@ -492,17 +544,84 @@ def device_ms(fn, reps: int = 20):
 
 
 def measure(rows: list, kernel: str, caller: str, err: float, fn, plain_fn,
-            work) -> None:
-    """Time ``fn`` (device and wrapper-included) and ``plain_fn`` at one
-    caller's shape; ``work`` = (ops, peak ops/s, bytes) of these inputs."""
+            work, plain_reps: int = 20) -> None:
+    """Time ``fn`` (device and wrapper-included) and ``plain_fn`` (median
+    of ``plain_reps``) at one caller's shape; ``work`` = (ops, peak ops/s,
+    bytes) of these inputs."""
     dev_ms, timer, names = device_ms(fn)
     b_ms, b_by = bound_ms(*work)
     row = dict(kernel=kernel, caller=caller, max_abs_err=err,
                device_ms=dev_ms, timer=timer, wrapper_ms=median_ms(fn),
-               plain_ms=median_ms(plain_fn), bound_us=b_ms * 1e3,
+               plain_ms=median_ms(plain_fn, reps=plain_reps,
+                                  warmup=min(3, plain_reps)),
+               bound_us=b_ms * 1e3,
                bound_by=b_by, share=b_ms / dev_ms)
     rows.append(row)
     log("time", **row, launched=names)
+
+
+def pose_problem(rng, dev, cam, n: int, spread):
+    """A pose problem of ``n`` edges seen by ``cam``: points in
+    [-sx, sx] x [-sy, sy] x [z0, z1], 0.6 px noise, 60 gross outliers,
+    every 29th edge invalid, a perturbed start.  Returns the plain
+    version's arguments (q0, t0, cam_params, kind, pts, uv, w, valid)."""
+    from mam3slam_tpu_torch.geometry import cameras as C
+    from mam3slam_tpu_torch.geometry import lie
+
+    def T(x):
+        return torch.tensor(x, device=dev)
+
+    sx, sy, z0, z1 = spread
+    pts = T(np.stack([rng.uniform(-sx, sx, n), rng.uniform(-sy, sy, n),
+                      rng.uniform(z0, z1, n)], 1).astype(np.float32))
+    q_true = lie.so3_exp_quat(T(rng.normal(0, 0.05, 3).astype(np.float32)))
+    t_true = T(rng.normal(0, 0.2, 3).astype(np.float32))
+    uv = C.project_ideal(cam, lie.quat_rotate(q_true[None], pts) + t_true)
+    uv = uv + T(rng.normal(0, 0.6, (n, 2)).astype(np.float32))
+    uv[:60] += T(rng.uniform(20, 80, (60, 2)).astype(np.float32))
+    q0 = lie.quat_normalize(lie.quat_mul(
+        lie.so3_exp_quat(T(np.float32([0.02, -0.03, 0.01]))), q_true))
+    t0 = t_true + T(np.float32([0.05, -0.04, 0.08]))
+    valid = T(np.arange(n) % 29 != 0)
+    return (q0, t0, cam.params, cam.kind, pts, uv, torch.ones(n, device=dev),
+            valid)
+
+
+def check_pose(caller: str, cam, plain_args, kernel_out):
+    """Hold one problem's kernel result (q, t, inlier, n) to the plain
+    version: rotation within 2e-3 rad, translation 5e-3, >= 99% of the
+    edges classified alike and each edge classified apart within 1e-4 of
+    the chi2 threshold at one of the two final poses.  Returns (max abs
+    error, the plain inlier count)."""
+    from mam3slam_tpu_torch.geometry import cameras as C
+    from mam3slam_tpu_torch.geometry import lie
+    from mam3slam_tpu_torch.ops import cuda_pose as CP
+
+    kq, kt, ki, kn = kernel_out
+    pq, pt, pi, pn = CP.pose_optimization_plain(*plain_args)
+    pts, uv, w = plain_args[4:7]
+    r_err = rot_err(kq.cpu().numpy(), pq.cpu().numpy())
+    t_err = (kt - pt).norm().item()
+    agree = (ki == pi).float().mean().item()
+
+    def chi2(q, t):
+        r = C.project_ideal(cam, lie.quat_rotate(q[None], pts) + t) - uv
+        return w * (r * r).sum(-1)
+
+    apart = ki != pi
+    margin = torch.minimum((chi2(kq, kt) - CP.CHI2_MONO).abs(),
+                           (chi2(pq, pt) - CP.CHI2_MONO).abs())[apart]
+    err = max((kq - pq).abs().max().item(), t_err)
+    log("kernel", name="pose_opt", caller=caller, N=len(pts), kind=cam.kind,
+        rot_err=r_err, t_err=t_err, max_abs_err=err, inlier_agree=agree,
+        n_in=int(kn), plain_n_in=int(pn), classified_apart=int(apart.sum()),
+        apart_max_chi2_margin=float(margin.max()) if len(margin) else 0.0,
+        tol="rot<2e-3rad,t<5e-3,agree>=0.99,apart within 1e-4 of 5.991")
+    if not (r_err < 2e-3 and t_err < 5e-3 and agree >= 0.99
+            and bool((margin <= 1e-4).all())):
+        raise AssertionError("pose_opt disagrees with its plain version "
+                             f"at the {caller} shape")
+    return err, int(pn)
 
 
 def check_kernels(dev, scene, cam_r, orb_cfg, n_arena: int) -> list:
@@ -510,7 +629,6 @@ def check_kernels(dev, scene, cam_r, orb_cfg, n_arena: int) -> list:
     its device, wrapper-included and plain times and its bound; returns
     one row per kernel and caller."""
     from mam3slam_tpu_torch.geometry import cameras as C
-    from mam3slam_tpu_torch.geometry import lie
     from mam3slam_tpu_torch.io import render
     from mam3slam_tpu_torch.ops import cuda_match as CM
     from mam3slam_tpu_torch.ops import cuda_orb_desc as CO
@@ -648,57 +766,17 @@ def check_kernels(dev, scene, cam_r, orb_cfg, n_arena: int) -> list:
                 lambda: CM.min_hamming2_plain(*hargs), best2_work(hargs))
 
     def pose(caller: str, cam, n: int, spread):
-        """A pose problem of ``n`` edges seen by ``cam``: points in
-        [-sx, sx] x [-sy, sy] x [z0, z1], 0.6 px noise, 60 gross outliers,
-        every 29th edge invalid, a perturbed start.  The kernel is held to
-        the plain version; edges classified apart must lie within 1e-4 of
-        the chi2 threshold at one of the two final poses."""
-        sx, sy, z0, z1 = spread
-        pts = T(np.stack([rng.uniform(-sx, sx, n), rng.uniform(-sy, sy, n),
-                          rng.uniform(z0, z1, n)], 1).astype(np.float32))
-        q_true = lie.so3_exp_quat(T(rng.normal(0, 0.05, 3).astype(
-            np.float32)))
-        t_true = T(rng.normal(0, 0.2, 3).astype(np.float32))
-        uv = C.project_ideal(cam, lie.quat_rotate(q_true[None], pts)
-                             + t_true)
-        uv = uv + T(rng.normal(0, 0.6, (n, 2)).astype(np.float32))
-        uv[:60] += T(rng.uniform(20, 80, (60, 2)).astype(np.float32))
-        q0 = lie.quat_normalize(lie.quat_mul(
-            lie.so3_exp_quat(T(np.float32([0.02, -0.03, 0.01]))), q_true))
-        t0 = t_true + T(np.float32([0.05, -0.04, 0.08]))
-        valid = T(np.arange(n) % 29 != 0)
-        w = torch.ones(n, device=dev)
-        pargs = (q0[None], t0[None], cam.params[None], cam.kind, pts[None],
-                 uv[None], w[None], valid[None])
-        kq, kt, ki, kn = CP.pose_optimization_batched(*pargs)
-        plain = (q0, t0, cam.params, cam.kind, pts, uv, w, valid)
-        pq, pt, pi, pn = CP.pose_optimization_plain(*plain)
-        r_err = rot_err(kq[0].cpu().numpy(), pq.cpu().numpy())
-        t_err = (kt[0] - pt).norm().item()
-        agree = (ki[0] == pi).float().mean().item()
-
-        def chi2(q, t):
-            r = C.project_ideal(cam, lie.quat_rotate(q[None], pts) + t) - uv
-            return w * (r * r).sum(-1)
-
-        apart = ki[0] != pi
-        margin = torch.minimum((chi2(kq[0], kt[0]) - CP.CHI2_MONO).abs(),
-                               (chi2(pq, pt) - CP.CHI2_MONO).abs())[apart]
-        err = max((kq[0] - pq).abs().max().item(), t_err)
-        log("kernel", name="pose_opt", caller=caller, N=n, kind=cam.kind,
-            rot_err=r_err, t_err=t_err, max_abs_err=err, inlier_agree=agree,
-            n_in=int(kn[0]), plain_n_in=int(pn),
-            classified_apart=int(apart.sum()),
-            apart_max_chi2_margin=float(margin.max()) if len(margin) else 0.0,
-            tol="rot<2e-3rad,t<5e-3,agree>=0.99,apart within 1e-4 of 5.991")
-        if not (r_err < 2e-3 and t_err < 5e-3 and agree >= 0.99
-                and bool((margin <= 1e-4).all())):
-            raise AssertionError("pose_opt disagrees with its plain version "
-                                 f"at the {caller} shape")
+        """A pose problem (``pose_problem``), the kernel held to the plain
+        version (``check_pose``), then timed."""
+        plain = pose_problem(rng, dev, cam, n, spread)
+        pargs = tuple(x[None] for x in plain[:3]) + (cam.kind,) + tuple(
+            x[None] for x in plain[4:])
+        res = CP.pose_optimization_batched(*pargs)
+        err, n_in = check_pose(caller, cam, plain, [x[0] for x in res])
         measure(rows, "pose_opt", caller, err,
                 lambda: CP.pose_optimization_batched(*pargs),
                 lambda: CP.pose_optimization_plain(*plain),
-                pose_work(int(valid.sum()), int(pn), n, cam.kind))
+                pose_work(int(plain[-1].sum()), n_in, n, cam.kind))
 
     # pose: the EuRoC pinhole at N = 1024, then the fixture's KB8 camera
     # at its 768 feature slots over a wide field (up to ~60 deg off axis)
@@ -2054,6 +2132,450 @@ def run_phase10(dev, scene, cam_r, cam, orb_cfg, cfg, loop_arc, loop6b,
     return r10, res10, i10, burst, res10b
 
 
+# ---------------------------------------------------------------------------
+# phase 11: four agents with a distributed global BA, on the one card
+# ---------------------------------------------------------------------------
+
+def gba_mask(ms, map_id: int):
+    """The global BA's free keyframes: the map's, but its oldest."""
+    from mam3slam_tpu_torch.mapstate import state as S
+
+    in_map = ms.kf_valid & (ms.kf_map == map_id)
+    return S.set_at(in_map, torch.argmin(torch.where(in_map, ms.kf_seq,
+                                                     S.BIG_SEQ)), False)
+
+
+def anchored_mask(ms, map_id: int):
+    """The map's keyframes free but each agent's oldest in it: a window
+    whose gauge is held (the global BA's one anchor leaves the scale to
+    the solver, and its solution moves ~1e-2 with the order of its sums;
+    PERF.md §6)."""
+    from mam3slam_tpu_torch.mapstate import state as S
+
+    in_map = ms.kf_valid & (ms.kf_map == map_id)
+    seq = torch.where(in_map, ms.kf_seq, S.BIG_SEQ)
+    mask = in_map.clone()
+    for a in ms.kf_agent[in_map].unique():
+        mask[torch.argmin(torch.where(ms.kf_agent == a, seq, S.BIG_SEQ))] = \
+            False
+    return mask
+
+
+def solve_all(mesh, ms, cfg, map_id: int, pose_args, dev) -> dict:
+    """The distributed solvers on one map state, over the mesh's last axis
+    (the agents over its first), on the map's keyframes with each agent's
+    oldest fixed (``anchored_mask``): ``dist_run_ba`` on its edge list
+    (6 x 30), the three window solvers on its two-view problem (10 LM
+    iterations), ``batched_pose_optimization``.
+    Returns, per solver, its result as numpy and its wall ms (the card
+    synchronised), and ``cam_held`` / ``pt_held``: the window cameras and
+    points compared."""
+    from mam3slam_tpu_torch import convert
+    from mam3slam_tpu_torch.parallel import dist_ba
+    from mam3slam_tpu_torch.parallel import dist_window_ba as dwb
+    from mam3slam_tpu_torch.slam import steps
+
+    axis, pose_axis = mesh.mesh_dim_names[-1], mesh.mesh_dim_names[0]
+    kind = cfg.cam_kind
+    is2 = torch.tensor(cfg.inv_sigma2, device=dev)
+    mask = anchored_mask(ms, map_id)
+    edge = steps.build_local_ba_problem(ms, mask, is2)
+    window = steps.build_window_problem(ms, mask, is2, cfg.max_kf,
+                                        cfg.max_mp, with_cm=True)
+    runs = dict(
+        run_ba=lambda: dist_ba.dist_run_ba(edge, mesh, kind, axis=axis,
+                                           iters=6, cg_iters=30),
+        dense=lambda: dwb.dist_run_window_ba_dense(window, mesh, kind,
+                                                   axis=axis),
+        psum=lambda: dwb.dist_run_window_ba_psum(window, mesh, kind,
+                                                 axis=axis),
+        cg=lambda: dwb.dist_run_window_ba(window, mesh, kind, axis=axis),
+        pose=lambda: dist_ba.batched_pose_optimization(
+            mesh, kind, pose_axis)(*pose_args))
+    # the window's cameras and the points >= 3 keyframes observe (see
+    # PHASE11_MIN_OBS)
+    out = dict(cam_held=window.cam_valid.cpu().numpy(),
+               pt_held=(window.pm_valid.sum(1) >= PHASE11_MIN_OBS)
+               .cpu().numpy())
+    for name, fn in runs.items():
+        # deterministic sums (as the single-card comparisons of 11a), but
+        # for the edge list's segment sums, 30x slower so
+        torch.use_deterministic_algorithms(name != "run_ba", warn_only=True)
+        sync(dev)
+        t0 = time.perf_counter()
+        res = fn()
+        sync(dev)
+        out[name] = (convert.to_numpy(res), (time.perf_counter() - t0) * 1e3)
+    torch.use_deterministic_algorithms(False)
+    return out
+
+
+def pose_batch(dev, B: int, seed: int = 11):
+    """``B`` of phase 3's pinhole pose problems (N = 1024) stacked for the
+    kernel's batch axis, and each one's plain arguments."""
+    from mam3slam_tpu_torch.geometry import cameras as C
+
+    rng = np.random.default_rng(seed)
+    cam = C.make_pinhole(FX, FY, CX, CY, device=dev)
+    probs = [pose_problem(rng, dev, cam, 1024, (4, 3, 3, 12))
+             for _ in range(B)]
+    stacked = tuple(torch.stack([p[i] for p in probs]).contiguous()
+                    for i in (0, 1, 2, 4, 5, 6, 7))
+    return cam, stacked, probs
+
+
+def rank11b(mesh, atlas: str, cfg, map_id: int, device: str):
+    """One rank of phase 11b (all on the one card over gloo): load 11a's
+    atlas, run ``solve_all``; then rank 0 runs the server's own global BA
+    (``LoopServer._run_gba`` with ``gba_mesh``) while the other ranks
+    follow in ``dist_window_ba.serve``."""
+    from mam3slam_tpu_torch import convert
+    from mam3slam_tpu_torch.geometry import cameras
+    from mam3slam_tpu_torch.mapstate import checkpoint
+    from mam3slam_tpu_torch.parallel import dist_window_ba as dwb
+    from mam3slam_tpu_torch.slam import system
+    from mam3slam_tpu_torch.slam.server import LoopServer, ServerConfig
+
+    dev = torch.device(device)
+    sys_ = system.SlamSystem(cfg, cameras.make_pinhole(FX, FY, CX, CY,
+                                                       device=dev))
+    checkpoint.load_atlas(sys_, atlas)
+    out = solve_all(mesh, sys_.ms, cfg, map_id,
+                    pose_batch(dev, max(PHASE11_POSE_B))[1], dev)
+    if mesh.get_rank() != 0:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        out["joined"] = dwb.serve(mesh)
+        return out
+    srv = LoopServer(sys_, ServerConfig(gba_mesh=mesh))
+    torch.use_deterministic_algorithms(True, warn_only=True)   # as 11a's
+    sync(dev)
+    t0 = time.perf_counter()
+    srv._run_gba(map_id)
+    sync(dev)
+    torch.use_deterministic_algorithms(False)
+    out["server"] = (convert.to_numpy(sys_.ms), (time.perf_counter() - t0)
+                     * 1e3)
+    dwb.stop(mesh)
+    return out
+
+
+def nccl_two_ranks(mesh):
+    """An all-reduce between two NCCL ranks on the one card."""
+    x = torch.ones(1, device="cuda")
+    torch.distributed.all_reduce(x)
+    return float(x)
+
+
+def centres(q: np.ndarray, t: np.ndarray) -> np.ndarray:
+    """Camera centres -R(q)^T t of world-to-camera poses [N, 4], [N, 3]."""
+    return -np.stack([quat_rot_inv(qi, ti) for qi, ti in zip(q, t)])
+
+
+def gauge_diff(a, b, cams, pts) -> dict:
+    """Two BA solutions (q, t, points) compared up to their gauge: the
+    similarity that best maps A's camera centres onto B's is applied to
+    A, then the largest camera-centre and point distances over ``cams``
+    and ``pts`` (masks).  A map held by one anchor keyframe leaves its
+    scale to the solver, so rounding alone moves a solution along it;
+    the raw largest differences of t and points are returned too."""
+    (qa, ta, pa), (qb, tb, pb) = ([np.asarray(x, np.float64) for x in y]
+                                  for y in (a, b))
+    ca, cb = centres(qa[cams], ta[cams]), centres(qb[cams], tb[cams])
+    s, Rm, t = umeyama(ca, cb)
+    n = min(len(pa), len(pb))
+    pa, pb, sel = pa[:n], pb[:n], np.asarray(pts)[:n]
+    return dict(
+        centre=float(np.linalg.norm(s * ca @ Rm.T + t - cb, axis=1).max()),
+        pts=float(np.linalg.norm(s * pa[sel] @ Rm.T + t - pb[sel],
+                                 axis=1).max()) if sel.any() else 0.0,
+        scale=float(s), raw_t=max_diff(ta[cams], tb[cams]),
+        raw_pts=max_diff(pa, pb, sel))
+
+
+def max_diff(a, b, sel=None) -> float:
+    """Largest absolute difference of two arrays over ``sel`` (rows), or
+    over the rows both have (a mesh pads to a multiple of its size)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    if sel is not None:
+        a, b = a[sel], b[sel]
+    n = min(len(a), len(b))
+    return float(np.abs(a[:n] - b[:n]).max()) if n else 0.0
+
+
+def phase11b(dev, atlas: str, cfg, map_id: int, world1: dict, gba1,
+             dense_gba: bool, sel, smi: str, tmp: str) -> None:
+    """Phase 11b: two NCCL ranks on the one card (the outcome logged),
+    then 11a's atlas on 2 and 4 gloo ranks and a (2, 2) mesh sharing the
+    card (``rank11b``), each held to 11a's world-of-one results
+    (``world1``: ``solve_all``'s; ``gba1``: ``dist_global_ba``'s, in its
+    dense branch if ``dense_gba``, else the psum-CG one, whose points are
+    not held, as the reference's test holds only its keyframes)."""
+    from mam3slam_tpu_torch.parallel import mesh as pmesh
+
+    kf, mp = sel
+    t11b = time.perf_counter()
+    try:
+        pmesh.run_ranks(nccl_two_ranks, (2,), ("shard",),
+                        os.path.join(tmp, "nccl2"), backend="nccl",
+                        device=dev, deadline_s=90, timeout_s=60)
+        nccl2 = "accepted"
+    except (pmesh.RankFailed, TimeoutError) as e:
+        lines = str(e).splitlines()
+        nccl2 = next((ln for ln in lines if "Duplicate" in ln), lines[-1])
+    log("nccl_two_ranks_one_card", outcome=repr(nccl2[:300]))
+    timings = {1: {k: v[1] for k, v in world1.items()
+                   if k not in ("cam_held", "pt_held")}}
+    for shape, names in PHASE11_MESHES:
+        key = "x".join(map(str, shape))
+        ranks = pmesh.run_ranks(rank11b, shape, names,
+                                os.path.join(tmp, "w" + key),
+                                (atlas, cfg, map_id, str(dev)),
+                                backend="gloo",
+                                device=dev, deadline_s=300)
+        r0 = ranks[0]
+        held = (world1["cam_held"], world1["pt_held"])
+
+        def window(name, res):
+            return gauge_diff((res[name][0].cam_q, res[name][0].cam_t,
+                               res[name][0].pts),
+                              (world1[name][0].cam_q, world1[name][0].cam_t,
+                               world1[name][0].pts), *held)
+
+        srv_state = r0["server"][0]
+        got = dict(
+            run_ba=max_diff(r0["run_ba"][0].cam_t, world1["run_ba"][0].cam_t),
+            pose=max_diff(r0["pose"][0].t, world1["pose"][0].t),
+            **{name: window(name, r0) for name in ("dense", "psum", "cg")},
+            server=gauge_diff((srv_state.kf_q, srv_state.kf_t,
+                               srv_state.mp_pos),
+                              (gba1.kf_q, gba1.kf_t, gba1.mp_pos), kf, mp))
+        # the deterministic solvers' replicated results are equal bit for
+        # bit on every rank (run_ba's atomic sums differ across host rows)
+        same = all(max_diff(r[k][0].cam_t, r0[k][0].cam_t) == 0.0
+                   for r in ranks[1:] for k in ("dense", "psum", "cg"))
+        joined = [r["joined"] for r in ranks[1:]]
+        timings[key] = {k: r0[k][1] for k in ("run_ba", "dense", "psum", "cg",
+                                              "pose", "server")}
+        log("gloo_ranks", mesh=key, axes=names, agree_with_world1=got,
+            ranks_bit_equal=same, followers_joined=joined,
+            tol="run_ba cam_t<1e-2, pose t<1e-4; after the gauge "
+            "similarity: dense centres<5e-3, psum/cg centres<2e-2, the "
+            "anchored window's points<2e-2 (>= 3 observers); the server's "
+            + ("dense GBA centres<5e-3, points<2e-2" if dense_gba else
+               "psum-CG GBA centres<2e-2"))
+        srv = got["server"]
+        if not (got["run_ba"] < 1e-2 and got["pose"] < 1e-4
+                and got["dense"]["centre"] < 5e-3
+                and got["psum"]["centre"] < 2e-2
+                and got["cg"]["centre"] < 2e-2
+                and max(got[k]["pts"] for k in ("dense", "psum", "cg"))
+                < 2e-2
+                and (srv["centre"] < 5e-3 and srv["pts"] < 2e-2
+                     if dense_gba else srv["centre"] < 2e-2)
+                and same and joined == [1] * len(joined)):
+            raise AssertionError(f"the {key} mesh disagrees with world 1")
+    log("gloo_ranks_time", card=repr(smi),
+        note="all ranks share one card over gloo: the cost of the "
+        "collectives, not scaling", ms_per_solve=timings,
+        phase11b_seconds=time.perf_counter() - t11b)
+
+
+def run_phase11(dev, scene6, cam_r, cam, orb_cfg, cfg, smi: str, tmp: str,
+                rows: list) -> dict:
+    """Phase 11a: ``SlamSystem`` + ``LoopServer(gba_mesh=)`` on a one-rank
+    NCCL mesh with four agents (every global BA through
+    ``dist_global_ba``), its gates, then the distributed solvers on the
+    merged map against the single-card ones and the batched pose kernel
+    at B = 4 and 8 against its plain version (timed into ``rows``).
+    Phase 11b: the same state on 2 and 4 gloo ranks and a (2, 2) mesh
+    sharing the card, held to 11a's world-of-one results.  Returns the
+    main path's launches and the kernels' launches per frame."""
+    from mam3slam_tpu_torch import _build, convert
+    from mam3slam_tpu_torch.io import render
+    from mam3slam_tpu_torch.mapstate import checkpoint
+    from mam3slam_tpu_torch.ops import cuda_pose as CP
+    from mam3slam_tpu_torch.parallel import dist_ba
+    from mam3slam_tpu_torch.parallel import dist_window_ba as dwb
+    from mam3slam_tpu_torch.parallel import mesh as pmesh
+    from mam3slam_tpu_torch.slam import steps, system
+    from mam3slam_tpu_torch.slam.server import ServerConfig
+    from mam3slam_tpu_torch.solvers import ba as ba_mod
+    from mam3slam_tpu_torch.solvers import ba_window as bw
+
+    t11 = time.perf_counter()
+    arcs = [render.orbit_trajectory(PHASE11_FRAMES, a0, a1, radius=2.5,
+                                    bob=b) for a0, a1, b in PHASE11_ARCS]
+    mesh = pmesh.init_mesh((1,), ("shard",), "nccl",
+                           "file://" + os.path.join(tmp, "nccl_store"),
+                           device=dev, timeout_s=120)
+    try:
+        # 11a: every global BA the server runs goes through dist_global_ba
+        # on the mesh; the single-card programs are counted (none may run)
+        progs = system.programs(cfg, cfg.cam_kind)
+        single = {k: progs[k] for k in ("global_ba", "global_ba_masks")}
+        single_calls = collections.Counter()
+        dist_gba, gba_ms = dwb.dist_global_ba, []
+
+        def timed_dist_gba(*args, **kw):
+            sync(dev)
+            t0 = time.perf_counter()
+            out = dist_gba(*args, **kw)
+            sync(dev)
+            gba_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        def counted(name):
+            def call(*args, **kw):
+                single_calls[name] += 1
+                return single[name](*args, **kw)
+            return call
+
+        dwb.dist_global_ba = timed_dist_gba
+        progs.update({k: counted(k) for k in single})
+        _build.reset_counts()
+        try:
+            sys11, agents, per = run_slam(dev, scene6, cam_r, cam, orb_cfg,
+                                          cfg, arcs,
+                                          ServerConfig(gba_mesh=mesh))
+            sync(dev)
+        finally:
+            dwb.dist_global_ba = dist_gba
+            progs.update(single)
+        launches = dict(_build.LAUNCHES)
+        plain = dict(_build.PLAIN_CALLS)
+        srv = sys11.server
+        merges = [e for e in srv.events if e.startswith("MERGE")]
+        log("counters", path="four_agents", launches=launches,
+            plain_calls=plain, **per)
+        log("four_agents", merges=len(merges), gba_runs=srv.gba_runs,
+            dist_gba_ms=[round(v, 3) for v in gba_ms],
+            single_card_gba_calls=dict(single_calls), card=repr(smi),
+            slam_seconds=time.perf_counter() - t11)
+        check_merge(sys11, agents, arcs, PHASE11_MAX_ATE_FRAC)
+        if len(merges) < PHASE11_MIN_MERGES:
+            raise AssertionError(f"{len(merges)} MERGE events")
+        if (not gba_ms or len(gba_ms) != len(srv.gba_runs)
+                or sum(single_calls.values())):
+            raise AssertionError("a global BA ran outside dist_global_ba")
+        if not kernels_ran(launches, plain, KERNELS):
+            raise AssertionError("11a did not run every kernel")
+
+        # the distributed solvers on the merged map against the single-card
+        # ones (world of 1, NCCL), with deterministic CUDA algorithms: the
+        # map's one anchor leaves its global BA ill-conditioned (the
+        # similarity gauge), so the order of atomic sums alone moves the
+        # single-card epoch by up to ~4e-2 between two runs on the card
+        ms, map_id = sys11.ms, sys11.agents[0].map_id
+        kind = cfg.cam_kind
+        kf, mp_all = ms.kf_valid.cpu().numpy(), ms.mp_valid.cpu().numpy()
+        mp = mp_all & (ms.mp_nobs.cpu().numpy() >= PHASE11_MIN_OBS)
+        glob = progs["global_ba"]
+        is2 = torch.tensor(cfg.inv_sigma2, device=dev)
+        mask = gba_mask(ms, map_id)
+        n_free = int(mask.sum())
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            local = glob(ms, map_id)
+            window = steps.build_window_problem(ms, mask, is2, cfg.max_kf,
+                                                cfg.max_mp, with_cm=True)
+            cg_local = steps.apply_window_result(
+                ms, window, bw.run_window_ba(window, kind, iters=10))
+            branches = dict(
+                dense=dwb.dist_global_ba(ms, cfg, mesh, map_id, kind,
+                                         dense_free_cap=1 << 30),
+                psum=dwb.dist_global_ba(ms, cfg, mesh, map_id, kind,
+                                        dense_free_cap=0))
+            costs = {name: float(bw.run_window_ba_dense(
+                steps.build_window_problem(st, mask, is2, cfg.max_kf,
+                                           cfg.max_mp), kind, iters=0).cost)
+                for name, st in (("start", ms), ("single_card", local),
+                                 ("cg_single_device", cg_local),
+                                 *branches.items())}
+            def state(st):
+                return st.kf_q.cpu(), st.kf_t.cpu(), st.mp_pos.cpu()
+
+            agree = {name: gauge_diff(state(got), state(ref), kf, mp)
+                     for name, got, ref in (
+                         ("dense_vs_single_card", branches["dense"], local),
+                         ("psum_vs_cg_single_device", branches["psum"],
+                          cg_local),
+                         ("psum_vs_single_card", branches["psum"], local))}
+            agree["psum_vs_single_card"]["raw_pts_all"] = max_diff(
+                branches["psum"].mp_pos.cpu(), local.mp_pos.cpu(), mp_all)
+            gba1 = convert.to_numpy(dwb.dist_global_ba(ms, cfg, mesh, map_id,
+                                                       kind))
+        finally:
+            torch.use_deterministic_algorithms(False)
+        # the edge list's deterministic segment sums are 30x slower
+        edge = steps.build_local_ba_problem(ms, mask, is2)
+        cost0 = float(ba_mod.ba_cost_and_inliers(edge, kind)[0])
+        ba_local = ba_mod.run_ba(edge, kind, iters=6, cg_iters=30)
+        ba_dist = dist_ba.dist_run_ba(edge, mesh, kind, axis="shard",
+                                      iters=6, cg_iters=30)
+        agree["run_ba"] = dict(cam_t=max_diff(ba_dist.cam_t.cpu(),
+                                              ba_local.cam_t.cpu()),
+                               cost0=cost0, cost=float(ba_dist.cost))
+        world1 = solve_all(mesh, ms, cfg, map_id,
+                           pose_batch(dev, max(PHASE11_POSE_B))[1], dev)
+        ms_single = median_ms(lambda: glob(ms, map_id), reps=3, warmup=1)
+        ms_dist = median_ms(lambda: dwb.dist_global_ba(ms, cfg, mesh, map_id,
+                                                        kind), reps=3,
+                            warmup=0)
+        log("four_agents_gba", card=repr(smi), free_keyframes=n_free,
+            single_card_ms=ms_single, dist_world1_ms=ms_dist,
+            robust_costs=costs,
+            tol="deterministic sums; after the similarity that aligns the "
+            "camera centres (the gauge): dense vs single card centres<5e-3 "
+            "points<2e-2 (points >= 3 keyframes observe), psum-CG vs the "
+            "single-device CG centres<2e-2 (its points not gated, as in "
+            "tests/test_dist_ba.py:298-310); run_ba cam_t<1e-2, "
+            "cost<=1.001x start; psum-CG vs the dense single card not "
+            "gated (CG truncation)", held_points=int(mp.sum()), **agree)
+        d, c = agree["dense_vs_single_card"], agree["psum_vs_cg_single_device"]
+        if not (d["centre"] < 5e-3 and d["pts"] < 2e-2 and c["centre"] < 2e-2
+                and agree["run_ba"]["cam_t"] < 1e-2
+                and float(ba_dist.cost) <= cost0 * 1.001
+                and costs["psum"] < costs["start"]):
+            raise AssertionError("the distributed global BA disagrees with "
+                                 "the single-card one")
+
+        # the pose kernel at the agent batch: one launch of B problems
+        pose_us = {}
+        for B in PHASE11_POSE_B:
+            pcam, stacked, probs = pose_batch(dev, B)
+            res = dist_ba.batched_pose_optimization(mesh, kind, "shard")(
+                *stacked)
+            errs, n_in = zip(*(check_pose(f"batched B={B} agent {b}", pcam,
+                                          probs[b], [x[b] for x in res])
+                               for b in range(B)))
+            work = [pose_work(int(p[-1].sum()), n, 1024, kind)
+                    for p, n in zip(probs, n_in)]
+            kargs = stacked[:3] + (kind,) + stacked[3:]
+            measure(rows, "pose_opt",
+                    f"batched_pose_optimization B={B} x N=1024, one launch",
+                    max(errs), lambda: CP.pose_optimization_batched(*kargs),
+                    lambda: [CP.pose_optimization_plain(*p) for p in probs],
+                    (sum(w[0] for w in work), work[0][1],
+                     sum(w[2] for w in work)), plain_reps=3)
+            pose_us[B] = rows[-1]["device_ms"] * 1e3
+        atlas = os.path.join(tmp, "phase11.npz")
+        checkpoint.save_atlas(sys11, atlas)
+        log("four_agents_time", card=repr(smi),
+            pose_device_us_per_launch=pose_us,
+            world1_solve_ms={k: round(v[1], 3) for k, v in world1.items()
+                             if k not in ("cam_held", "pt_held")},
+            phase11a_seconds=time.perf_counter() - t11)
+        del sys11
+    finally:
+        pmesh.close_mesh()
+
+    phase11b(dev, atlas, cfg, map_id, world1, gba1, n_free <= 32, (kf, mp),
+             smi, tmp)
+    log("four_agents_done", phase11_seconds=time.perf_counter() - t11)
+    return dict(launches=launches, per_frame=per["per_frame"],
+                pose_us=pose_us)
+
+
 def sync(dev) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -2416,6 +2938,12 @@ def main() -> int:
     phase10_launches = collections.Counter(res10["launches"])
     phase10_launches.update(res10b["launches"])
 
+    # 11. four agents with the global BA on a mesh: 11a one NCCL rank,
+    # 11b 2 / 4 / (2, 2) gloo ranks sharing the card
+    with tempfile.TemporaryDirectory() as tmp:
+        p11 = run_phase11(dev, scene6, cam_r, cam, orb_cfg, cfg, smi, tmp,
+                          timed)
+
     phase8_launches = collections.Counter()
     for counts in (res8a["launches"], res8b["launches"],
                    res_bare["launches"], launches8c):
@@ -2430,7 +2958,7 @@ def main() -> int:
          "launches": (launches[k] + slam_launches.get(k, 0)
                       + server_launches[k] + fres["launches"].get(k, 0)
                       + phase8_launches[k] + phase9_launches[k]
-                      + phase10_launches[k]),
+                      + phase10_launches[k] + p11["launches"].get(k, 0)),
          "max_abs_err": max(r["max_abs_err"] for r in rows[k]),
          "ms": rows[k][0]["wrapper_ms"], "device_ms": rows[k][0]["device_ms"],
          "plain_ms": rows[k][0]["plain_ms"],
@@ -2447,6 +2975,8 @@ def main() -> int:
          "launches_phase10": phase10_launches[k],
          "launches_per_imu_frame": r10["per_frame"]["imu"].get(k, 0),
          "launches_per_cv_frame": r10["per_frame"]["cv"].get(k, 0),
+         "launches_phase11": p11["launches"].get(k, 0),
+         "launches_per_phase11_frame": p11["per_frame"].get(k, 0),
          "callers": [{c: r[c] for c in (
              "caller", "device_ms", "timer", "wrapper_ms", "plain_ms",
              "bound_us", "bound_by", "share", "max_abs_err")}

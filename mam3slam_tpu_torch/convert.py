@@ -8,7 +8,8 @@ keyframe database (``kf_bow_words``, ``kf_bow_vals``) is numpy in both
 packages and carries over as it is.  The inertial state converts the
 same way: ``ImuCalib``, ``Preintegrated`` (batched or not) and
 ``InertialEdges`` by field, and an agent's IMU fields, which both
-packages keep on the host, by value.
+packages keep on the host, by value; so do the bundle-adjustment
+problems, ``Obs``, ``BAProblem`` and ``WindowProblem``.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from mam3slam_tpu_torch.geometry import cameras as cam_mod
 from mam3slam_tpu_torch.mapstate import state as S
 from mam3slam_tpu_torch.ops import bow
 from mam3slam_tpu_torch.slam import steps
-from mam3slam_tpu_torch.solvers import imu, vi
+from mam3slam_tpu_torch.solvers import ba, ba_window, imu, vi
 
 CUDA = torch.device("cuda")
 
@@ -50,6 +51,24 @@ def frame_from_numpy(frame, device=CUDA) -> steps.FrameObs:
 def map_state_from_numpy(ms, device=CUDA) -> S.MapState:
     """Any object with every MapState field, by name -> MapState."""
     return from_numpy(S.MapState, ms, device)
+
+
+def obs_from_numpy(obs, device=CUDA) -> ba.Obs:
+    """Any object with ``cam, pt, uv, w, valid`` -> Obs."""
+    return from_numpy(ba.Obs, obs, device)
+
+
+def ba_problem_from_numpy(prob, device=CUDA) -> ba.BAProblem:
+    """Any object with the BAProblem fields (``obs`` one with the Obs
+    fields) -> BAProblem."""
+    return ba.BAProblem(**{f: obs_from_numpy(prob.obs, device) if f == "obs"
+                           else tensor(getattr(prob, f), device)
+                           for f in ba.BAProblem._fields})
+
+
+def window_problem_from_numpy(prob, device=CUDA) -> ba_window.WindowProblem:
+    """Any object with the WindowProblem fields -> WindowProblem."""
+    return from_numpy(ba_window.WindowProblem, prob, device)
 
 
 def vocabulary_from_numpy(voc, device=CUDA) -> bow.Vocabulary:

@@ -1,19 +1,22 @@
 """Bag-of-words place recognition: vocabulary tree and keyframe scoring.
 
-Port of the parts of ``mam3slam_tpu.ops.bow`` that the loop server and
-relocalization call.  The vocabulary is a flat per-level table of packed
-binary centroids (the children of node ``n`` at slots ``n*k .. n*k+k-1``
-of the next level); a descriptor descends by ``depth`` batched
-Hamming-argmin steps, the lowest child winning equal distances.  A
-keyframe's BoW row is sparse: its word ids and L1-normalised tf-idf
-values (at most F of them), kept on the host as the reference keeps them.
-Candidate ranking takes the top-k of the reference as a stable descending
-sort, so equal values keep the lower index first.
+Port of ``mam3slam_tpu.ops.bow``.  The vocabulary is a flat per-level
+table of packed binary centroids (the children of node ``n`` at slots
+``n*k .. n*k+k-1`` of the next level); a descriptor descends by
+``depth`` batched Hamming-argmin steps, the lowest child winning equal
+distances.  A keyframe's BoW row is sparse: its word ids and
+L1-normalised tf-idf values (at most F of them), kept on the host as the
+reference keeps them (``bow_vector``, ``l1_scores``,
+``shared_word_counts`` and ``detect_candidates`` are the dense forms
+that no path of either package calls).  Candidate ranking takes the
+top-k of the reference as a stable descending sort, so equal values keep
+the lower index first.
 
 The vocabulary is trained by hierarchical k-majority, through the native
 trainer (``native/libvocab.so``, ctypes) when it loads, else in numpy, or
 read from a DBoW2 text file (``load_orbvoc_text``, the reference's
-ORBvoc.txt format; ``default_vocabulary`` looks for one).
+ORBvoc.txt format; ``default_vocabulary`` looks for one), or synthesised
+at the reference's scale (``synthesize_vocabulary``).
 """
 
 from __future__ import annotations
@@ -239,6 +242,33 @@ def shared_words_sparse(q_dense: torch.Tensor,
     return (present & (db_words >= 0)).sum(-1)
 
 
+def bow_vector(voc: Vocabulary, words: torch.Tensor,
+               valid: torch.Tensor) -> torch.Tensor:
+    """Word ids [F] and their mask -> dense L1-normalised tf-idf [W]."""
+    tf = torch.zeros(voc.n_words, dtype=torch.float32, device=words.device)
+    tf.index_add_(0, torch.where(valid, words, 0).long(),
+                  valid.to(torch.float32))
+    v = tf * voc.idf
+    return v / torch.clamp(v.abs().sum(), min=1e-9)
+
+
+def l1_scores(query: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
+    """DBoW2 L1 similarity 1 - 0.5 |q - d|_1 of L1-normalised dense
+    vectors: query [W], db [K, W] -> [K]."""
+    return 1.0 - 0.5 * (query[None, :] - db).abs().sum(-1)
+
+
+def shared_word_counts(query_words, query_valid,
+                       db_word_mask: torch.Tensor) -> torch.Tensor:
+    """The number of the query's distinct words present in each db
+    keyframe's word set (``db_word_mask`` [K, W] bool) -> [K]."""
+    q = torch.zeros(db_word_mask.shape[1], dtype=torch.float32,
+                    device=db_word_mask.device)
+    q.index_add_(0, torch.where(query_valid, query_words, 0).long(),
+                 query_valid.to(torch.float32))
+    return (db_word_mask & (q > 0)[None, :]).sum(-1)
+
+
 def _top_k(x: torch.Tensor, k: int):
     """``jax.lax.top_k`` along the last axis: descending, equal values in
     index order."""
@@ -281,6 +311,42 @@ def detect_candidates_grouped(scores: torch.Tensor, shared: torch.Tensor,
                                 n_out)
     return (best_kf[ranked].to(torch.int32), ranked_acc,
             torch.isfinite(ranked_acc))
+
+
+def detect_candidates(scores: torch.Tensor, shared: torch.Tensor,
+                      eligible: torch.Tensor, same_map: torch.Tensor,
+                      n_best: int = 3):
+    """DetectNBestCandidates without the covisibility groups: keyframes
+    sharing >= 0.8x the most common words, the ``n_best`` best scores among
+    the same map's (loop) and among the other maps' (merge).  Returns
+    (loop_idx [n], loop_ok [n], merge_idx [n], merge_ok [n])."""
+    max_common = torch.where(eligible, shared, 0).max()
+    gate = (eligible & (shared.to(torch.float32)
+                        >= 0.8 * max_common.to(torch.float32))
+            & (shared > 0))
+    s = torch.where(gate, scores, -torch.inf)
+    lv, li = _top_k(torch.where(same_map, s, -torch.inf), n_best)
+    mv, mi = _top_k(torch.where(~same_map, s, -torch.inf), n_best)
+    return (li.to(torch.int32), torch.isfinite(lv), mi.to(torch.int32),
+            torch.isfinite(mv))
+
+
+def synthesize_vocabulary(k: int = 10, depth: int = 6,
+                          seed: int = 0) -> Vocabulary:
+    """A coherent k^depth-leaf vocabulary at the reference's scale (its
+    ORBvoc is a 10^6-leaf k = 10, L = 6 tree): children flip their
+    parent's bits at a rate decaying with depth, so greedy descent is
+    stable; the reference's draws, for runs without a trained file."""
+    rng = np.random.default_rng(seed)
+    levels = []
+    parent_bits = rng.integers(0, 2, (1, 256), dtype=np.uint8)
+    for lv in range(depth):
+        rep = np.repeat(parent_bits, k, axis=0)
+        flips = rng.random((k ** (lv + 1), 256)) < 0.25 / (1.6 ** lv)
+        bits = (rep ^ flips).astype(np.uint8)
+        levels.append(_pack_bits_np(bits))
+        parent_bits = bits
+    return _vocabulary(levels, np.ones(k ** depth, np.float32), k, depth)
 
 
 # ---------------------------------------------------------------------------

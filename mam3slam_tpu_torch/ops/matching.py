@@ -28,6 +28,12 @@ radius_mask = cuda_match.radius_mask
 level_window_mask = cuda_match.level_window_mask
 
 
+def hamming_pairs(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
+    """Hamming distance of paired packed descriptors [..., 32] u8 -> i32."""
+    x = torch.bitwise_xor(desc_a, desc_b)
+    return cuda_match.unpack_bits(x).sum(-1).to(torch.int32)
+
+
 class MatchResult(NamedTuple):
     """Per-query best match into a target feature set."""
 

@@ -32,6 +32,7 @@ from mam3slam_tpu_torch.geometry import lie
 from mam3slam_tpu_torch.mapstate import state as S
 from mam3slam_tpu_torch.ops import bow
 from mam3slam_tpu_torch.ops import matching as M
+from mam3slam_tpu_torch.parallel import dist_window_ba
 from mam3slam_tpu_torch.slam.background_gba import BackgroundGBA
 from mam3slam_tpu_torch.solvers import pgo as pgo_mod
 from mam3slam_tpu_torch.solvers import sim3 as sim3_mod
@@ -70,6 +71,11 @@ class ServerConfig:
     # later keyframe (the reference's GBA thread)
     async_gba: bool = False
     max_kf_for_gba: int = 200
+    # run the global BA distributed over this DeviceMesh (parallel/
+    # dist_window_ba.dist_global_ba; the server on the mesh's rank 0, the
+    # other ranks in dist_window_ba.serve), reducing over its last axis:
+    # a 1-D mesh's own, the "chip" axis of a ("host", "chip") mesh
+    gba_mesh: Optional[object] = None
 
 
 def _batched_rel(q, t, ei, ej):
@@ -431,9 +437,16 @@ class LoopServer:
 
     # ------------------------------------------------------------------
     def _run_gba(self, map_id: int):
-        """The conditional full-map BA: a synchronous epoch, or started in
-        the background with ``cfg.async_gba`` (unless one is in flight)."""
+        """The conditional full-map BA: a synchronous epoch (distributed
+        over ``cfg.gba_mesh`` when one is set), or started in the
+        background with ``cfg.async_gba`` (unless one is in flight)."""
         self.gba_runs.append(map_id)
+        if self.cfg.gba_mesh is not None:
+            mesh = self.cfg.gba_mesh
+            self.sys.ms = dist_window_ba.dist_global_ba(
+                self.sys.ms, self.sys.cfg, mesh, map_id,
+                self.sys.cfg.cam_kind, axis=mesh.mesh_dim_names[-1])
+            return
         if self.cfg.async_gba:
             if self.gba is None:
                 self.gba = BackgroundGBA(self.sys, stream=self.gba_device)

@@ -310,6 +310,70 @@ def keyframe_redundancy(ms: S.MapState, kf, scale_margin: int = 1):
 
 
 # ---------------------------------------------------------------------------
+# edge-list BA wiring (solvers/ba.py: run_ba)
+# ---------------------------------------------------------------------------
+
+def build_local_ba_problem(ms: S.MapState, opt_kf_mask,
+                           inv_sigma2) -> ba_mod.BAProblem:
+    """A ``BAProblem`` over the whole arenas, selected by masks: the
+    cameras in ``opt_kf_mask`` free, every other observing keyframe fixed,
+    the points observed by a free camera free.  The edge list is every
+    (keyframe, feature) slot, [K * F], valid where it links a live point
+    and touches a free camera or point."""
+    K, F = ms.kf_feat_mp.shape
+    P = ms.mp_valid.shape[0]
+    dev = ms.kf_feat_mp.device
+    fmp = ms.kf_feat_mp.reshape(-1)
+    mp_c = torch.clamp(fmp, min=0).long()
+    obs_kf = torch.arange(K, dtype=torch.int32,
+                          device=dev).repeat_interleave(F)
+    link = (fmp >= 0) & opt_kf_mask[obs_kf.long()]
+    pt_free = S.set_rows(torch.zeros(P, dtype=torch.bool, device=dev),
+                         torch.where(link, mp_c, P), True) & ms.mp_valid
+    obs_valid = ((fmp >= 0) & ms.kf_valid[obs_kf.long()] & ms.mp_valid[mp_c]
+                 & (opt_kf_mask[obs_kf.long()] | pt_free[mp_c]))
+    obs = ba_mod.Obs(cam=obs_kf, pt=mp_c.to(torch.int32),
+                     uv=ms.kf_feat_uv.reshape(-1, 2),
+                     w=inv_sigma2[ms.kf_feat_level.reshape(-1).long()],
+                     valid=obs_valid)
+    return ba_mod.BAProblem(
+        cam_q=ms.kf_q, cam_t=ms.kf_t, cam_params=ms.kf_cam, pts=ms.mp_pos,
+        obs=obs, cam_free=opt_kf_mask & ms.kf_valid, pt_free=pt_free)
+
+
+def compact_ba_problem(prob: ba_mod.BAProblem, cap: int, extra=None):
+    """The valid edges of ``prob`` compacted, in order, into ``cap`` rows
+    (edges past ``cap`` are dropped); ``extra`` [E, ...] is compacted
+    alongside and returned second."""
+    keep = prob.obs.valid
+    pos = torch.cumsum(keep.to(torch.int32), 0) - 1
+    idx = torch.where(keep & (pos < cap), pos, cap).long()
+
+    def put(src, fill=0):
+        out = torch.full((cap + 1,) + src.shape[1:], fill, dtype=src.dtype,
+                         device=src.device)
+        out[idx] = src
+        return out[:cap]
+
+    obs = ba_mod.Obs(cam=put(prob.obs.cam), pt=put(prob.obs.pt),
+                     uv=put(prob.obs.uv), w=put(prob.obs.w),
+                     valid=put(prob.obs.valid, fill=False))
+    if extra is not None:
+        return prob._replace(obs=obs), put(extra)
+    return prob._replace(obs=obs)
+
+
+def apply_ba_result(ms: S.MapState, res: ba_mod.BAResult, opt_kf_mask,
+                    pt_free) -> S.MapState:
+    """Write the optimised cameras of ``opt_kf_mask`` and points of
+    ``pt_free`` back to the arena."""
+    return ms._replace(
+        kf_q=torch.where(opt_kf_mask[:, None], res.cam_q, ms.kf_q),
+        kf_t=torch.where(opt_kf_mask[:, None], res.cam_t, ms.kf_t),
+        mp_pos=torch.where(pt_free[:, None], res.pts, ms.mp_pos))
+
+
+# ---------------------------------------------------------------------------
 # dense window BA wiring (solvers/ba_window.py)
 # ---------------------------------------------------------------------------
 
@@ -325,11 +389,17 @@ def _compact(mask: torch.Tensor, cap: int):
 
 
 def build_window_problem(ms: S.MapState, opt_mask, inv_sigma2,
-                         cam_cap: int, pt_cap: int) -> bw.WindowProblem:
-    """Point-major ``WindowProblem``: the free cameras compacted to
-    ``[cam_cap]``, the points they observe to ``[pt_cap]``, the edges from
-    the reverse-observation table (the reference's ``with_cm=False``).
-    Free cameras or points past their cap stay fixed."""
+                         cam_cap: int, pt_cap: int,
+                         with_cm: bool = False) -> bw.WindowProblem:
+    """``WindowProblem``: the free cameras compacted to ``[cam_cap]``, the
+    points they observe to ``[pt_cap]``, the point-major edges from the
+    reverse-observation table.  Free cameras or points past their cap
+    stay fixed.  ``with_cm`` adds the camera-major view that
+    ``run_window_ba`` needs (each free camera's [F] feature slots, its
+    validity and point-major slot found by a [Kc, F, M] compare against
+    the point-major view, so both views hold one edge set); without it
+    the ``cm_*`` arrays have 0 rows, as every production caller builds
+    them (the reference's default is ``with_cm=True``)."""
     F = ms.kf_feat_mp.shape[1]
     Mo = ms.mp_obs_kf.shape[1]
     dev = ms.kf_q.device
@@ -353,13 +423,28 @@ def build_window_problem(ms: S.MapState, opt_mask, inv_sigma2,
                 & (slots[None, :] < ms.mp_nobs[pi][:, None]) & (pm_kf >= 0)
                 & ms.kf_valid[kfc]
                 & (ms.kf_feat_mp[kfc, ftc] == pt_idx[:, None]))
-    empty = torch.zeros((0, F), device=dev)
+    if with_cm:
+        cm_fmp = ms.kf_feat_mp[ci]                          # [Kc, F]
+        cm_pt = torch.where(cm_fmp >= 0, pt_slot_of[
+            torch.clamp(cm_fmp, min=0).long()], -1)
+        cm_uv = ms.kf_feat_uv[ci]
+        cm_w = inv_sigma2[ms.kf_feat_level[ci].long()]
+        ptc = torch.clamp(cm_pt, min=0).long()
+        feats = torch.arange(F, dtype=torch.int32, device=dev)
+        hit = (pm_valid[ptc] & (pm_kf[ptc] == cam_idx[:, None, None])
+               & (pm_feat[ptc] == feats[None, :, None]))    # [Kc, F, M]
+        cm_mslot = torch.argmax(hit.to(torch.int32), -1).to(torch.int32)
+        cm_valid = hit.any(-1) & (cm_pt >= 0) & cam_valid[:, None]
+    else:
+        cm_uv = torch.zeros((0, F, 2), device=dev)
+        cm_w = torch.zeros((0, F), device=dev)
+        cm_pt = cm_mslot = torch.zeros((0, F), dtype=torch.int32, device=dev)
+        cm_valid = torch.zeros((0, F), dtype=torch.bool, device=dev)
     return bw.WindowProblem(
         cam_idx=cam_idx, cam_valid=cam_valid, cam_q=ms.kf_q[ci],
         cam_t=ms.kf_t[ci], cam_params=ms.kf_cam[ci],
-        cm_uv=torch.zeros((0, F, 2), device=dev), cm_w=empty,
-        cm_pt=empty.to(torch.int32), cm_mslot=empty.to(torch.int32),
-        cm_valid=empty.to(torch.bool),
+        cm_uv=cm_uv, cm_w=cm_w, cm_pt=cm_pt, cm_mslot=cm_mslot,
+        cm_valid=cm_valid,
         pt_idx=pt_idx, pt_valid=pt_valid, pts=ms.mp_pos[pi],
         pm_kf=pm_kf, pm_feat=pm_feat,
         pm_cslot=torch.where(pm_valid, cam_slot_of[kfc], -1),

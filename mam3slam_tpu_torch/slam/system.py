@@ -170,9 +170,10 @@ def programs(cfg: SlamConfig, kind: int) -> dict:
     ``reconstruct``, ``create_initial_map``, ``initial_gba_and_rescale``),
     mapping (``add_kf_step``, ``cull_map_points``,
     ``triangulate_multi_step``, ``local_ba``, ``cull_pack``,
-    ``remove_kf``, ``mapping_epoch``) and the loop server's (``fuse_step``,
-    ``refresh_stats``, ``welding_ba``, ``global_ba``; ``global_ba_masks``
-    for the background GBA)."""
+    ``remove_kf``, ``mapping_epoch``; ``triangulate_step`` and
+    ``kf_redundancy_batch``, which no path calls) and the loop server's
+    (``fuse_step``, ``refresh_stats``, ``welding_ba``, ``global_ba``;
+    ``global_ba_masks`` for the background GBA)."""
     W, H = float(cfg.width), float(cfg.height)
     per_device = {}
 
@@ -407,6 +408,25 @@ def programs(cfg: SlamConfig, kind: int) -> dict:
         ms = S.update_covis_for_kf(ms, kf)
         return ms, any_ok.to(torch.int32).sum(), n_drop
 
+    def triangulate_step(ms, kf1, kf2, map_id):
+        """CreateNewMapPoints against one neighbour ``kf2``.  Returns (ms,
+        n_new, n_dropped)."""
+        s2 = consts(ms.mp_pos.device)[2]
+        kf2 = torch.as_tensor(kf2, device=ms.mp_pos.device)
+        ok, X, f1, f2 = steps.triangulate_with_neighbor(ms, kf1, kf2[None],
+                                                        kind, s2)
+        ms, n_drop = steps.add_triangulated_points(ms, kf1, kf2, ok[0], X[0],
+                                                   f1, f2[0], map_id)
+        ms = S.update_covis_for_kf(ms, kf1)
+        return ms, ok.to(torch.int32).sum(), n_drop
+
+    def kf_redundancy_batch(ms, cands, cand_ok):
+        """``keyframe_redundancy`` of every culling candidate at once:
+        (redundant fraction, tracked points), 0 where not ``cand_ok``."""
+        frac, ntr = steps.keyframe_redundancy(ms, torch.clamp(cands, min=0))
+        return (torch.where(cand_ok, frac, 0.0),
+                torch.where(cand_ok, ntr, 0))
+
     def _window_mask(ms, center_kf):
         idx, _, ok = S.best_covisible(ms, center_kf, cfg.lba_window)
         mask = torch.zeros_like(ms.kf_valid)
@@ -566,6 +586,8 @@ def programs(cfg: SlamConfig, kind: int) -> dict:
         "add_kf_step": add_kf_step,
         "cull_map_points": cull_map_points,
         "triangulate_multi_step": triangulate_multi_step,
+        "triangulate_step": triangulate_step,
+        "kf_redundancy_batch": kf_redundancy_batch,
         "local_ba": local_ba,
         "cull_pack": cull_pack,
         "remove_kf": S.remove_keyframe,

@@ -1,21 +1,26 @@
-"""Motion-only pose optimisation (reference Optimizer::PoseOptimization)
-and the edge helpers of the visual-inertial solvers.
+"""Edge-list bundle adjustment and motion-only pose optimisation
+(reference Optimizer::BundleAdjustment / LocalBundleAdjustment and
+PoseOptimization).
 
-Port of ``mam3slam_tpu.solvers.ba.pose_optimization``.  A problem on CUDA
-tensors runs the pose kernel of ``ops/cuda_pose.py`` for either camera
-kind (the reference sends only PINHOLE to its Pallas kernel and KB8 to
-XLA); CPU tensors take the plain version.  ``Obs``, ``_edge_linearize``
-and ``_segsum`` are the reference's reprojection-edge helpers that
-``solvers/vi.py`` uses (its Huber weight and 3x3 SPD inverse are
-``ba_window``'s).  ``run_ba`` and ``build_local_ba_problem`` are not
-ported.
+Port of ``mam3slam_tpu.solvers.ba``.  ``run_ba`` is the mask-aware LM
+over an edge list (``BAProblem``): each iteration linearises every edge,
+solves the reduced camera system by matrix-free Schur PCG (two segment
+sums per product, block-Jacobi preconditioner) and back-substitutes the
+points.  With ``group`` (a ``torch.distributed`` process group) the edges
+are this rank's shard and every segment sum and the cost are
+all-reduced over the group, so all ranks step identically
+(``parallel/dist_ba.py``).  ``pose_optimization`` on CUDA tensors runs
+the pose kernel of ``ops/cuda_pose.py`` for either camera kind (the
+reference sends only PINHOLE to its Pallas kernel and KB8 to XLA); CPU
+tensors take the plain version.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 from mam3slam_tpu_torch import _build
 from mam3slam_tpu_torch.geometry import cameras as cam_mod
@@ -49,11 +54,190 @@ def _edge_linearize(cam_q, cam_t, cam_params, kind, pts, obs: Obs):
     return r, Jc, Jp, Xc[..., 2] > 1e-3
 
 
-def _segsum(vals: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
-    """Segment sum of per-edge values into ``n`` vertex rows."""
+class BAProblem(NamedTuple):
+    cam_q: torch.Tensor       # [K, 4] T_cw rotation (world -> camera)
+    cam_t: torch.Tensor       # [K, 3]
+    cam_params: torch.Tensor  # [K, 8] intrinsics
+    pts: torch.Tensor         # [P, 3] world points
+    obs: Obs
+    cam_free: torch.Tensor    # [K] bool, False = fixed
+    pt_free: torch.Tensor     # [P] bool
+
+
+class BAResult(NamedTuple):
+    cam_q: torch.Tensor
+    cam_t: torch.Tensor
+    pts: torch.Tensor
+    inlier: torch.Tensor      # [E] bool, chi2-gated at the solution
+    cost: torch.Tensor        # [] robust cost
+
+
+def _segsum(vals: torch.Tensor, idx: torch.Tensor, n: int,
+            group=None) -> torch.Tensor:
+    """Segment sum of per-edge values into ``n`` vertex rows; with a
+    process group, the partial sums are all-reduced over it."""
     out = torch.zeros((n,) + vals.shape[1:], dtype=vals.dtype,
                       device=vals.device)
-    return out.index_add_(0, idx.long(), vals)
+    out.index_add_(0, idx.long(), vals)
+    if group is not None:
+        dist.all_reduce(out, group=group)
+    return out
+
+
+_huber_w = cuda_pose._huber_w   # IRLS weight of the Huber kernel
+
+
+def _rho(chi2, delta2):
+    """The Huber cost of whitened chi2."""
+    return torch.where(chi2 <= delta2, chi2,
+                       2.0 * torch.sqrt(delta2 * torch.clamp(chi2, min=1e-12))
+                       - delta2)
+
+
+def _spd_inv3(A: torch.Tensor, damp: float = 1e-8) -> torch.Tensor:
+    return torch.linalg.inv_ex(A + damp * torch.eye(3, dtype=A.dtype,
+                                                    device=A.device))[0]
+
+
+def _spd_inv6(A: torch.Tensor, damp: float = 1e-8) -> torch.Tensor:
+    return torch.linalg.inv_ex(A + damp * torch.eye(6, dtype=A.dtype,
+                                                    device=A.device))[0]
+
+
+def ba_cost_and_inliers(problem: BAProblem, kind: int,
+                        chi2_th: float = CHI2_MONO, group=None):
+    """Robust cost (all-reduced over ``group``) and the chi2 inlier mask
+    of the edges at the current estimate."""
+    r, _, _, depth_ok = _edge_linearize(
+        problem.cam_q, problem.cam_t, problem.cam_params, kind,
+        problem.pts, problem.obs)
+    chi2 = problem.obs.w * (r * r).sum(-1)
+    active = problem.obs.valid & depth_ok
+    cost = torch.where(active, _rho(chi2, chi2_th), 0.0).sum()
+    if group is not None:
+        dist.all_reduce(cost, group=group)
+    return cost, active & (chi2 < chi2_th)
+
+
+def _damp(H, free, lam):
+    """LM damping of the diagonal; fixed vertices get an identity block."""
+    eye = torch.eye(H.shape[-1], dtype=H.dtype, device=H.device)
+    add = lam * torch.clamp(torch.diagonal(H, dim1=-2, dim2=-1), min=1e-6) \
+        + 1e-8
+    return torch.where(free[:, None, None], H + add[..., None] * eye, eye)
+
+
+def _lm_iteration(problem: BAProblem, kind: int, lam, edge_mask,
+                  huber_delta2: float, cg_iters: int, robust: bool,
+                  group=None):
+    """One LM step: linearise, Schur PCG for the camera step, point
+    back-substitution.  Returns the trial (q, t, pts)."""
+    K = problem.cam_q.shape[0]
+    P = problem.pts.shape[0]
+    obs = problem.obs
+    oc, op = obs.cam.long(), obs.pt.long()
+
+    def seg(vals, idx, n):
+        return _segsum(vals, idx, n, group)
+
+    r, Jc, Jp, depth_ok = _edge_linearize(
+        problem.cam_q, problem.cam_t, problem.cam_params, kind,
+        problem.pts, obs)
+    chi2 = obs.w * (r * r).sum(-1)
+    w_rob = _huber_w(chi2, huber_delta2) if robust else torch.ones_like(chi2)
+    w = torch.where(edge_mask & depth_ok, obs.w * w_rob, 0.0)
+    # fixed vertices' jacobians are zero (their state never moves)
+    Jc = torch.where(problem.cam_free[oc][:, None, None], Jc, 0.0)
+    Jp = torch.where(problem.pt_free[op][:, None, None], Jp, 0.0)
+    wJc = Jc * w[:, None, None]
+    wJp = Jp * w[:, None, None]
+
+    g_c = seg(torch.einsum("eij,ei->ej", wJc, r), oc, K)
+    g_p = seg(torch.einsum("eij,ei->ej", wJp, r), op, P)
+    Hcc = seg(torch.einsum("eik,eij->ekj", wJc, Jc), oc, K)
+    Hpp = seg(torch.einsum("eik,eij->ekj", wJp, Jp), op, P)
+    W_e = torch.einsum("eik,eij->ekj", wJc, Jp)               # [E, 6, 3]
+
+    Hcc_l = _damp(Hcc, problem.cam_free, lam)
+    Hpp_inv = _spd_inv3(_damp(Hpp, problem.pt_free, lam))
+
+    def S_mv(v):  # (Hcc_l - W Hpp^-1 W^T) v, v [K, 6]
+        u = torch.einsum("ekj,ek->ej", W_e, v[oc])
+        z = torch.einsum("pij,pj->pi", Hpp_inv, seg(u, op, P))
+        back = torch.einsum("ekj,ej->ek", W_e, z[op])
+        return torch.einsum("kij,kj->ki", Hcc_l, v) - seg(back, oc, K)
+
+    z0 = torch.einsum("pij,pj->pi", Hpp_inv, g_p)
+    b = -g_c + seg(torch.einsum("ekj,ej->ek", W_e, z0[op]), oc, K)
+    WHW = torch.einsum("eik,ekl,ejl->eij", W_e, Hpp_inv[op], W_e)
+    M_inv = _spd_inv6(Hcc_l - seg(WHW, oc, K))
+    x = _pcg(S_mv, lambda v: torch.einsum("kij,kj->ki", M_inv, v), b,
+             cg_iters)
+    dx_c = torch.where(problem.cam_free[:, None], x, 0.0)
+
+    u = torch.einsum("ekj,ek->ej", W_e, dx_c[oc])
+    dx_p = torch.einsum("pij,pj->pi", Hpp_inv, -g_p - seg(u, op, P))
+    dx_p = torch.where(problem.pt_free[:, None], dx_p, 0.0)
+
+    dT = lie.se3_exp(dx_c)
+    return (lie.quat_normalize(lie.quat_mul(dT.q, problem.cam_q)),
+            lie.quat_rotate(dT.q, problem.cam_t) + dT.t,
+            problem.pts + dx_p)
+
+
+def _pcg(S_mv, precond, b, iters: int):
+    """``iters`` steps of preconditioned CG on S x = b from x = 0 (the
+    reference's fixed-count loop, its divisions guarded at 1e-20)."""
+    x = torch.zeros_like(b)
+    rr = b - S_mv(x)
+    p = precond(rr)
+    rz = (rr * p).sum()
+    for _ in range(iters):
+        Sp = S_mv(p)
+        den = (p * Sp).sum()
+        alpha = rz / torch.where(torch.abs(den) < 1e-20, 1e-20, den)
+        x = x + alpha * p
+        rr = rr - alpha * Sp
+        zz = precond(rr)
+        rz_new = (rr * zz).sum()
+        beta = rz_new / torch.where(torch.abs(rz) < 1e-20, 1e-20, rz)
+        p = zz + beta * p
+        rz = rz_new
+    return x
+
+
+def run_ba(problem: BAProblem, kind: int, iters: int = 10,
+           cg_iters: int = 30, huber_delta2: float = CHI2_MONO,
+           robust: bool = True, chi2_th: float = CHI2_MONO,
+           edge_mask: Optional[torch.Tensor] = None, lam0: float = 1e-4,
+           group=None) -> BAResult:
+    """LM with accept / reject and adaptive damping over a fixed budget
+    (the reference's BundleAdjustment / LocalBundleAdjustment): Huber
+    robustness, chi2 inlier classification of the result's edges."""
+    obs = problem.obs
+    mask0 = obs.valid if edge_mask is None else (obs.valid & edge_mask)
+    names = ("cam_q", "cam_t", "pts")
+
+    def cost_at(prob):
+        return ba_cost_and_inliers(prob, kind, chi2_th, group)[0]
+
+    lam = torch.tensor(lam0, dtype=torch.float32, device=problem.pts.device)
+    cost = cost_at(problem)
+    for _ in range(iters):
+        trial = problem._replace(**dict(zip(names, _lm_iteration(
+            problem, kind, lam, mask0, huber_delta2, cg_iters, robust,
+            group))))
+        new_cost = cost_at(trial)
+        accept = new_cost < cost
+        lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-7),
+                          torch.clamp(lam * 4.0, max=1e4))
+        problem = problem._replace(**{
+            n: torch.where(accept, getattr(trial, n), getattr(problem, n))
+            for n in names})
+        cost = torch.where(accept, new_cost, cost)
+    _, inlier = ba_cost_and_inliers(problem, kind, chi2_th)
+    return BAResult(cam_q=problem.cam_q, cam_t=problem.cam_t,
+                    pts=problem.pts, inlier=inlier & mask0, cost=cost)
 
 
 class PoseOptResult(NamedTuple):

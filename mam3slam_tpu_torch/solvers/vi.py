@@ -187,14 +187,18 @@ def vi_cost(prob: VIProblem, kind: int, walk_g2, walk_a2,
 
 
 def _vi_lm_iteration(prob: VIProblem, kind: int, lam, walk_g2, walk_a2,
-                     huber_delta2, cg_iters):
+                     huber_delta2, cg_iters, group=None):
     """One LM step over the 15-dof nav blocks with the points
-    Schur-eliminated.  Returns (q, t, vel, bg, ba, pts)."""
+    Schur-eliminated; with a process group every segment sum is
+    all-reduced over it (edges sharded).  Returns (q, t, vel, bg, ba,
+    pts)."""
     K = prob.cam_q.shape[0]
     P = prob.pts.shape[0]
     obs = prob.obs
     oc, op = obs.cam.long(), obs.pt.long()
-    seg = ba_mod._segsum
+    def seg(vals, idx, n):
+        return ba_mod._segsum(vals, idx, n, group)
+
     dt_, dev = prob.cam_t.dtype, prob.cam_t.device
     eye15 = _eye(15, prob.cam_t)
     eye3 = _eye(3, prob.cam_t)
@@ -302,17 +306,18 @@ def _vi_lm_iteration(prob: VIProblem, kind: int, lam, walk_g2, walk_a2,
 def run_vi_ba(prob: VIProblem, kind: int, calib: imu_mod.ImuCalib,
               iters: int = 10, cg_iters: int = 40,
               huber_delta2: float = ba_mod.CHI2_MONO,
-              lam0: float = 1e-4) -> VIResult:
+              lam0: float = 1e-4, group=None) -> VIResult:
     """Visual-inertial BA (FullInertialBA; with boundary keyframes fixed
     through ``cam_free``, LocalInertialBA / MergeInertialBA): LM with
-    accept / reject."""
+    accept / reject.  ``group``: the process group the linearisation's
+    segment sums are all-reduced over (the reference's ``axis_name``)."""
     _, _, walk_g2, walk_a2 = imu_mod.calib_squares(calib, prob.cam_t)
     lam = torch.tensor(lam0, dtype=prob.cam_t.dtype, device=prob.cam_t.device)
     cost = vi_cost(prob, kind, walk_g2, walk_a2, huber_delta2)
     names = ("cam_q", "cam_t", "vel", "bg", "ba", "pts")
     for _ in range(iters):
         new = _vi_lm_iteration(prob, kind, lam, walk_g2, walk_a2,
-                               huber_delta2, cg_iters)
+                               huber_delta2, cg_iters, group)
         trial = prob._replace(**dict(zip(names, new)))
         new_cost = vi_cost(trial, kind, walk_g2, walk_a2, huber_delta2)
         accept = new_cost < cost

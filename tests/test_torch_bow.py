@@ -192,3 +192,100 @@ def test_orbvoc_incomplete_tree_matches_reference(tmp_path):
     np.testing.assert_array_equal(
         tbow.quantize(got, torch.from_numpy(d)).numpy(),
         np.asarray(jbow.quantize(ref, JM.unpack_desc(jnp.asarray(d)))))
+
+
+def test_dense_bow_vectors_and_scores_match_reference(vocs):
+    """``bow_vector``, ``l1_scores`` and ``shared_word_counts`` (the dense
+    forms, tests/test_bow.py:60 and tests/test_vocab_scale.py:100): the
+    reference's vectors within 1e-7, scores within 1e-6, counts equal;
+    a noisy copy scores above an unrelated frame by > 0.3, and the dense
+    scores equal the sparse ones the server uses."""
+    ref_voc, voc = vocs
+    rng = np.random.default_rng(4)
+    frames = [DESCS[:200], _noisy(DESCS[:200], 1, rng),
+              rng.integers(0, 256, (200, 32), dtype=np.uint8)]
+    valid = rng.random(200) < 0.9
+    vecs, rvecs, words = [], [], []
+    for d in frames:
+        w = tbow.quantize(voc, torch.from_numpy(d))
+        words.append(w)
+        vecs.append(tbow.bow_vector(voc, w, torch.from_numpy(valid)))
+        rvecs.append(jbow.bow_vector(ref_voc, jnp.asarray(w.numpy()),
+                                     jnp.asarray(valid)))
+        np.testing.assert_allclose(vecs[-1].numpy(), np.asarray(rvecs[-1]),
+                                   atol=1e-7)
+    db, rdb = torch.stack(vecs[1:]), jnp.stack(rvecs[1:])
+    got = tbow.l1_scores(vecs[0], db).numpy()
+    np.testing.assert_allclose(got, np.asarray(jbow.l1_scores(rvecs[0], rdb)),
+                               atol=1e-6)
+    assert got[0] > got[1] + 0.3, got
+    mask = torch.stack([torch.zeros(voc.n_words, dtype=torch.bool)
+                        .index_fill_(0, w.long(), True) for w in words[1:]])
+    np.testing.assert_array_equal(
+        tbow.shared_word_counts(words[0], torch.from_numpy(valid),
+                                mask).numpy(),
+        np.asarray(jbow.shared_word_counts(jnp.asarray(words[0].numpy()),
+                                           jnp.asarray(valid),
+                                           jnp.asarray(mask.numpy()))))
+    rows = [tbow.sparse_bow_row(voc, w.numpy(), valid, 200) for w in words]
+    sparse = tbow.l1_scores_sparse(
+        torch.from_numpy(tbow.dense_query(voc, *rows[0])),
+        torch.from_numpy(np.stack([r[0] for r in rows[1:]])),
+        torch.from_numpy(np.stack([r[1] for r in rows[1:]])))
+    np.testing.assert_allclose(sparse.numpy(), got, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["planted", "random"])
+def test_detect_candidates_matches_reference(case):
+    """``detect_candidates`` (tests/test_bow.py:77's planted gate and
+    split, and a draw with ties): every output equal to the reference's;
+    the planted case's own gates."""
+    if case == "planted":
+        K = 10
+        scores = np.linspace(0.1, 0.9, K).astype(np.float32)
+        shared = np.array([50, 45, 44, 10, 44, 44, 3, 44, 50, 44], np.int32)
+        eligible = np.ones(K, bool)
+        eligible[9] = False
+        same_map = np.array([True] * 5 + [False] * 5)
+    else:
+        rng = np.random.default_rng(5)
+        K = 40
+        scores = rng.choice([0.1, 0.2, 0.3], K).astype(np.float32)
+        shared = rng.choice([0, 30, 40, 50], K).astype(np.int32)
+        eligible = rng.random(K) < 0.8
+        same_map = rng.random(K) < 0.5
+    args = (scores, shared, eligible, same_map)
+    for n_best in (3, 5):
+        ref = jbow.detect_candidates(*(jnp.asarray(x) for x in args),
+                                     n_best=n_best)
+        got = tbow.detect_candidates(*(torch.from_numpy(x) for x in args),
+                                     n_best=n_best)
+        for g, r in zip(got, ref):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    if case == "planted":
+        li, lok, mi, mok = (x.numpy() for x in tbow.detect_candidates(
+            *(torch.from_numpy(x) for x in args)))
+        assert 3 not in set(li[lok])
+        assert 6 not in set(mi[mok]) and 9 not in set(mi[mok])
+        assert mi[0] == 8 and mok[0]
+
+
+def test_synthesized_vocabulary_matches_reference():
+    """``synthesize_vocabulary`` at the reference's scale (10^6 leaves,
+    tests/test_vocab_scale.py:198): every level's centroids equal to the
+    reference's, ~35.5 MB packed; a frame of 768 descriptors quantises to
+    the reference's words and the first 64 leaf centroids to themselves."""
+    ref = jbow.synthesize_vocabulary(k=10, depth=6, seed=1)
+    voc = tbow.synthesize_vocabulary(k=10, depth=6, seed=1)
+    assert voc.n_leaves == voc.n_words == 10 ** 6
+    for r, g in zip(ref.centroid_bits, voc.centroid_bits):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    np.testing.assert_array_equal(voc.idf.numpy(), np.asarray(ref.idf))
+    assert sum(c.numel() for c in voc.centroid_bits) < 40e6
+    desc = np.random.default_rng(0).integers(0, 256, (768, 32),
+                                             dtype=np.uint8)
+    words = tbow.quantize(voc, torch.from_numpy(desc)).numpy()
+    np.testing.assert_array_equal(words, np.asarray(jbow.quantize(
+        ref, JM.unpack_desc(jnp.asarray(desc)))))
+    leaves = tbow.quantize(voc, voc.centroid_bits[-1][:64]).numpy()
+    assert (leaves == np.arange(64)).mean() > 0.9

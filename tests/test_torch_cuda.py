@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 card, at small shapes and at the callers' shapes (tracking, fuse, Sim3
 search; the pose at a batch of two and past the edges kept in
-registers).  Marked ``cuda``: they skip where torch sees no CUDA device.
+registers, and at the agent batches of ``batched_pose_optimization``).
+Marked ``cuda``: they skip where torch sees no CUDA device.
 
     pytest --noconftest tests/test_torch_cuda.py
 """
@@ -291,6 +292,40 @@ def test_pose_kernel_batch_and_long_edge_lists_match_plain(dev, B, n):
         assert (t[b] - pt).norm() < 5e-3
         assert (inl[b] == pinl).float().mean() >= 0.99
         assert int(n_in[b]) == int(inl[b].sum())
+
+
+@pytest.mark.parametrize("B", [4, 8])
+def test_batched_pose_optimization_is_one_launch(dev, B, tmp_path):
+    """``parallel.dist_ba.batched_pose_optimization`` on a one-rank mesh
+    (gloo, CUDA tensors): the B agents' problems go to the pose kernel's
+    batch axis in one launch, each within the plain version's tolerance
+    (rotation 2e-3 rad, translation 5e-3, >= 99% of the edges alike)."""
+    from mam3slam_tpu_torch.parallel import dist_ba, mesh
+
+    rng = np.random.default_rng(40 + B)
+    n = 1024
+    fxycxy = torch.tensor([458.654, 457.296, 367.215, 248.375], device=dev)
+    q0, t0, pts, uv, valid = [torch.stack(x) for x in zip(
+        *[_pose_problem(rng, n, fxycxy, dev) for _ in range(B)])]
+    w = torch.ones(B, n, device=dev)
+    params = torch.cat([fxycxy, torch.zeros_like(fxycxy)])
+    cams = params.expand(B, 8).contiguous()
+    m = mesh.init_mesh((1,), ("agent",), "gloo", f"file://{tmp_path}/s",
+                       device=dev)
+    try:
+        fn = dist_ba.batched_pose_optimization(m, 0)
+        res = _counted("pose_opt", lambda: fn(q0, t0, cams, pts, uv, w,
+                                               valid))
+    finally:
+        mesh.close_mesh()
+    for b in range(B):
+        pq, pt, pinl, _ = CP.pose_optimization_plain(
+            q0[b], t0[b], params, 0, pts[b], uv[b], w[b], valid[b])
+        dot = (res.q[b] * pq).sum().abs().clamp(max=1.0)
+        assert 2 * torch.acos(dot) < 2e-3
+        assert (res.t[b] - pt).norm() < 5e-3
+        assert (res.inlier[b] == pinl).float().mean() >= 0.99
+        assert int(res.n_inliers[b]) == int(res.inlier[b].sum())
 
 
 def _pose_problem(rng, n, fxycxy, dev):

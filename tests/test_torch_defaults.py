@@ -16,6 +16,7 @@ from mam3slam_tpu_torch.geometry import cameras
 from mam3slam_tpu_torch.io import daemon, render, settings
 from mam3slam_tpu_torch.mapstate import checkpoint
 from mam3slam_tpu_torch.mapstate import state as S
+from mam3slam_tpu_torch.parallel import dist_window_ba, mesh
 from mam3slam_tpu_torch.slam import system
 
 ENTRY_POINTS = {
@@ -32,6 +33,12 @@ ENTRY_POINTS = {
     "MultiAgentSystem": api.MultiAgentSystem,
     "Settings.camera": settings.Settings.camera,
     "MjpegServer": daemon.MjpegServer,
+    "convert.obs_from_numpy": convert.obs_from_numpy,
+    "convert.ba_problem_from_numpy": convert.ba_problem_from_numpy,
+    "convert.window_problem_from_numpy": convert.window_problem_from_numpy,
+    "window_problem_from_edges": dist_window_ba.window_problem_from_edges,
+    "mesh.init_mesh": mesh.init_mesh,
+    "mesh.run_ranks": mesh.run_ranks,
 }
 
 
@@ -69,6 +76,25 @@ def test_async_facade_without_device_lies_on_cuda_or_raises():
         return
     mas = api.MultiAgentSystem(async_mapping=True, pipeline=True)
     assert mas.device.type == "cuda"
+
+
+def test_mesh_and_ranks_without_device_lie_on_cuda_or_raise(tmp_path):
+    """A mesh, and spawned ranks, asked for with no device are CUDA ones:
+    without a card they raise before joining or starting anything."""
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            mesh.init_mesh((1,), ("shard",), "gloo",
+                           f"file://{tmp_path}/store")
+        with pytest.raises(RuntimeError):
+            mesh.run_ranks(print, (2,), ("shard",), str(tmp_path / "r"),
+                           backend="gloo")
+        assert not (tmp_path / "r").exists()
+        return
+    m = mesh.init_mesh((1,), ("shard",), "gloo", f"file://{tmp_path}/store")
+    try:
+        assert m.device_type == "cuda"
+    finally:
+        mesh.close_mesh()
 
 
 def test_load_atlas_follows_the_system_device(tmp_path):

@@ -307,3 +307,36 @@ def test_fuse_and_rebuild_match_reference(jax_map):
     assert int(n_got) == int(n_ref)
     assert_maps_match(got, ref)
     assert int(touched.sum()) >= int(n_got)
+
+
+def test_triangulate_step_matches_reference(jax_map):
+    """The one-neighbour ``triangulate_step`` (which no path calls) on the
+    pre-epoch map with the new keyframe's best covisible: the same points
+    created, the same drops, the same map."""
+    pre, fns = jax_map["pre"], jax_map["fns"]
+    ms, _ = fns["cull_map_points"](pre["ms"], pre["kf"])
+    nb, _, nb_ok = JS.best_covisible(ms, pre["kf"], 8)
+    kf2 = int(np.asarray(nb)[np.argmax(np.asarray(nb_ok))])
+    ref, n_ref, d_ref = fns["triangulate_step"](ms, pre["kf"], kf2,
+                                                pre["map_id"])
+    got, n_got, d_got = jax_map["tfns"]["triangulate_step"](
+        _t_map(ms), pre["kf"], kf2, pre["map_id"])
+    assert int(n_got) == int(n_ref) > 0
+    assert int(d_got) == int(d_ref)
+    assert_maps_match(got, ref)
+
+
+def test_kf_redundancy_batch_matches_reference(jax_map):
+    """``kf_redundancy_batch`` over every keyframe slot, some masked off
+    and one index negative: the reference's fractions and counts."""
+    pre = jax_map["pre"]
+    K = pre["ms"].kf_valid.shape[0]
+    cands = np.arange(-1, K - 1, dtype=np.int32)
+    cand_ok = (cands >= 0) & (np.arange(K) % 3 != 1)
+    frac_r, n_r = jax_map["fns"]["kf_redundancy_batch"](
+        pre["ms"], jnp.asarray(cands), jnp.asarray(cand_ok))
+    frac, n = jax_map["tfns"]["kf_redundancy_batch"](
+        _t_map(pre["ms"]), _T(cands), _T(cand_ok))
+    np.testing.assert_array_equal(n.numpy(), np.asarray(n_r))
+    np.testing.assert_allclose(frac.numpy(), np.asarray(frac_r), atol=1e-6)
+    assert np.asarray(n_r)[cand_ok].max() > 0

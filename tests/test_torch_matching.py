@@ -145,3 +145,17 @@ def test_masks_and_best_in_mask_match_reference():
     np.testing.assert_array_equal(ham_t.numpy(), np.asarray(ham_j))
     _same(TM.best_in_mask(ham_t, mask_t, 80), JM.best_in_mask(ham_j, mask_j,
                                                                80))
+
+
+def test_hamming_pairs_matches_reference():
+    """``hamming_pairs`` (tests/test_matching.py:28): the reference's and
+    a bit count's distances, over a leading batch axis too."""
+    rng = np.random.default_rng(7)
+    a = rng.integers(0, 256, (4, 100, 32), dtype=np.uint8)
+    b = rng.integers(0, 256, (4, 100, 32), dtype=np.uint8)
+    b[0, :10] = a[0, :10]
+    got = TM.hamming_pairs(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(JM.hamming_pairs(
+        jnp.asarray(a), jnp.asarray(b))))
+    np.testing.assert_array_equal(got, np.unpackbits(a ^ b, axis=-1).sum(-1))
+    assert got.dtype == np.int32 and (got[0, :10] == 0).all()

@@ -48,11 +48,12 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert len(PORT_MODULES) >= 39
+    assert len(PORT_MODULES) >= 43
     for m in ("api", "io.settings", "io.stream", "io.euroc", "io.writers",
               "utils.verbose", "slam.background_gba", "mapstate.checkpoint",
               "io.viewer", "io.daemon", "io.images", "solvers.imu",
-              "solvers.vi"):
+              "solvers.vi", "parallel", "parallel.mesh", "parallel.dist_ba",
+              "parallel.dist_window_ba"):
         assert f"mam3slam_tpu_torch.{m}" in PORT_MODULES
 
 
@@ -179,6 +180,31 @@ def test_cpu_tensors_launch_no_kernel():
     assert sum(_build.LAUNCHES.values()) == 0
     assert set(_build.PLAIN_CALLS) == {"orb_desc", "min_hamming2",
                                        "masked_match", "pose_opt"}
+
+
+def test_batched_pose_on_cpu_tensors_launches_no_kernel(tmp_path):
+    """``batched_pose_optimization`` over a mesh solves each rank's agents
+    on CPU tensors with the plain version, one call per agent, and never
+    launches the pose kernel."""
+    from mam3slam_tpu_torch.parallel import dist_ba, mesh
+
+    rng = np.random.default_rng(0)
+    pts = torch.tensor(rng.uniform(1, 3, (3, 32, 3)).astype(np.float32))
+    uv = pts[..., :2] / pts[..., 2:] * 100.0 + torch.tensor([64.0, 48.0])
+    cam = cameras.make_pinhole(100.0, 100.0, 64.0, 48.0, device="cpu")
+    m = mesh.init_mesh((1,), ("agent",), "gloo", f"file://{tmp_path}/s",
+                       device="cpu")
+    _build.reset_counts()
+    try:
+        res = dist_ba.batched_pose_optimization(m, cam.kind)(
+            torch.tensor([[1.0, 0, 0, 0]] * 3), torch.zeros(3, 3),
+            cam.params.expand(3, 8), pts, uv, torch.ones(3, 32),
+            torch.ones(3, 32, dtype=torch.bool))
+    finally:
+        mesh.close_mesh()
+    assert sum(_build.LAUNCHES.values()) == 0
+    assert _build.PLAIN_CALLS["pose_opt"] == 3
+    assert res.t.shape == (3, 3) and (res.n_inliers == 32).all()
 
 
 def test_counts_lose_no_update_across_threads():

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """CPU rehearsal of chip_smoke.py phases 6-10 against the reference.
 
-    python3 tools/chip_rehearsal.py [--loop | --facade [--pipeline D |
-                                     --async] | --daemon | --inertial]
-                                    [--threads N]
+    python3 tools/chip_rehearsal.py [--loop | --four | --facade
+                                     [--pipeline D | --async] | --daemon |
+                                     --inertial] [--threads N]
 
 Phase 6 (default 6a, the two-agent merge arcs; ``--loop``: 6b, the
 one-agent loop arc): renders the phase's frames at half size (376x240,
@@ -12,6 +12,13 @@ MP, the other ``SlamConfig`` and ``ServerConfig`` fields at their
 defaults) and feeds each frame to two systems in lockstep: the JAX
 package's ``SlamSystem`` + ``LoopServer`` (JAX ``extract_orb`` +
 ``with_undistorted``) and the port's (``chip_smoke.frame_of``).
+
+Phase 11a (``--four``): phase 6's half-size setup with four agents on
+``chip_smoke.PHASE11_ARCS`` (``PHASE11_FRAMES`` frames each, room seed
+3, interleaved), each package's server running its global BA on a mesh
+of one (``gba_mesh``: the reference's one-device ``jax.sharding.Mesh``,
+the port's one-rank gloo mesh on the CPU): the figures phase 11a's ATE
+bounds come from (its output: ``tools/chip_rehearsal_11a.log``).
 
 Phase 7 (``--facade``): renders phase 7's 240 frames at 1/3 of the
 fixture camera (320x320 KB8; 8 levels, 700 features, bench.py's
@@ -290,6 +297,8 @@ def main() -> int:
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--loop", action="store_true",
                       help="phase 6b (the loop arc) instead of 6a")
+    mode.add_argument("--four", action="store_true",
+                      help="phase 11a (four agents, global BA on a mesh)")
     mode.add_argument("--facade", action="store_true",
                       help="phase 7 (the facade at 1/3 of the fixture)")
     mode.add_argument("--daemon", action="store_true",
@@ -321,6 +330,8 @@ def main() -> int:
 
     if args.loop:
         specs = [(cs.LOOP_FRAMES, cs.LOOP_ARC)]
+    elif args.four:
+        specs = [(cs.PHASE11_FRAMES, arc) for arc in cs.PHASE11_ARCS]
     else:
         specs = [(cs.MERGE_FRAMES, arc) for arc in cs.MERGE_ARCS]
     arcs = [render.orbit_trajectory(n, a0, a1, radius=2.5, bob=b)
@@ -333,14 +344,25 @@ def main() -> int:
     tsys_ = tsystem.SlamSystem(
         tsystem.SlamConfig(width=W, height=H, n_feat=orb_cfg.capacity,
                            max_kf=MAX_KF, max_mp=MAX_MP), tcam, seed=0)
-    tsys_.server = tserver.LoopServer(tsys_, tserver.ServerConfig())
+    tmesh = jmesh = None
+    if args.four:
+        from jax.sharding import Mesh
+
+        from mam3slam_tpu_torch.parallel import mesh as pmesh
+        store = tempfile.mkdtemp()
+        tmesh = pmesh.init_mesh((1,), ("shard",), "gloo",
+                                f"file://{store}/store", device="cpu")
+        jmesh = Mesh(np.array(jax.devices()[:1]), ("shard",))
+    tsys_.server = tserver.LoopServer(tsys_, tserver.ServerConfig(
+        gba_mesh=tmesh))
 
     jcam_ = jcam.make_pinhole(FX, FY, CX, CY)
     jorb_cfg = jorb.OrbConfig(height=H, width=W, n_features=N_FEATURES)
     jsys_ = jsystem.SlamSystem(
         jsystem.SlamConfig(width=W, height=H, n_feat=jorb_cfg.capacity,
                            max_kf=MAX_KF, max_mp=MAX_MP), jcam_, seed=0)
-    jsys_.server = jserver.LoopServer(jsys_, jserver.ServerConfig())
+    jsys_.server = jserver.LoopServer(jsys_, jserver.ServerConfig(
+        gba_mesh=jmesh))
 
     @jax.jit
     def jextract(img):
@@ -363,12 +385,15 @@ def main() -> int:
         if i % 50 == 0:
             print(f"[progress] frame={i} s={time.perf_counter() - t0:.1f}",
                   flush=True)
-    print(f"[setup] phase={'6b' if args.loop else '6a'} size={W}x{H} "
+    phase = "6b" if args.loop else "11a" if args.four else "6a"
+    print(f"[setup] phase={phase} size={W}x{H} "
           f"features={N_FEATURES} caps={MAX_KF}/{MAX_MP} "
           f"frames={len(arcs[0])}x{len(arcs)} "
           f"seconds={time.perf_counter() - t0:.1f}", flush=True)
     summary("reference", jsys_, jaids, arcs, jstates, jsystem.OK)
     summary("port", tsys_, taids, arcs, tstates, tsystem.OK)
+    for name, s_ in (("reference", jsys_), ("port", tsys_)):
+        print(f"[{name}] gba_runs={s_.server.gba_runs}", flush=True)
     return 0
 
 
