@@ -78,7 +78,11 @@ raises (exit code != 0) and no result line is printed:
    max, the loop-closing frame's ms, the port's kernel launches per
    frame, and, from a torch.profiler window over frames 40-59, every
    CUDA kernel and copy launched per frame and the device's busy ms per
-   frame; and the phase's seconds.
+   frame; and the phase's seconds.  The stored loop and merge edges: the
+   map state's valid edges equal the (target, kf) pairs of the LOOP and
+   MERGE events, less those whose endpoint is no longer a live keyframe,
+   and the essential graph of a later PGO (``_essential_edge_set``)
+   holds every one with weight 5; prints their count.
 8. Slice 4b on phase 7's 240 pre-staged frames.  8a, bench.py's
    configuration: ``MultiAgentSystem(pipeline=True)`` with
    ``sys.pipeline_depth = 4`` and synchronous mapping; phase 7's gates,
@@ -183,11 +187,29 @@ raises (exit code != 0) and no result line is printed:
    distributed solvers on a window with each agent's oldest keyframe
    fixed, each held to the one-rank results; prints ms per solve at 1,
    2 and 4 ranks (the collectives' cost on one card, not scaling).
+12. The facade's INTER_AREA resize (``api.area_resize``, cv2's rule as
+   tensor ops on the card).  12a: ``area_resize`` on the card against
+   the same call on the CPU, f32 noise in 0..255, at 600x600 -> 720x720,
+   480x640 -> 480x752 (one axis up, one equal), 400x800 -> 480x752
+   (mixed), 960x960 -> 720x720 and 480x752 -> 360x564: the largest
+   difference <= 1e-3 on each; prints each pair's CUDA-event us (median
+   of 20), its device us and the kernels a call launches.  12b:
+   ``MultiAgentSystem`` at the fixture point (bench.py's SlamConfig)
+   from a settings file whose Camera.newWidth / newHeight are 720, fed
+   u8 host frames of the first 120 frames of phase 7's orbit rendered at
+   600x600 (upscaled; intrinsics x 1.2) and at 960x960 (downscaled;
+   x 0.75): the working geometry 720x720, the scaled intrinsics, > 90%
+   of frames OK after the first OK, ATE after Sim3 within 1.5x the
+   reference's at half size (``tools/chip_rehearsal_12b.log``), the
+   describe, masked-match and pose kernels with no plain call.  Prints
+   fps over frames 60-119, per-call ms p50 / p90 / p99 / max, and from a
+   torch.profiler window over frames 40-59 the device busy ms per frame
+   and the resize's device us and share of it.
 
 It prints a JSON line of per-kernel results (``ms``: the median time of
 one wrapper call at the kernel's first caller shape; ``device_ms``: the
 device time per launch there; every caller shape's times and bound; the
-launches in phases 4-11 and per frame and epoch), the nvidia-smi line,
+launches in phases 4-12 and per frame and epoch), the nvidia-smi line,
 and as its last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -197,6 +219,7 @@ import collections
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -355,6 +378,29 @@ PHASE11_POSE_B = (4, 8)
 PHASE11_MIN_OBS = 3
 PHASE11_MESHES = (((2,), ("shard",)), ((4,), ("shard",)),
                   ((2, 2), ("host", "chip")))
+
+# phase 12: the facade's INTER_AREA resize.  12a: ``area_resize`` on the
+# card against the same call on the CPU at these (source, destination)
+# shapes: the fixture upscaled from 600x600; a 640x480 sensor under
+# EuRoC's 752x480 settings (one axis up, one equal); a mixed resize; the
+# fixture's own downscale from 960x960; a downscale with no integer
+# factor.  12b: the facade at the fixture point (720x720 through
+# Camera.newWidth / newHeight) fed u8 host frames, as a camera driver
+# delivers them, of the first 120 frames of phase 7's orbit rendered by
+# the fixture camera at 0.625x (600x600: upscaled, intrinsics x 1.2) and
+# at 1.0x (960x960, the size of the reference's settingsForTest_00.yaml:
+# downscaled, x 0.75)
+RESIZE_PAIRS = (((600, 600), (720, 720)), ((480, 640), (480, 752)),
+                ((400, 800), (480, 752)), ((960, 960), (720, 720)),
+                ((480, 752), (360, 564)))
+RESIZE_MAX_ERR = 1e-3
+RESIZE_FRAMES = 120
+RESIZE_RUNS = (("up", 0.625), ("down", 1.0))
+# 12b's ATE bounds: 1.5x what the reference facade reaches on the same
+# frames at half size (working 360x360 from 300x300 / 480x480, cv2's
+# resize on the host; tools/chip_rehearsal.py --resize, its output in
+# tools/chip_rehearsal_12b.log)
+RESIZE_MAX_ATE_FRAC = {"up": 1.5 * 0.00169, "down": 1.5 * 0.00143}
 
 # H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): f32 on the
 # CUDA cores (every SIMT op of a kernel is counted at this rate), int8 on
@@ -1150,14 +1196,20 @@ def facade_config(cam, n_features: int = FIXTURE_FEATURES,
                       **FACADE_SLAM)
 
 
-def cuda_census(prof) -> dict:
+def cuda_census(prof, spans=()) -> dict:
     """Kernels, copies and device busy us that a torch.profiler window
-    recorded on the card (memsets left out)."""
+    recorded on the card (memsets and the profiler's own annotations left
+    out), and for each ``record_function`` name in ``spans`` the device
+    us of the kernels launched inside it (``<name>_us``)."""
     from torch.autograd import DeviceType
 
     out = dict(kernels=0, copies=0, busy_us=0.0)
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA or e.key.startswith("Memset"):
+        if e.key in spans and e.device_type == DeviceType.CPU:
+            out[f"{e.key}_us"] = (getattr(e, "device_time_total", None)
+                                  or getattr(e, "cuda_time_total", 0))
+        if (e.device_type != DeviceType.CUDA or e.key.startswith("Memset")
+                or getattr(e, "is_user_annotation", False)):
             continue
         out["copies" if e.key.startswith("Memcpy") else "kernels"] += e.count
         out["busy_us"] += (getattr(e, "self_device_time_total", None)
@@ -1166,7 +1218,7 @@ def cuda_census(prof) -> dict:
 
 
 def run_facade(mas, frames, out_dir: str, dev, census: bool = True,
-               pace: bool = False, drain: int = 0):
+               pace: bool = False, drain: int = 0, spans=()):
     """Feed ``frames`` (pre-staged on ``dev``) to agent 0 of ``mas``
     through ``track_monocular`` at 20 Hz stamps (``pace``: no call
     before its stamp, as a camera delivers them; ``drain``: ``flush``
@@ -1178,7 +1230,8 @@ def run_facade(mas, frames, out_dir: str, dev, census: bool = True,
     artifacts.  With ``census`` the ``FACADE_CENSUS`` frames just before
     the timed ones run under torch.profiler, which counts every CUDA
     kernel they launch (the timed frames run bare: the profiler adds host
-    time to every launch).  The kernel counters are zeroed just before
+    time to every launch), and the device time inside each
+    ``record_function`` named in ``spans``.  The kernel counters are zeroed just before
     the first frame and read just after the last ``flush``."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1220,7 +1273,8 @@ def run_facade(mas, frames, out_dir: str, dev, census: bool = True,
                wall=wall, run_s=time.perf_counter() - t_all, **counts)
     if census:
         out["census"] = dict(frames=(warm - n_census, warm - 1),
-                             **cuda_census(prof), own=per(own, n_census))
+                             **cuda_census(prof, spans),
+                             own=per(own, n_census))
     return out
 
 
@@ -1286,6 +1340,38 @@ def check_facade(r: dict, res: dict, out_dir: str) -> None:
             np.linalg.norm(q, axis=1) - 1).max() > 1e-4:
         raise AssertionError("facade: trajectory rows missing or quaternions "
                              "not unit")
+
+
+def check_loop_edges(sys_, server) -> dict:
+    """The stored loop and merge edges against the server's events: the
+    valid edges of the map state equal the (target, kf) pairs of the
+    LOOP and MERGE events, less those with an endpoint no longer a live
+    keyframe (culling removes a keyframe's edges with it), and the
+    essential graph that a later PGO of each edge's map assembles
+    (``_essential_edge_set``) holds every one of them.  Returns the
+    counts."""
+    ms = sys_.ms
+    live = ms.kf_valid.cpu().numpy()
+    kf_map = ms.kf_map.cpu().numpy()
+    closed = [tuple(int(x) for x in reversed(m.groups())) for m in (
+        re.search(r" kf=(\d+) target=(\d+)", e) for e in server.events
+        if e.startswith(("LOOP", "MERGE")))]
+    expected = {p for p in closed if live[p[0]] and live[p[1]]}
+    lv = ms.loop_valid.cpu().numpy()
+    stored = set(zip(ms.loop_i.cpu().numpy()[lv].tolist(),
+                     ms.loop_j.cpu().numpy()[lv].tolist()))
+    if stored != expected:
+        raise AssertionError(f"stored loop edges {sorted(stored)} are not "
+                             f"the closures' {sorted(expected)}")
+    for i, j in stored:
+        ei, ej, ew = server._essential_edge_set(
+            ms, live & (kf_map == kf_map[i]))
+        hit = (ei == i) & (ej == j)
+        if not hit.any() or (ew[hit] != 5.0).any():
+            raise AssertionError(f"the essential graph misses the stored "
+                                 f"edge ({i}, {j})")
+    return dict(closures=len(closed), stored=len(stored),
+                removed=len(closed) - len(expected))
 
 
 # ---------------------------------------------------------------------------
@@ -2576,6 +2662,158 @@ def run_phase11(dev, scene6, cam_r, cam, orb_cfg, cfg, smi: str, tmp: str,
                 pose_us=pose_us)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the facade's INTER_AREA resize on the card
+# ---------------------------------------------------------------------------
+
+def u8_frame(img: torch.Tensor) -> np.ndarray:
+    """A rendered frame as a camera driver delivers it: u8 on the host."""
+    return img.clamp(0, 255).round().to(torch.uint8).cpu().numpy()
+
+
+def resize_yaml(src_cam, work_cam) -> str:
+    """``facade_yaml`` of the camera that renders the frames, resized by
+    Camera.newWidth / newHeight to ``work_cam``'s size."""
+    return facade_yaml(src_cam) + (f"Camera.newWidth: {work_cam.width}\n"
+                                   f"Camera.newHeight: {work_cam.height}\n")
+
+
+def span_kernels(prof, name: str) -> int:
+    """The CUDA kernels that a torch.profiler window attributes to the
+    ``record_function`` spans called ``name`` and the ops inside them."""
+    from torch.autograd import DeviceType
+
+    def count(e):
+        return len(e.kernels) + sum(count(c) for c in e.cpu_children)
+
+    return sum(count(e) for e in prof.events()
+               if e.name == name and e.device_type == DeviceType.CPU)
+
+
+def check_resize(dev, smi: str) -> list:
+    """Phase 12a: ``area_resize`` on the card against the same call on the
+    CPU, f32 noise in 0..255 from a seed, at every ``RESIZE_PAIRS``
+    shape; per pair the CUDA-event us of one call (median of 20), its
+    device us (``device_ms``: 20 calls queued behind a sleep, so no host
+    gap is timed) and the kernels a call launches (``span_kernels`` of
+    20 calls inside a torch.profiler window that 3 calls open: windows
+    taken one after another lost kernels at their edges).  Returns the
+    rows."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mam3slam_tpu_torch import api
+
+    rng = np.random.default_rng(12)
+    rows = []
+    for (h, w), (dh, dw) in RESIZE_PAIRS:
+        img = rng.uniform(0, 255, (h, w)).astype(np.float32)
+        x = torch.tensor(img, device=dev)
+        got = api.area_resize(x, dh, dw)
+        err = float((got.cpu() - api.area_resize(torch.tensor(img), dh,
+                                                 dw)).abs().max())
+        call_ms = median_ms(lambda: api.area_resize(x, dh, dw))
+        dev_ms, timer, _ = device_ms(lambda: api.area_resize(x, dh, dw))
+        sync(dev)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                api.area_resize(x, dh, dw)
+            sync(dev)
+            with torch.profiler.record_function("calls"):
+                for _ in range(20):
+                    api.area_resize(x, dh, dw)
+            sync(dev)
+        row = dict(src=f"{h}x{w}", dst=f"{dh}x{dw}",
+                   rule="area" if dh <= h and dw <= w else "two-tap",
+                   max_abs_err=err, call_us=call_ms * 1e3,
+                   device_us=dev_ms * 1e3, timer=timer,
+                   kernels_per_call=span_kernels(prof, "calls") / 20)
+        log("resize", card=repr(smi), **row)
+        if tuple(got.shape) != (dh, dw) or not err <= RESIZE_MAX_ERR:
+            raise AssertionError(f"area_resize {h}x{w} -> {dh}x{dw}: "
+                                 f"{err} from the CPU's")
+        rows.append(row)
+    return rows
+
+
+def run_resize(dev, scene, tmp: str, name: str, scale: float,
+               smi: str) -> dict:
+    """Phase 12b, one direction: the first ``RESIZE_FRAMES`` frames of
+    phase 7's orbit rendered by the fixture camera at ``scale`` and fed as
+    u8 host frames to a facade whose settings resize them to the fixture
+    point (``run_facade``: frames 40-59 profiled with the resize's
+    kernels counted apart, 60-119 timed).  Checks the working geometry,
+    the scaled intrinsics, the OK share, the ATE bound and the kernels;
+    returns the run's launches and results."""
+    from mam3slam_tpu_torch import api
+    from mam3slam_tpu_torch.io import render
+    from mam3slam_tpu_torch.slam.server import ServerConfig
+
+    src = render.reference_kb8_cam(scale)
+    work = render.reference_kb8_cam(FIXTURE_SCALE)
+    traj = render.orbit_trajectory(FACADE_FRAMES, *FACADE_ARC[:2],
+                                   radius=2.5,
+                                   bob=FACADE_ARC[2])[:RESIZE_FRAMES]
+    frames = [u8_frame(scene.render(R, t, src)) for R, t, _ in traj]
+    path = os.path.join(tmp, f"kb8_{name}.yaml")
+    with open(path, "w") as f:
+        f.write(resize_yaml(src, work))
+    mas = api.MultiAgentSystem(slam_config=facade_config(work),
+                               server_config=ServerConfig(), device=dev)
+    mas.add_agent(path)
+    resize = api.area_resize
+
+    def annotated(img, height, width):
+        with torch.profiler.record_function("area_resize"):
+            return resize(img, height, width)
+
+    api.area_resize = annotated
+    try:
+        res = run_facade(mas, frames, os.path.join(tmp, f"output_{name}"),
+                         dev, spans=("area_resize",))
+    finally:
+        api.area_resize = resize
+    r = facade_results(mas, res, traj)
+    cen = res["census"]
+    busy = cen["busy_us"] / FACADE_CENSUS
+    resize_us = cen.get("area_resize_us", 0.0) / FACADE_CENSUS
+    factor = work.width / src.width
+    params = mas.sys.agents[0].cam.params[:4].cpu().numpy()
+    want = np.float32([src.fx, src.fy, src.cx, src.cy]) * factor
+    log("resize_facade", direction=name, frame=f"{src.width}x{src.height}",
+        working=(mas.sys.cfg.width, mas.sys.cfg.height), factor=factor,
+        intrinsics=params.tolist(),
+        **{k: v for k, v in r.items()
+           if not k.startswith(("fps", "frame_ms", "lc_", "launches"))})
+    log("counters", path=f"resize_{name}", launches=res["launches"],
+        plain_calls=res["plain"], per_frame=r["launches_per_frame"])
+    log("resize_facade_time", card=repr(smi), direction=name,
+        fps_frames_60_119=r["fps"],
+        **{k: r[k] for k in ("frame_ms_p50", "frame_ms_p90",
+                             "frame_ms_p99", "frame_ms_max")},
+        census_frames=cen["frames"],
+        cuda_kernels_per_frame=cen["kernels"] / FACADE_CENSUS,
+        device_busy_ms_per_frame=busy / 1e3,
+        resize_device_us_per_frame=resize_us,
+        resize_share_of_busy=resize_us / busy if busy else None,
+        run_seconds=res["run_s"])
+    if (mas.sys.cfg.width, mas.sys.cfg.height) != (work.width, work.height):
+        raise AssertionError(f"12b {name}: working geometry "
+                             f"{mas.sys.cfg.width}x{mas.sys.cfg.height}")
+    if not np.allclose(params, want, rtol=1e-5):
+        raise AssertionError(f"12b {name}: intrinsics {params} != {want}")
+    if not r["ok_frac"] > FACADE_MIN_OK_FRAC:
+        raise AssertionError(f"12b {name}: {r['ok_frac']:.3f} of frames OK")
+    if not r["ate"] < RESIZE_MAX_ATE_FRAC[name] * r["span"]:
+        raise AssertionError(f"12b {name}: ATE {r['ate']:.4f} >= "
+                             f"{RESIZE_MAX_ATE_FRAC[name]} x span "
+                             f"{r['span']:.3f}")
+    if not kernels_ran(res["launches"], res["plain"], SLAM_KERNELS):
+        raise AssertionError(f"12b {name}: the facade did not run its "
+                             f"kernels")
+    return dict(launches=res["launches"], r=r)
+
+
 def sync(dev) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -2800,6 +3038,7 @@ def main() -> int:
                 mas.server.timers.series.get("PR", [0]))),
             gba_runs=mas.server.gba_runs)
         check_facade(facade, fres, out_dir)
+        log("loop_edges", **check_loop_edges(mas.sys, mas.server))
         del mas
 
         # 8. slice 4b on the same frames.  8a: bench.py's configuration
@@ -2944,6 +3183,17 @@ def main() -> int:
         p11 = run_phase11(dev, scene6, cam_r, cam, orb_cfg, cfg, smi, tmp,
                           timed)
 
+    # 12. the facade's INTER_AREA resize: 12a against the CPU, 12b the
+    # facade through settings that upscale and downscale its frames
+    t12 = time.perf_counter()
+    check_resize(dev, smi)
+    phase12_launches = collections.Counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, scale in RESIZE_RUNS:
+            phase12_launches.update(
+                run_resize(dev, scene, tmp, name, scale, smi)["launches"])
+    log("resize_done", phase12_seconds=time.perf_counter() - t12)
+
     phase8_launches = collections.Counter()
     for counts in (res8a["launches"], res8b["launches"],
                    res_bare["launches"], launches8c):
@@ -2958,7 +3208,8 @@ def main() -> int:
          "launches": (launches[k] + slam_launches.get(k, 0)
                       + server_launches[k] + fres["launches"].get(k, 0)
                       + phase8_launches[k] + phase9_launches[k]
-                      + phase10_launches[k] + p11["launches"].get(k, 0)),
+                      + phase10_launches[k] + p11["launches"].get(k, 0)
+                      + phase12_launches[k]),
          "max_abs_err": max(r["max_abs_err"] for r in rows[k]),
          "ms": rows[k][0]["wrapper_ms"], "device_ms": rows[k][0]["device_ms"],
          "plain_ms": rows[k][0]["plain_ms"],
@@ -2977,6 +3228,7 @@ def main() -> int:
          "launches_per_cv_frame": r10["per_frame"]["cv"].get(k, 0),
          "launches_phase11": p11["launches"].get(k, 0),
          "launches_per_phase11_frame": p11["per_frame"].get(k, 0),
+         "launches_phase12": phase12_launches[k],
          "callers": [{c: r[c] for c in (
              "caller", "device_ms", "timer", "wrapper_ms", "plain_ms",
              "bound_us", "bound_by", "share", "max_abs_err")}

@@ -60,18 +60,56 @@ def _area_weights(ssize: int, dsize: int, device: torch.device):
     return torch.tensor(w, device=device)
 
 
+@functools.lru_cache(maxsize=None)
+def _linear_area_taps(ssize: int, dsize: int, device: torch.device):
+    """The two taps of the rule OpenCV's INTER_AREA takes along both axes
+    once either axis grows (resize.cpp's ``resize`` with ``area_mode``),
+    as (i0, i1, w0, w1) over the ``dsize`` outputs: output d samples
+    source sx = floor(d s) with weight 1 - fx and sx + 1 with fx, where
+    fx = (d + 1) - (sx + 1) / s wrapped into [0, 1) (0 where it is not
+    positive), s = 1 / (dsize / ssize) in double as OpenCV computes it
+    and fx in f32; at the last source pixel sx is clamped and fx = 0.
+    An axis of equal size comes out as the identity."""
+    inv = dsize / ssize
+    scale = 1.0 / inv
+    i0 = np.zeros(dsize, np.int64)
+    fx = np.zeros(dsize, np.float32)
+    for d in range(dsize):
+        sx = math.floor(d * scale)
+        f = np.float32((d + 1) - (sx + 1) * inv)
+        f = np.float32(0.0) if f <= 0 else f - np.float32(math.floor(f))
+        if sx >= ssize - 1:
+            sx, f = ssize - 1, np.float32(0.0)
+        i0[d], fx[d] = sx, f
+    i1 = np.minimum(i0 + 1, ssize - 1)
+    return tuple(torch.tensor(a, device=device)
+                 for a in (i0, i1, np.float32(1.0) - fx, fx))
+
+
 def area_resize(img: torch.Tensor, height: int, width: int) -> torch.Tensor:
     """``cv2.resize(img, (width, height), interpolation=cv2.INTER_AREA)``
-    of a 2-D f32 image for a downscale (integer or fractional factors), as
-    two products of per-axis weights on the image's device."""
+    of a 2-D f32 image, in any direction, on the image's device.  When no
+    axis grows: two products of per-axis area weights, in full f32 (no
+    TF32).  Once either axis grows, OpenCV's two-tap rule on both axes
+    (a shrinking axis of a mixed resize included), in its order and
+    rounding: each row's taps x0 * w0 + x1 * w1 first, then the rows',
+    each product and sum rounded to f32, which gives cv2's pixels bit for
+    bit (an upscaled frame has near ties between FAST scores that a last
+    bit reorders)."""
     h, w = img.shape
-    if height > h or width > w:
-        raise NotImplementedError(
-            f"area resize upscales {h}x{w} -> {height}x{width}: only "
-            f"downscaling is ported")
-    wy = _area_weights(h, height, img.device)
-    wx = _area_weights(w, width, img.device)
-    return (wy.T @ img) @ wx
+    if height <= h and width <= w:
+        wy = _area_weights(h, height, img.device)
+        wx = _area_weights(w, width, img.device)
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            return (wy.T @ img) @ wx
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev
+    x0, x1, a0, a1 = _linear_area_taps(w, width, img.device)
+    y0, y1, b0, b1 = _linear_area_taps(h, height, img.device)
+    rows = img[:, x0] * a0 + img[:, x1] * a1
+    return rows[y0] * b0[:, None] + rows[y1] * b1[:, None]
 
 
 class MultiAgentSystem:
@@ -142,9 +180,13 @@ class MultiAgentSystem:
     # -- reference: Agent::TrackMonocular ----------------------------------
     def _frame_tensor(self, st: settings_mod.Settings, image):
         """The image as f32 [H, W] on the system's device at the working
-        geometry: an f32 tensor already there with that geometry as it
-        is, another tensor moved and cast there, anything else through
-        numpy f32 (and then the settings' area resize on the device)."""
+        geometry (``Camera.newWidth`` / ``newHeight`` when the settings
+        give them, else ``Camera.width`` / ``height``): an f32 tensor
+        already there with that geometry as it is, another tensor moved
+        and cast there, anything else through numpy f32.  A frame of
+        another shape then goes through ``area_resize`` on the device, as
+        the reference's cv2.resize INTER_AREA on the host, whichever way
+        each axis goes."""
         if isinstance(image, torch.Tensor):
             img = image.to(self.device, torch.float32)
         else:

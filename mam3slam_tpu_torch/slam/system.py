@@ -93,9 +93,10 @@ class MapCapacityError(RuntimeError):
 
 @dataclass(frozen=True)
 class SlamConfig:
-    """Names and defaults of the reference's SlamConfig.  The motion
-    search fields and the CG iteration count are read by paths not ported
-    yet."""
+    """Names and defaults of the reference's SlamConfig.  Neither package
+    reads ``motion_search_radius``, ``min_motion_matches`` or
+    ``lba_cg_iters``: they are kept so that a configuration of either
+    package carries over field for field."""
 
     width: int
     height: int

@@ -18,8 +18,8 @@ NaN for a matrix it cannot factor, the ``_ex`` variants here return NaN
 too (torch's plain calls raise): a failed IMU initialisation shows as a
 non-finite result, and an LM step built on it is rejected, as in the
 reference.  The reference's ``axis_name`` (its mesh hook for sharded
-edges) is not ported: the multi-device slice brings its
-``torch.distributed`` counterpart.
+edges) is ``run_vi_ba(group=)``: a ``torch.distributed`` process group
+over which the edge sums are all-reduced.
 """
 
 from __future__ import annotations

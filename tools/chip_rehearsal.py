@@ -3,7 +3,7 @@
 
     python3 tools/chip_rehearsal.py [--loop | --four | --facade
                                      [--pipeline D | --async] | --daemon |
-                                     --inertial] [--threads N]
+                                     --inertial | --resize] [--threads N]
 
 Phase 6 (default 6a, the two-agent merge arcs; ``--loop``: 6b, the
 one-agent loop arc): renders the phase's frames at half size (376x240,
@@ -51,6 +51,17 @@ package the events, the OK share and ATE / span, the IMU_INIT frame, the
 scale error against the Umeyama scale, the gravity error in the map
 frame and ``n_fallback``: the figures phase 10's bounds come from (its
 output: ``tools/chip_rehearsal_10.log``, 20 min here).
+
+Phase 12b (``--resize``): phase 12b at half size, both packages'
+``MultiAgentSystem`` built from one settings file
+(``chip_smoke.resize_yaml``) whose Camera.newWidth / newHeight resize
+the frames to 360x360 (the fixture camera at 0.375x, bench.py's
+``SlamConfig``): the first ``chip_smoke.RESIZE_FRAMES`` frames of phase
+7's orbit rendered at 300x300 (upscaled) and at 480x480 (downscaled),
+fed to both as u8 host frames (``chip_smoke.u8_frame``); the reference
+resizes them with cv2 on the host, the port with ``area_resize``: the
+figures phase 12b's ATE bounds come from (its output:
+``tools/chip_rehearsal_12b.log``).
 
 Prints, per package, the server and system events, the keyframe and map
 point counts and per agent the share of frames OK after init and the ATE
@@ -173,6 +184,51 @@ def facade(pipeline: int = 0, async_: bool = False) -> None:
             print(f"[{name}] refused="
                   f"{mas.sys.agents[0].kf_insertions_refused} "
                   f"gba_runs={mas.server.gba_runs}", flush=True)
+
+
+def resize() -> None:
+    """Phase 12b at half size: for each direction, both facades from one
+    resizing settings file on the same u8 frames."""
+    work = render.reference_kb8_cam(cs.FIXTURE_SCALE / 2)
+    traj = render.orbit_trajectory(cs.FACADE_FRAMES, *cs.FACADE_ARC[:2],
+                                   radius=2.5,
+                                   bob=cs.FACADE_ARC[2])[:cs.RESIZE_FRAMES]
+    scene = render.RoomScene(seed=5, device="cpu")
+    tcfg = cs.facade_config(work)
+    jcfg = jsystem.SlamConfig(**{f.name: getattr(tcfg, f.name)
+                                 for f in dataclasses.fields(tcfg)})
+    for name, scale in cs.RESIZE_RUNS:
+        src = render.reference_kb8_cam(scale / 2)
+        frames = [cs.u8_frame(scene.render(R, t, src)) for R, t, _ in traj]
+        tmas = tapi.MultiAgentSystem(slam_config=tcfg, device="cpu",
+                                     server_config=tserver.ServerConfig())
+        jmas = japi.MultiAgentSystem(slam_config=jcfg,
+                                     server_config=jserver.ServerConfig())
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, f"kb8_{name}.yaml")
+            with open(path, "w") as f:
+                f.write(cs.resize_yaml(src, work))
+            tmas.add_agent(path)
+            jmas.add_agent(path)
+        tstates, jstates = [], []
+        t0 = time.perf_counter()
+        for i, img in enumerate(frames):
+            tstates.append(tmas.track_monocular(0, img, i * cs.DT)[0])
+            jstates.append(jmas.track_monocular(0, img, i * cs.DT)[0])
+            if i % 50 == 0:
+                print(f"[progress] {name} frame={i} "
+                      f"s={time.perf_counter() - t0:.1f}", flush=True)
+        for mas in (tmas, jmas):
+            mas.shutdown()
+        print(f"[setup] phase=12b direction={name} "
+              f"frames={src.width}x{src.height} "
+              f"working={tmas.sys.cfg.width}x{tmas.sys.cfg.height} "
+              f"features={cs.FIXTURE_FEATURES} n={len(frames)} "
+              f"seconds={time.perf_counter() - t0:.1f}", flush=True)
+        for pkg, mas, states, ok in (
+                ("reference", jmas, jstates, jsystem.OK),
+                ("port", tmas, tstates, tsystem.OK)):
+            summary(f"{pkg} {name}", mas.sys, [0], [traj], [states], ok)
 
 
 def daemon() -> None:
@@ -304,6 +360,9 @@ def main() -> int:
     mode.add_argument("--daemon", action="store_true",
                       help="phase 9b (two agents on the merge arcs at 1/3 "
                       "of the fixture)")
+    mode.add_argument("--resize", action="store_true",
+                      help="phase 12b (the facade through settings that "
+                      "resize its frames, at half size)")
     mode.add_argument("--inertial", action="store_true",
                       help="phase 10 (the mono-inertial loop and burst at "
                       "the EuRoC camera)")
@@ -326,6 +385,9 @@ def main() -> int:
         return 0
     if args.inertial:
         inertial()
+        return 0
+    if args.resize:
+        resize()
         return 0
 
     if args.loop:
