@@ -166,8 +166,8 @@ raises (exit code != 0) and no result line is printed:
    ``dist_global_ba`` (the single-card programs counted: none ran), >=
    95% OK and the ATE bound per agent (1.5x the reference's on these
    arcs, ``tools/chip_rehearsal_11a.log``), observations agreeing, all
-   four kernels with no plain call.  Then on the merged map, with
-   deterministic CUDA sums: ``dist_global_ba``'s dense branch against
+   four kernels with no plain call.  Then on the merged map, with the
+   port's fixed-order sums: ``dist_global_ba``'s dense branch against
    the single-card ``global_ba`` and its psum-CG branch against the
    single-device CG solver, compared after the similarity that aligns
    the camera centres (centres within 5e-3 / 2e-2; the dense branch's
@@ -185,8 +185,10 @@ raises (exit code != 0) and no result line is printed:
    against a deadline: rank 0 runs the server's ``_run_gba`` while the
    others follow in ``dist_window_ba.serve``, and every rank runs the
    distributed solvers on a window with each agent's oldest keyframe
-   fixed, each held to the one-rank results; prints ms per solve at 1,
-   2 and 4 ranks (the collectives' cost on one card, not scaling).
+   fixed, each held to the one-rank results, and every replicated
+   solver's cameras equal bit for bit across the ranks; prints ms per
+   solve at 1, 2 and 4 ranks (the collectives' cost on one card, not
+   scaling).
 12. The facade's INTER_AREA resize (``api.area_resize``, cv2's rule as
    tensor ops on the card).  12a: ``area_resize`` on the card against
    the same call on the CPU, f32 noise in 0..255, at 600x600 -> 720x720,
@@ -205,6 +207,18 @@ raises (exit code != 0) and no result line is printed:
    fps over frames 60-119, per-call ms p50 / p90 / p99 / max, and from a
    torch.profiler window over frames 40-59 the device busy ms per frame
    and the resize's device us and share of it.
+13. Reproducibility, on phase 11a's map (its atlas loaded into a fresh
+   ``SlamSystem``): a mapping epoch's window BA (``local_ba``),
+   ``global_ba`` at the arena caps, the 7DoF and 4DoF PGO over the map's
+   essential graph with a loop correction of its newest keyframe, and
+   ``run_ba`` on its edge list, each run twice on the same input: equal
+   bit for bit.  The segment-sum kernel (``csrc/segsum.cu``, the
+   solvers' fixed-order sums; no Pallas kernel matches it) against its
+   plain version at every shape those solvers give it: equal bit for
+   bit, twice; its device us, wrapper, plain and ``index_add_`` times
+   and bound.  The four other kernels launched twice on one input: equal
+   bit for bit.  The segment-sum kernel must also have launched on the
+   SLAM path (phase 5) and the server path (phase 6) with no plain call.
 
 It prints a JSON line of per-kernel results (``ms``: the median time of
 one wrapper call at the kernel's first caller shape; ``device_ms``: the
@@ -402,10 +416,11 @@ RESIZE_RUNS = (("up", 0.625), ("down", 1.0))
 # tools/chip_rehearsal_12b.log)
 RESIZE_MAX_ATE_FRAC = {"up": 1.5 * 0.00169, "down": 1.5 * 0.00143}
 
-# H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): f32 on the
-# CUDA cores (every SIMT op of a kernel is counted at this rate), int8 on
-# the tensor cores (the rate of a binary AND-popc product), HBM3
+# H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): f32 (and f64)
+# on the CUDA cores (every SIMT op of a kernel is counted at this rate),
+# int8 on the tensor cores (the rate of a binary AND-popc product), HBM3
 F32_OPS = 67e12
+F64_OPS = 34e12
 INT8_TC_OPS = 1979e12
 HBM_BYTES_PER_S = 3.35e12
 NO_LIBRARY = ("none: no single PyTorch call computes a masked or unmasked "
@@ -422,6 +437,13 @@ KERNELS = {  # launch-counter name -> (source, replaced Pallas kernel)
     "pose_opt": ("mam3slam_tpu_torch/csrc/pose.cu",
                  "mam3slam_tpu/ops/pallas_pose.py:226"),
 }
+# the port's kernel with no Pallas counterpart: the solvers' fixed-order
+# segment sums (the reference's one-hot matmuls and XLA scatters)
+SEGSUM = ("segsum", "mam3slam_tpu_torch/csrc/segsum.cu", None)
+SEGSUM_LIBRARY = "index_add_ (atomic, its order changes from run to run)"
+# phase 13: a Sim3 tangent (translation, rotation, log scale) that moves
+# the newest keyframe of phase 11a's map as a loop correction would
+REPRO_LOOP_XI = (0.02, -0.01, 0.03, 0.01, -0.02, 0.015, 0.01)
 
 
 def log(phase: str, **kw) -> None:
@@ -555,12 +577,13 @@ def bound_ms(ops: float, rate: float, nbytes: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def device_ms(fn, reps: int = 20):
-    """Device time of one call of ``fn`` (which launches one kernel): the
-    CUDA self time of the kernels in torch.profiler's ``key_averages``
-    over ``reps`` calls; where the profiler shows no device time, CUDA
-    events around ``reps`` calls queued behind a sleep kernel, so that the
-    host's share of a call is not timed.  Returns (ms, timer, names)."""
+def device_ms(fn, reps: int = 20, only: str = None):
+    """Device time of one call of ``fn`` (which launches one kernel, or
+    one whose name holds ``only`` beside others): the CUDA self time of
+    the call's kernels in torch.profiler's ``key_averages`` over ``reps``
+    calls; where the profiler shows no device time, CUDA events around
+    ``reps`` calls queued behind a sleep kernel, so that the host's share
+    of a call is not timed.  Returns (ms, timer, names with their us)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -571,13 +594,21 @@ def device_ms(fn, reps: int = 20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and not e.key.startswith(("Memcpy", "Memset"))]
-    us = sum(getattr(e, "self_device_time_total", None)
-             or getattr(e, "self_cuda_time_total", 0) for e in kern)
+    def us_of(e):
+        return (getattr(e, "self_device_time_total", None)
+                or getattr(e, "self_cuda_time_total", 0))
+
+    on_card = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not e.key.startswith("Memcpy")]
+    kern = [e for e in on_card if not e.key.startswith("Memset")
+            and (only is None or only in e.key)]
+    # with ``only``, the call's other kernels and fills count too
+    us = sum(us_of(e) for e in (on_card if only else kern))
     if sum(e.count for e in kern) == reps and us > 0:
-        return us / reps / 1e3, "profiler", [e.key[:48] for e in kern]
+        return us / reps / 1e3, "profiler", [
+            f"{e.key[:48]}={us_of(e) / e.count:.2f}us"
+            for e in (on_card if only else kern)]
     torch.cuda._sleep(100_000_000)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -590,16 +621,21 @@ def device_ms(fn, reps: int = 20):
 
 
 def measure(rows: list, kernel: str, caller: str, err: float, fn, plain_fn,
-            work, plain_reps: int = 20) -> None:
-    """Time ``fn`` (device and wrapper-included) and ``plain_fn`` (median
-    of ``plain_reps``) at one caller's shape; ``work`` = (ops, peak ops/s,
-    bytes) of these inputs."""
-    dev_ms, timer, names = device_ms(fn)
+            work, plain_reps: int = 20, library_fn=None,
+            only: str = None) -> None:
+    """Time ``fn`` (device and wrapper-included), ``plain_fn`` (median of
+    ``plain_reps``) and, where one PyTorch call computes the same
+    function, ``library_fn`` at one caller's shape; ``work`` = (ops, peak
+    ops/s, bytes) of these inputs; ``only``: the kernel's name where the
+    wrapper launches others too."""
+    dev_ms, timer, names = device_ms(fn, only=only)
     b_ms, b_by = bound_ms(*work)
     row = dict(kernel=kernel, caller=caller, max_abs_err=err,
                device_ms=dev_ms, timer=timer, wrapper_ms=median_ms(fn),
                plain_ms=median_ms(plain_fn, reps=plain_reps,
                                   warmup=min(3, plain_reps)),
+               library_ms=(None if library_fn is None
+                           else median_ms(library_fn)),
                bound_us=b_ms * 1e3,
                bound_by=b_by, share=b_ms / dev_ms)
     rows.append(row)
@@ -2284,15 +2320,11 @@ def solve_all(mesh, ms, cfg, map_id: int, pose_args, dev) -> dict:
                pt_held=(window.pm_valid.sum(1) >= PHASE11_MIN_OBS)
                .cpu().numpy())
     for name, fn in runs.items():
-        # deterministic sums (as the single-card comparisons of 11a), but
-        # for the edge list's segment sums, 30x slower so
-        torch.use_deterministic_algorithms(name != "run_ba", warn_only=True)
         sync(dev)
         t0 = time.perf_counter()
         res = fn()
         sync(dev)
         out[name] = (convert.to_numpy(res), (time.perf_counter() - t0) * 1e3)
-    torch.use_deterministic_algorithms(False)
     return out
 
 
@@ -2329,16 +2361,13 @@ def rank11b(mesh, atlas: str, cfg, map_id: int, device: str):
     out = solve_all(mesh, sys_.ms, cfg, map_id,
                     pose_batch(dev, max(PHASE11_POSE_B))[1], dev)
     if mesh.get_rank() != 0:
-        torch.use_deterministic_algorithms(True, warn_only=True)
         out["joined"] = dwb.serve(mesh)
         return out
     srv = LoopServer(sys_, ServerConfig(gba_mesh=mesh))
-    torch.use_deterministic_algorithms(True, warn_only=True)   # as 11a's
     sync(dev)
     t0 = time.perf_counter()
     srv._run_gba(map_id)
     sync(dev)
-    torch.use_deterministic_algorithms(False)
     out["server"] = (convert.to_numpy(sys_.ms), (time.perf_counter() - t0)
                      * 1e3)
     dwb.stop(mesh)
@@ -2435,10 +2464,11 @@ def phase11b(dev, atlas: str, cfg, map_id: int, world1: dict, gba1,
             server=gauge_diff((srv_state.kf_q, srv_state.kf_t,
                                srv_state.mp_pos),
                               (gba1.kf_q, gba1.kf_t, gba1.mp_pos), kf, mp))
-        # the deterministic solvers' replicated results are equal bit for
-        # bit on every rank (run_ba's atomic sums differ across host rows)
+        # the solvers' replicated results are equal bit for bit on every
+        # rank (their sums take one order)
         same = all(max_diff(r[k][0].cam_t, r0[k][0].cam_t) == 0.0
-                   for r in ranks[1:] for k in ("dense", "psum", "cg"))
+                   for r in ranks[1:]
+                   for k in ("run_ba", "dense", "psum", "cg"))
         joined = [r["joined"] for r in ranks[1:]]
         timings[key] = {k: r0[k][1] for k in ("run_ba", "dense", "psum", "cg",
                                               "pose", "server")}
@@ -2547,10 +2577,9 @@ def run_phase11(dev, scene6, cam_r, cam, orb_cfg, cfg, smi: str, tmp: str,
             raise AssertionError("11a did not run every kernel")
 
         # the distributed solvers on the merged map against the single-card
-        # ones (world of 1, NCCL), with deterministic CUDA algorithms: the
-        # map's one anchor leaves its global BA ill-conditioned (the
-        # similarity gauge), so the order of atomic sums alone moves the
-        # single-card epoch by up to ~4e-2 between two runs on the card
+        # ones (world of 1, NCCL): the map's one anchor leaves its global
+        # BA ill-conditioned (the similarity gauge), so they are compared
+        # after the similarity that aligns the camera centres
         ms, map_id = sys11.ms, sys11.agents[0].map_id
         kind = cfg.cam_kind
         kf, mp_all = ms.kf_valid.cpu().numpy(), ms.mp_valid.cpu().numpy()
@@ -2559,40 +2588,36 @@ def run_phase11(dev, scene6, cam_r, cam, orb_cfg, cfg, smi: str, tmp: str,
         is2 = torch.tensor(cfg.inv_sigma2, device=dev)
         mask = gba_mask(ms, map_id)
         n_free = int(mask.sum())
-        torch.use_deterministic_algorithms(True, warn_only=True)
-        try:
-            local = glob(ms, map_id)
-            window = steps.build_window_problem(ms, mask, is2, cfg.max_kf,
-                                                cfg.max_mp, with_cm=True)
-            cg_local = steps.apply_window_result(
-                ms, window, bw.run_window_ba(window, kind, iters=10))
-            branches = dict(
-                dense=dwb.dist_global_ba(ms, cfg, mesh, map_id, kind,
-                                         dense_free_cap=1 << 30),
-                psum=dwb.dist_global_ba(ms, cfg, mesh, map_id, kind,
-                                        dense_free_cap=0))
-            costs = {name: float(bw.run_window_ba_dense(
-                steps.build_window_problem(st, mask, is2, cfg.max_kf,
-                                           cfg.max_mp), kind, iters=0).cost)
-                for name, st in (("start", ms), ("single_card", local),
-                                 ("cg_single_device", cg_local),
-                                 *branches.items())}
-            def state(st):
-                return st.kf_q.cpu(), st.kf_t.cpu(), st.mp_pos.cpu()
+        local = glob(ms, map_id)
+        window = steps.build_window_problem(ms, mask, is2, cfg.max_kf,
+                                            cfg.max_mp, with_cm=True)
+        cg_local = steps.apply_window_result(
+            ms, window, bw.run_window_ba(window, kind, iters=10))
+        branches = dict(
+            dense=dwb.dist_global_ba(ms, cfg, mesh, map_id, kind,
+                                     dense_free_cap=1 << 30),
+            psum=dwb.dist_global_ba(ms, cfg, mesh, map_id, kind,
+                                    dense_free_cap=0))
+        costs = {name: float(bw.run_window_ba_dense(
+            steps.build_window_problem(st, mask, is2, cfg.max_kf,
+                                       cfg.max_mp), kind, iters=0).cost)
+            for name, st in (("start", ms), ("single_card", local),
+                             ("cg_single_device", cg_local),
+                             *branches.items())}
 
-            agree = {name: gauge_diff(state(got), state(ref), kf, mp)
-                     for name, got, ref in (
-                         ("dense_vs_single_card", branches["dense"], local),
-                         ("psum_vs_cg_single_device", branches["psum"],
-                          cg_local),
-                         ("psum_vs_single_card", branches["psum"], local))}
-            agree["psum_vs_single_card"]["raw_pts_all"] = max_diff(
-                branches["psum"].mp_pos.cpu(), local.mp_pos.cpu(), mp_all)
-            gba1 = convert.to_numpy(dwb.dist_global_ba(ms, cfg, mesh, map_id,
-                                                       kind))
-        finally:
-            torch.use_deterministic_algorithms(False)
-        # the edge list's deterministic segment sums are 30x slower
+        def state(st):
+            return st.kf_q.cpu(), st.kf_t.cpu(), st.mp_pos.cpu()
+
+        agree = {name: gauge_diff(state(got), state(ref), kf, mp)
+                 for name, got, ref in (
+                     ("dense_vs_single_card", branches["dense"], local),
+                     ("psum_vs_cg_single_device", branches["psum"],
+                      cg_local),
+                     ("psum_vs_single_card", branches["psum"], local))}
+        agree["psum_vs_single_card"]["raw_pts_all"] = max_diff(
+            branches["psum"].mp_pos.cpu(), local.mp_pos.cpu(), mp_all)
+        gba1 = convert.to_numpy(dwb.dist_global_ba(ms, cfg, mesh, map_id,
+                                                   kind))
         edge = steps.build_local_ba_problem(ms, mask, is2)
         cost0 = float(ba_mod.ba_cost_and_inliers(edge, kind)[0])
         ba_local = ba_mod.run_ba(edge, kind, iters=6, cg_iters=30)
@@ -2610,7 +2635,7 @@ def run_phase11(dev, scene6, cam_r, cam, orb_cfg, cfg, smi: str, tmp: str,
         log("four_agents_gba", card=repr(smi), free_keyframes=n_free,
             single_card_ms=ms_single, dist_world1_ms=ms_dist,
             robust_costs=costs,
-            tol="deterministic sums; after the similarity that aligns the "
+            tol="after the similarity that aligns the "
             "camera centres (the gauge): dense vs single card centres<5e-3 "
             "points<2e-2 (points >= 3 keyframes observe), psum-CG vs the "
             "single-device CG centres<2e-2 (its points not gated, as in "
@@ -2659,7 +2684,7 @@ def run_phase11(dev, scene6, cam_r, cam, orb_cfg, cfg, smi: str, tmp: str,
              smi, tmp)
     log("four_agents_done", phase11_seconds=time.perf_counter() - t11)
     return dict(launches=launches, per_frame=per["per_frame"],
-                pose_us=pose_us)
+                pose_us=pose_us, map_id=map_id)
 
 
 # ---------------------------------------------------------------------------
@@ -2814,6 +2839,205 @@ def run_resize(dev, scene, tmp: str, name: str, scale: float,
     return dict(launches=res["launches"], r=r)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: reproducibility on the card
+# ---------------------------------------------------------------------------
+
+def segsum_work(plan, vals):
+    """Operations and bytes of one fixed-order segment sum on these
+    inputs: an add per kept value and 31 per used segment and column (the
+    lane fold); each kept row's values and its sorted index read once,
+    the segment table (start, end, key) read once, each output row
+    written once."""
+    C = math.prod(vals.shape[1:])
+    es = vals.element_size()
+    length = plan.end - plan.start
+    kept, used = int(length.sum()), int((length > 0).sum())
+    return (kept * C + 31 * used * C,
+            F32_OPS if vals.dtype == torch.float32 else F64_OPS,
+            kept * (C * es + 4) + 12 * plan.start.shape[0]
+            + plan.n_out * C * es)
+
+
+def plan_index(plan) -> torch.Tensor:
+    """The index a plan was built from, its dropped rows at ``n_out``."""
+    length = (plan.end - plan.start).long()
+    sorted_idx = torch.repeat_interleave(plan.key.long(), length)
+    idx = torch.full(plan.perm.shape, plan.n_out, dtype=torch.long,
+                     device=plan.perm.device)
+    idx[plan.perm[:sorted_idx.shape[0]].long()] = sorted_idx
+    return idx
+
+
+def recorded_segsums(fn, seen: dict, label: str):
+    """Run ``fn`` and keep, in ``seen``, the (caller, plan, values) of
+    its first segment sum into each distinct (rows, columns) shape."""
+    from mam3slam_tpu_torch.ops import segsum
+
+    orig = segsum.segment_sum
+
+    def rec(plan, vals):
+        key = (plan.n_out, math.prod(vals.shape[1:]))
+        if key not in seen:
+            seen[key] = (f"{label}: [{vals.shape[0]}, {key[1]}] -> "
+                         f"[{key[0]}, {key[1]}]", plan, vals)
+        return orig(plan, vals)
+
+    segsum.segment_sum = rec
+    try:
+        return fn()
+    finally:
+        segsum.segment_sum = orig
+
+
+def bit_equal(a, b) -> bool:
+    """Two results (tensors, tuples of them, NamedTuples) equal bit for
+    bit."""
+    if isinstance(a, torch.Tensor):
+        return (a.dtype == b.dtype and a.shape == b.shape
+                and bool(torch.equal(a.view(-1).view(torch.uint8)
+                                     if a.dtype.is_floating_point else a,
+                                     b.view(-1).view(torch.uint8)
+                                     if b.dtype.is_floating_point else b)))
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(bit_equal(x, y)
+                                        for x, y in zip(a, b))
+    return a == b
+
+
+def run_phase13(dev, atlas: str, cfg, map_id: int, scene, cam_r, orb_cfg,
+                smi: str, rows: list) -> dict:
+    """Phase 13 on phase 11a's map (its atlas loaded into a fresh
+    ``SlamSystem``): a mapping epoch's window BA (``local_ba`` about the
+    map's newest keyframe), ``global_ba`` at the arena caps, the 7DoF and
+    4DoF PGO over the map's essential graph with a loop correction of the
+    newest keyframe, and ``run_ba`` on the map's edge list, each run twice
+    on the same input and compared bit for bit; the segment-sum kernel
+    against its plain version, bit for bit and twice, at every shape those
+    solvers gave it (timed into ``rows``, beside ``index_add_``); and the
+    four other kernels launched twice on the same input and compared bit
+    for bit."""
+    from mam3slam_tpu_torch.geometry import cameras, lie
+    from mam3slam_tpu_torch.mapstate import checkpoint
+    from mam3slam_tpu_torch.mapstate import state as S
+    from mam3slam_tpu_torch.ops import cuda_match as CM
+    from mam3slam_tpu_torch.ops import cuda_orb_desc as CO
+    from mam3slam_tpu_torch.ops import cuda_pose as CP
+    from mam3slam_tpu_torch.ops import orb as O
+    from mam3slam_tpu_torch.ops import segsum
+    from mam3slam_tpu_torch.slam import steps, system
+    from mam3slam_tpu_torch.slam.server import LoopServer, ServerConfig
+    from mam3slam_tpu_torch.solvers import ba as ba_mod
+    from mam3slam_tpu_torch.solvers import pgo as pgo_mod
+
+    t13 = time.perf_counter()
+    sys_ = system.SlamSystem(cfg, cameras.make_pinhole(FX, FY, CX, CY,
+                                                       device=dev))
+    checkpoint.load_atlas(sys_, atlas)
+    ms, fns, kind = sys_.ms, sys_.fns, cfg.cam_kind
+    in_map = ms.kf_valid & (ms.kf_map == map_id)
+    newest = int(torch.argmax(torch.where(in_map, ms.kf_seq, -1)))
+    oldest = int(torch.argmin(torch.where(in_map, ms.kf_seq, S.BIG_SEQ)))
+    srv = LoopServer(sys_, ServerConfig())
+    S_corr = lie.sim3_compose(lie.sim3_exp(torch.tensor(
+        REPRO_LOOP_XI, device=dev)), srv._pose_sim3(newest))
+    edges = srv._essential_edges(ms, newest, oldest, S_corr,
+                                 in_map.cpu().numpy())
+    fixed = ~in_map
+    fixed[oldest] = True
+    ones = torch.ones(in_map.shape[0], device=dev)
+    is2 = torch.tensor(cfg.inv_sigma2, device=dev)
+    edge = steps.build_local_ba_problem(ms, anchored_mask(ms, map_id), is2)
+    solvers = {
+        "local_ba": lambda: fns["local_ba"](ms, newest),
+        "global_ba": lambda: fns["global_ba"](ms, map_id),
+        "pgo_7dof": lambda: pgo_mod.optimize_essential_graph(
+            ms.kf_q, ms.kf_t, ones, fixed, edges, iters=12),
+        "pgo_4dof": lambda: pgo_mod.optimize_essential_graph_4dof(
+            ms.kf_q, ms.kf_t, fixed, edges, iters=12),
+        "run_ba": lambda: ba_mod.run_ba(edge, kind, iters=6, cg_iters=30)}
+    shapes, solver_equal, solver_ms = {}, {}, {}
+    for name, fn in solvers.items():
+        sync(dev)
+        t0 = time.perf_counter()
+        first = recorded_segsums(fn, shapes, name)
+        sync(dev)
+        solver_ms[name] = (time.perf_counter() - t0) * 1e3
+        solver_equal[name] = bit_equal(first, fn())
+        del first
+
+    segsum_equal = {}
+    for caller, plan, vals in shapes.values():
+        got = segsum.segment_sum(plan, vals)
+        plain = segsum.segment_sum_plain(plan, vals)
+        segsum_equal[caller] = (bit_equal(got, plain)
+                                and bit_equal(got, segsum.segment_sum(
+                                    plan, vals)))
+        err = float((got - plain).abs().max()) if got.numel() else 0.0
+        flat = vals.reshape(vals.shape[0], -1)
+        idx = plan_index(plan)
+        lib = torch.zeros(plan.n_out + 1, flat.shape[1], dtype=vals.dtype,
+                          device=dev)
+        measure(rows, "segsum", caller, err,
+                lambda: segsum.segment_sum(plan, vals),
+                lambda: segsum.segment_sum_plain(plan, vals),
+                segsum_work(plan, vals), plain_reps=5,
+                library_fn=lambda: lib.index_add_(0, idx, flat),
+                only="segsum")
+        del got, plain, lib
+
+    # the four other kernels, each launched twice on one input
+    from mam3slam_tpu_torch.io import render
+
+    rng = np.random.default_rng(13)
+    R, t, _ = render.orbit_trajectory(2, 30, 31, bob=0.05)[0]
+    stack = O.build_stack(scene.render(R, t, cam_r), orb_cfg)
+    xy, _, _ = O._select_keypoints_stacked(O.fast_score_map(stack), orb_cfg)
+    _, lvl, _, hws = O._device_constants(orb_cfg, dev)
+    desc_args = (stack, torch.round(O.gaussian_blur(stack)), xy, lvl, hws)
+    Q, F = 4096, 1024
+    dq = torch.tensor(rng.integers(0, 256, (Q, 32), dtype=np.uint8),
+                      device=dev)
+    dt = torch.cat([dq[:F // 2], torch.tensor(rng.integers(
+        0, 256, (F - F // 2, 32), dtype=np.uint8), device=dev)])
+    quv = torch.tensor(rng.uniform(0, W, (Q, 2)).astype(np.float32),
+                       device=dev)
+    tuv = torch.cat([quv[:F // 2] + 1.5, torch.tensor(rng.uniform(
+        0, W, (F - F // 2, 2)).astype(np.float32), device=dev)])
+    masked_args = (dq, quv, torch.full((Q,), 12.0, device=dev),
+                   torch.tensor(rng.integers(0, 8, Q).astype(np.int32),
+                                device=dev),
+                   torch.tensor(rng.random(Q) > 0.05, device=dev), dt, tuv,
+                   torch.tensor(rng.integers(0, 8, F).astype(np.int32),
+                                device=dev),
+                   torch.tensor(rng.random(F) > 0.05, device=dev))
+    cam = cameras.make_pinhole(FX, FY, CX, CY, device=dev)
+    pose_args = pose_problem(rng, dev, cam, 1024, (4, 3, 3, 12))
+    stacked = [x[None].contiguous() for x in pose_args[:3]] + [kind] + [
+        x[None].contiguous() for x in pose_args[4:]]
+    kernels = dict(
+        orb_desc=lambda: CO.ic_brief(*desc_args),
+        masked_match=lambda: CM.fused_masked_match(*masked_args),
+        min_hamming2=lambda: CM.min_hamming2(dq, masked_args[4], dt,
+                                             masked_args[8]),
+        pose_opt=lambda: CP.pose_optimization_batched(*stacked))
+    kernel_equal = {k: bit_equal(fn(), fn()) for k, fn in kernels.items()}
+    log("reproducibility", card=repr(smi), map_id=map_id,
+        keyframes=int(in_map.sum()), pgo_edges=int(edges.i.shape[0]),
+        solver_bit_equal=solver_equal,
+        solver_ms={k: round(v, 3) for k, v in solver_ms.items()},
+        segsum_bit_equal_to_plain=segsum_equal,
+        kernels_twice_bit_equal=kernel_equal,
+        phase13_seconds=time.perf_counter() - t13)
+    if not (all(solver_equal.values()) and all(segsum_equal.values())
+            and all(kernel_equal.values()) and len(segsum_equal) >= 6):
+        raise AssertionError("phase 13: a result differs between two runs "
+                             "on the same input, or segsum from its plain "
+                             "version")
+    return dict(solver_equal=solver_equal, segsum_equal=segsum_equal,
+                kernel_equal=kernel_equal)
+
+
 def sync(dev) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -2927,8 +3151,8 @@ def main() -> int:
         plain_calls=slam_plain, seconds=seconds, **slam_per)
     check_slam(sys_, agents, arcs)
     slam_times(sys_, agents, smi)
-    if (any(slam_launches.get(k, 0) == 0 for k in SLAM_KERNELS)
-            or any(slam_plain.values())):
+    if (any(slam_launches.get(k, 0) == 0
+            for k in (*SLAM_KERNELS, SEGSUM[0])) or any(slam_plain.values())):
         raise AssertionError("the SLAM path did not run its kernels")
 
     # 6. the loop server: 6a merge then relocalization, 6b loop closure
@@ -2982,7 +3206,7 @@ def main() -> int:
     loop6b = dict(track_ms=list(agents6[0]["track_ms"]),
                   lc_ms=list(sys6.server.timers.series.get("LC", [])))
     server_launches = {k: merge_launches.get(k, 0) + loop_launches.get(k, 0)
-                       for k in KERNELS}
+                       for k in (*KERNELS, SEGSUM[0])}
     if (any(n == 0 for n in server_launches.values()) or any(
             merge_plain.values()) or any(loop_plain.values())):
         raise AssertionError("the server path did not run every kernel")
@@ -3178,10 +3402,11 @@ def main() -> int:
     phase10_launches.update(res10b["launches"])
 
     # 11. four agents with the global BA on a mesh: 11a one NCCL rank,
-    # 11b 2 / 4 / (2, 2) gloo ranks sharing the card
-    with tempfile.TemporaryDirectory() as tmp:
-        p11 = run_phase11(dev, scene6, cam_r, cam, orb_cfg, cfg, smi, tmp,
-                          timed)
+    # 11b 2 / 4 / (2, 2) gloo ranks sharing the card (11a's atlas is kept
+    # for phase 13)
+    tmp11 = tempfile.TemporaryDirectory()
+    p11 = run_phase11(dev, scene6, cam_r, cam, orb_cfg, cfg, smi, tmp11.name,
+                      timed)
 
     # 12. the facade's INTER_AREA resize: 12a against the CPU, 12b the
     # facade through settings that upscale and downscale its frames
@@ -3194,6 +3419,12 @@ def main() -> int:
                 run_resize(dev, scene, tmp, name, scale, smi)["launches"])
     log("resize_done", phase12_seconds=time.perf_counter() - t12)
 
+    # 13. reproducibility: the solvers and kernels twice on one input, the
+    # segment sums against their plain version at their callers' shapes
+    run_phase13(dev, os.path.join(tmp11.name, "phase11.npz"), cfg,
+                p11["map_id"], scene6, cam_r, orb_cfg, smi, timed)
+    tmp11.cleanup()
+
     phase8_launches = collections.Counter()
     for counts in (res8a["launches"], res8b["launches"],
                    res_bare["launches"], launches8c):
@@ -3202,10 +3433,12 @@ def main() -> int:
     for counts in (e9["res"]["launches"], d9["launches"], c9["launches"]):
         phase9_launches.update(counts)
 
-    rows = {k: [r for r in timed if r["kernel"] == k] for k in KERNELS}
+    kernels = dict(KERNELS)
+    kernels[SEGSUM[0]] = SEGSUM[1:]
+    rows = {k: [r for r in timed if r["kernel"] == k] for k in kernels}
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
-         "launches": (launches[k] + slam_launches.get(k, 0)
+         "launches": (launches.get(k, 0) + slam_launches.get(k, 0)
                       + server_launches[k] + fres["launches"].get(k, 0)
                       + phase8_launches[k] + phase9_launches[k]
                       + phase10_launches[k] + p11["launches"].get(k, 0)
@@ -3214,8 +3447,9 @@ def main() -> int:
          "ms": rows[k][0]["wrapper_ms"], "device_ms": rows[k][0]["device_ms"],
          "plain_ms": rows[k][0]["plain_ms"],
          "bound_ms": rows[k][0]["bound_us"] / 1e3,
-         "bound_by": rows[k][0]["bound_by"], "library_ms": None,
-         "library": NO_LIBRARY,
+         "bound_by": rows[k][0]["bound_by"],
+         "library_ms": rows[k][0].get("library_ms"),
+         "library": SEGSUM_LIBRARY if k == SEGSUM[0] else NO_LIBRARY,
          "launches_per_tracked_frame": track_per_frame.get(k, 0),
          "launches_per_slam_frame": slam_per["per_frame"].get(k, 0),
          "launches_per_epoch": slam_per["per_epoch"].get(k, 0),
@@ -3229,11 +3463,11 @@ def main() -> int:
          "launches_phase11": p11["launches"].get(k, 0),
          "launches_per_phase11_frame": p11["per_frame"].get(k, 0),
          "launches_phase12": phase12_launches[k],
-         "callers": [{c: r[c] for c in (
+         "callers": [{c: r.get(c) for c in (
              "caller", "device_ms", "timer", "wrapper_ms", "plain_ms",
-             "bound_us", "bound_by", "share", "max_abs_err")}
+             "library_ms", "bound_us", "bound_by", "share", "max_abs_err")}
              for r in rows[k]]}
-        for k, (src, rep) in KERNELS.items()]}))
+        for k, (src, rep) in kernels.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

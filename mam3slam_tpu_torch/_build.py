@@ -56,6 +56,7 @@ _SIGNATURES = {
     "mam3_min_hamming2": [_P, _P, _I, _P, _P, _I, _P, _P, _P, _P],
     "mam3_pose_opt": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
                       _P, _P, _P, _P, _P],
+    "mam3_segsum": [_P, _I, _I, _P, _P, _P, _P, _I, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -6,13 +6,14 @@ Port of ``mam3slam_tpu.solvers.ba``.  ``run_ba`` is the mask-aware LM
 over an edge list (``BAProblem``): each iteration linearises every edge,
 solves the reduced camera system by matrix-free Schur PCG (two segment
 sums per product, block-Jacobi preconditioner) and back-substitutes the
-points.  With ``group`` (a ``torch.distributed`` process group) the edges
-are this rank's shard and every segment sum and the cost are
-all-reduced over the group, so all ranks step identically
-(``parallel/dist_ba.py``).  ``pose_optimization`` on CUDA tensors runs
-the pose kernel of ``ops/cuda_pose.py`` for either camera kind (the
-reference sends only PINHOLE to its Pallas kernel and KB8 to XLA); CPU
-tensors take the plain version.
+points; every segment sum is a fixed-order one (``ops/segsum.py``) over
+plans built once per solve.  With ``group`` (a ``torch.distributed``
+process group) the edges are this rank's shard and every segment sum
+and the cost are all-reduced over the group, so all ranks step
+identically (``parallel/dist_ba.py``).  ``pose_optimization`` on CUDA
+tensors runs the pose kernel of ``ops/cuda_pose.py`` for either camera
+kind (the reference sends only PINHOLE to its Pallas kernel and KB8 to
+XLA); CPU tensors take the plain version.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import torch.distributed as dist
 from mam3slam_tpu_torch import _build
 from mam3slam_tpu_torch.geometry import cameras as cam_mod
 from mam3slam_tpu_torch.geometry import lie
-from mam3slam_tpu_torch.ops import cuda_pose
+from mam3slam_tpu_torch.ops import cuda_pose, segsum
 
 CHI2_MONO = cuda_pose.CHI2_MONO
 
@@ -72,16 +73,28 @@ class BAResult(NamedTuple):
     cost: torch.Tensor        # [] robust cost
 
 
-def _segsum(vals: torch.Tensor, idx: torch.Tensor, n: int,
+def _segsum(vals: torch.Tensor, plan: segsum.SegmentPlan,
             group=None) -> torch.Tensor:
-    """Segment sum of per-edge values into ``n`` vertex rows; with a
-    process group, the partial sums are all-reduced over it."""
-    out = torch.zeros((n,) + vals.shape[1:], dtype=vals.dtype,
-                      device=vals.device)
-    out.index_add_(0, idx.long(), vals)
+    """Fixed-order segment sum of per-edge values into the plan's vertex
+    rows; with a process group, the partial sums are all-reduced over
+    it."""
+    out = segsum.segment_sum(plan, vals)
     if group is not None:
         dist.all_reduce(out, group=group)
     return out
+
+
+def edge_plans(problem: BAProblem):
+    """The segment plans of the valid edges onto their cameras and points,
+    built once per solve (the edge list is fixed over its iterations).
+    An invalid edge carries zero weight, so its rows are all zero and are
+    summed nowhere (padded edges name point 0, and would make it one
+    segment of most of the list)."""
+    obs = problem.obs
+    return (segsum.segment_plan(torch.where(obs.valid, obs.cam, -1),
+                                problem.cam_q.shape[0]),
+            segsum.segment_plan(torch.where(obs.valid, obs.pt, -1),
+                                problem.pts.shape[0]))
 
 
 _huber_w = cuda_pose._huber_w   # IRLS weight of the Huber kernel
@@ -129,16 +142,16 @@ def _damp(H, free, lam):
 
 def _lm_iteration(problem: BAProblem, kind: int, lam, edge_mask,
                   huber_delta2: float, cg_iters: int, robust: bool,
-                  group=None):
+                  plans, group=None):
     """One LM step: linearise, Schur PCG for the camera step, point
-    back-substitution.  Returns the trial (q, t, pts)."""
-    K = problem.cam_q.shape[0]
-    P = problem.pts.shape[0]
+    back-substitution; ``plans`` are ``edge_plans(problem)``.  Returns
+    the trial (q, t, pts)."""
     obs = problem.obs
     oc, op = obs.cam.long(), obs.pt.long()
+    cam_plan, pt_plan = plans
 
-    def seg(vals, idx, n):
-        return _segsum(vals, idx, n, group)
+    def seg(vals, plan):
+        return _segsum(vals, plan, group)
 
     r, Jc, Jp, depth_ok = _edge_linearize(
         problem.cam_q, problem.cam_t, problem.cam_params, kind,
@@ -152,10 +165,10 @@ def _lm_iteration(problem: BAProblem, kind: int, lam, edge_mask,
     wJc = Jc * w[:, None, None]
     wJp = Jp * w[:, None, None]
 
-    g_c = seg(torch.einsum("eij,ei->ej", wJc, r), oc, K)
-    g_p = seg(torch.einsum("eij,ei->ej", wJp, r), op, P)
-    Hcc = seg(torch.einsum("eik,eij->ekj", wJc, Jc), oc, K)
-    Hpp = seg(torch.einsum("eik,eij->ekj", wJp, Jp), op, P)
+    g_c = seg(torch.einsum("eij,ei->ej", wJc, r), cam_plan)
+    g_p = seg(torch.einsum("eij,ei->ej", wJp, r), pt_plan)
+    Hcc = seg(torch.einsum("eik,eij->ekj", wJc, Jc), cam_plan)
+    Hpp = seg(torch.einsum("eik,eij->ekj", wJp, Jp), pt_plan)
     W_e = torch.einsum("eik,eij->ekj", wJc, Jp)               # [E, 6, 3]
 
     Hcc_l = _damp(Hcc, problem.cam_free, lam)
@@ -163,20 +176,20 @@ def _lm_iteration(problem: BAProblem, kind: int, lam, edge_mask,
 
     def S_mv(v):  # (Hcc_l - W Hpp^-1 W^T) v, v [K, 6]
         u = torch.einsum("ekj,ek->ej", W_e, v[oc])
-        z = torch.einsum("pij,pj->pi", Hpp_inv, seg(u, op, P))
+        z = torch.einsum("pij,pj->pi", Hpp_inv, seg(u, pt_plan))
         back = torch.einsum("ekj,ej->ek", W_e, z[op])
-        return torch.einsum("kij,kj->ki", Hcc_l, v) - seg(back, oc, K)
+        return torch.einsum("kij,kj->ki", Hcc_l, v) - seg(back, cam_plan)
 
     z0 = torch.einsum("pij,pj->pi", Hpp_inv, g_p)
-    b = -g_c + seg(torch.einsum("ekj,ej->ek", W_e, z0[op]), oc, K)
+    b = -g_c + seg(torch.einsum("ekj,ej->ek", W_e, z0[op]), cam_plan)
     WHW = torch.einsum("eik,ekl,ejl->eij", W_e, Hpp_inv[op], W_e)
-    M_inv = _spd_inv6(Hcc_l - seg(WHW, oc, K))
+    M_inv = _spd_inv6(Hcc_l - seg(WHW, cam_plan))
     x = _pcg(S_mv, lambda v: torch.einsum("kij,kj->ki", M_inv, v), b,
              cg_iters)
     dx_c = torch.where(problem.cam_free[:, None], x, 0.0)
 
     u = torch.einsum("ekj,ek->ej", W_e, dx_c[oc])
-    dx_p = torch.einsum("pij,pj->pi", Hpp_inv, -g_p - seg(u, op, P))
+    dx_p = torch.einsum("pij,pj->pi", Hpp_inv, -g_p - seg(u, pt_plan))
     dx_p = torch.where(problem.pt_free[:, None], dx_p, 0.0)
 
     dT = lie.se3_exp(dx_c)
@@ -223,10 +236,11 @@ def run_ba(problem: BAProblem, kind: int, iters: int = 10,
 
     lam = torch.tensor(lam0, dtype=torch.float32, device=problem.pts.device)
     cost = cost_at(problem)
+    plans = edge_plans(problem)
     for _ in range(iters):
         trial = problem._replace(**dict(zip(names, _lm_iteration(
             problem, kind, lam, mask0, huber_delta2, cg_iters, robust,
-            group))))
+            plans, group))))
         new_cost = cost_at(trial)
         accept = new_cost < cost
         lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-7),

@@ -11,8 +11,9 @@ slots of each free camera, bridged to their point-major slot).
   (Schur complement of the 3x3 point blocks), factors it with one
   Cholesky and back-substitutes the points; the per-edge math runs on
   flat component arrays (``[E]``, E = Pw * M) and the reference's
-  one-hot matmuls are ``index_add_`` segment sums over the free-camera
-  slot.  It reads only the point-major view.
+  one-hot matmuls are fixed-order segment sums (``ops/segsum.py``) over
+  the free-camera slot, planned once per solve.  It reads only the
+  point-major view.
 * ``run_window_ba`` is the implicit-Schur PCG: free-camera edges are
   linearised camera-major and gathered into the point-major view, so both
   views hold the same values and the operator stays symmetric.
@@ -30,6 +31,7 @@ import torch.distributed as dist
 
 from mam3slam_tpu_torch.geometry import cameras as cam_mod
 from mam3slam_tpu_torch.geometry import lie
+from mam3slam_tpu_torch.ops import segsum
 from mam3slam_tpu_torch.solvers.ba import _damp, _huber_w, _pcg, _rho
 
 CHI2_MONO = 5.991
@@ -325,20 +327,30 @@ class _EdgeConsts(NamedTuple):
     q0: tuple                 # fixed-observer quaternion comps (4 x [E])
     t0: tuple                 # fixed-observer translation comps (3 x [E])
     par: tuple                # camera parameter comps (8 x [E])
+    cam_plan: segsum.SegmentPlan   # free edges by camera slot -> [Kc]
+    pair_plan: segsum.SegmentPlan  # free edges by (point, slot) -> [Pw Kc]
 
 
 def _flatten_consts(prob: WindowProblem) -> _EdgeConsts:
     def f(a):
         return a.reshape(-1)
 
+    Pw, M = prob.pm_uv.shape[:2]
+    Kc = prob.cam_q.shape[0]
+    is_free = f(prob.pm_cslot >= 0)
+    cslot = f(torch.clamp(prob.pm_cslot, min=0)).long()
+    prow = torch.arange(Pw, device=cslot.device).repeat_interleave(M)
+    # fixed edges are summed nowhere (index -1)
     return _EdgeConsts(
         uvx=f(prob.pm_uv[..., 0]), uvy=f(prob.pm_uv[..., 1]),
-        w0=f(prob.pm_w), valid=f(prob.pm_valid),
-        is_free=f(prob.pm_cslot >= 0),
-        cslot=f(torch.clamp(prob.pm_cslot, min=0)).long(),
+        w0=f(prob.pm_w), valid=f(prob.pm_valid), is_free=is_free,
+        cslot=cslot,
         q0=tuple(f(prob.pm_q0[..., i]) for i in range(4)),
         t0=tuple(f(prob.pm_t0[..., i]) for i in range(3)),
-        par=tuple(f(prob.pm_params0[..., i]) for i in range(8)))
+        par=tuple(f(prob.pm_params0[..., i]) for i in range(8)),
+        cam_plan=segsum.segment_plan(torch.where(is_free, cslot, -1), Kc),
+        pair_plan=segsum.segment_plan(
+            torch.where(is_free, prow * Kc + cslot, -1), Pw * Kc))
 
 
 def _soa_rot_from_quat(qw, qx, qy, qz):
@@ -470,18 +482,12 @@ def _lm_iteration_dense(prob: WindowProblem, c: _EdgeConsts, kind, cam_q,
 
     g_p, Hpp, cols, wb = _soa_blocks(w, rx, ry, jp, jc, Pw, M)
 
-    # camera blocks: 6 gradient + 21 Hcc comps per edge, summed per slot
-    # (fixed edges go to a scratch slot Kc)
-    slot = torch.where(c.is_free, c.cslot, Kc)
-    red = torch.zeros(Kc + 1, 27, dtype=pts.dtype, device=dev)
-    red.index_add_(0, slot, torch.stack(cols, dim=-1))
-    red = red[:Kc]
-
-    # W blocks (Jc^T W Jp) summed per (point, camera slot): Z [Pw, Kc, 6, 3]
-    prow = torch.arange(Pw, device=dev).repeat_interleave(M)
-    Z = torch.zeros(Pw * (Kc + 1), 18, dtype=pts.dtype, device=dev)
-    Z.index_add_(0, prow * (Kc + 1) + slot, torch.stack(wb, dim=-1))
-    Z = Z.reshape(Pw, Kc + 1, 6, 3)[:, :Kc]
+    # camera blocks: 6 gradient + 21 Hcc comps per free edge, summed per
+    # slot, and the W blocks (Jc^T W Jp) per (point, camera slot): Z [Pw,
+    # Kc, 6, 3]
+    red = segsum.segment_sum(c.cam_plan, torch.stack(cols, dim=-1))
+    Z = segsum.segment_sum(c.pair_plan, torch.stack(wb, dim=-1)
+                           ).reshape(Pw, Kc, 6, 3)
 
     Hpp_inv = _spd_inv3(_damp(Hpp, prob.pt_valid, lam))
     # Schur coupling sum_p Z_p Hpp^-1 Z_p^T = (Z L)(Z L)^T, one matmul

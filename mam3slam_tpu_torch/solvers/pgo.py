@@ -5,8 +5,9 @@ Optimizer::OptimizeEssentialGraph): keyframe poses are Sim3 vertices,
 edges carry relative Sim3 measurements, the residual of edge (i, j) is
 ``log(m * S_i * S_j^-1)``.  Each LM step takes the per-edge 7x7 tangent
 jacobians by forward mode, assembles the dense [7K, 7K] normal system with
-accumulating scatters (one keyframe pair may carry several edges) and
-solves it by Cholesky; a step is kept only when it lowers the cost.
+fixed-order segment sums (``ops/segsum.py``; one keyframe pair may carry
+several edges) and solves it by Cholesky; a step is kept only when it
+lowers the cost.
 
 ``optimize_essential_graph_4dof`` is the inertial variant
 (OptimizeEssentialGraph4DoF): for a map whose roll and pitch gravity
@@ -22,6 +23,7 @@ from typing import NamedTuple
 import torch
 
 from mam3slam_tpu_torch.geometry import lie
+from mam3slam_tpu_torch.ops import segsum
 from mam3slam_tpu_torch.utils import autodiff
 
 
@@ -61,6 +63,31 @@ def batched_jacfwd(f, x: torch.Tensor):
     return y, J
 
 
+def _block_plans(ei, ej, K: int):
+    """The plans of the normal system's assembly, built once per solve:
+    each edge's four blocks (i, i), (j, j), (i, j), (j, i) keyed on row K
+    + column of the dense [K, K] block grid (one keyframe pair may carry
+    several edges), and its two gradient blocks on i and j."""
+    return (segsum.segment_plan(torch.cat([ei * K + ei, ej * K + ej,
+                                           ei * K + ej, ej * K + ei]), K * K),
+            segsum.segment_plan(torch.cat([ei, ej]), K))
+
+
+def _assemble(plans, Ji, Jj, r, w, K: int):
+    """H [K, K, d, d] and g [K, d] of the weighted edges (jacobians Ji, Jj
+    [E, n, d], residuals r [E, n]), summed in a fixed order."""
+    d = Ji.shape[-1]
+    Hij = torch.einsum("eki,ekj,e->eij", Ji, Jj, w)
+    H = segsum.segment_sum(plans[0], torch.cat([
+        torch.einsum("eki,ekj,e->eij", Ji, Ji, w),
+        torch.einsum("eki,ekj,e->eij", Jj, Jj, w),
+        Hij, Hij.transpose(-1, -2)])).reshape(K, K, d, d)
+    g = segsum.segment_sum(plans[1], torch.cat([
+        torch.einsum("eki,ek,e->ei", Ji, r, w),
+        torch.einsum("eki,ek,e->ei", Jj, r, w)]))
+    return H, g
+
+
 def optimize_essential_graph(q_kw, t_kw, s_kw, fixed, edges: PGOEdges,
                              iters: int = 20, lam0: float = 1e-4):
     """Damped Gauss-Newton (LM with accept/reject) over Sim3 vertices
@@ -82,6 +109,7 @@ def optimize_essential_graph(q_kw, t_kw, s_kw, fixed, edges: PGOEdges,
 
     eye7 = torch.eye(7, dtype=dt, device=dev)
     diag = torch.arange(K, device=dev)
+    plans = _block_plans(ei, ej, K)
     q, t, s = q_kw, t_kw, s_kw
     lam = torch.tensor(lam0, dtype=dt, device=dev)
     cost = cost_of(q, t, s)
@@ -95,17 +123,7 @@ def optimize_essential_graph(q_kw, t_kw, s_kw, fixed, edges: PGOEdges,
         Ji = Ji * (~fixed[ei])[:, None, None]
         Jj = Jj * (~fixed[ej])[:, None, None]
 
-        Hij = torch.einsum("eki,ekj,e->eij", Ji, Jj, w)
-        H = torch.zeros(K, K, 7, 7, dtype=dt, device=dev)
-        H.index_put_((ei, ei), torch.einsum("eki,ekj,e->eij", Ji, Ji, w),
-                     accumulate=True)
-        H.index_put_((ej, ej), torch.einsum("eki,ekj,e->eij", Jj, Jj, w),
-                     accumulate=True)
-        H.index_put_((ei, ej), Hij, accumulate=True)
-        H.index_put_((ej, ei), Hij.transpose(-1, -2), accumulate=True)
-        g = torch.zeros(K, 7, dtype=dt, device=dev)
-        g.index_add_(0, ei, torch.einsum("eki,ek,e->ei", Ji, r, w))
-        g.index_add_(0, ej, torch.einsum("eki,ek,e->ei", Jj, r, w))
+        H, g = _assemble(plans, Ji, Jj, r, w, K)
 
         # fixed vertices get identity rows; LM damping on the diagonal
         Hd = H[diag, diag]
@@ -165,6 +183,7 @@ def optimize_essential_graph_4dof(q_kw, t_kw, fixed, edges: PGOEdges,
 
     eye4 = torch.eye(4, dtype=dt, device=dev)
     diag = torch.arange(K, device=dev)
+    plans = _block_plans(ei, ej, K)
     q, t = q_kw, t_kw
     lam = torch.tensor(lam0, dtype=dt, device=dev)
     cost = cost_of(q, t)
@@ -176,17 +195,7 @@ def optimize_essential_graph_4dof(q_kw, t_kw, fixed, edges: PGOEdges,
         Ji = J[..., :4] * (~fixed[ei])[:, None, None]
         Jj = J[..., 4:] * (~fixed[ej])[:, None, None]
 
-        Hij = torch.einsum("eki,ekj,e->eij", Ji, Jj, w)
-        H = torch.zeros(K, K, 4, 4, dtype=dt, device=dev)
-        H.index_put_((ei, ei), torch.einsum("eki,ekj,e->eij", Ji, Ji, w),
-                     accumulate=True)
-        H.index_put_((ej, ej), torch.einsum("eki,ekj,e->eij", Jj, Jj, w),
-                     accumulate=True)
-        H.index_put_((ei, ej), Hij, accumulate=True)
-        H.index_put_((ej, ei), Hij.transpose(-1, -2), accumulate=True)
-        g = torch.zeros(K, 4, dtype=dt, device=dev)
-        g.index_add_(0, ei, torch.einsum("eki,ek,e->ei", Ji, r, w))
-        g.index_add_(0, ej, torch.einsum("eki,ek,e->ei", Jj, r, w))
+        H, g = _assemble(plans, Ji, Jj, r, w, K)
 
         Hd = H[diag, diag]
         damp = lam * torch.clamp(torch.diagonal(Hd, dim1=-2, dim2=-1),

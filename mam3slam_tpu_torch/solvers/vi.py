@@ -30,6 +30,7 @@ import torch
 
 from mam3slam_tpu_torch.geometry import cameras as cam_mod
 from mam3slam_tpu_torch.geometry import lie
+from mam3slam_tpu_torch.ops import segsum
 from mam3slam_tpu_torch.solvers import ba as ba_mod
 from mam3slam_tpu_torch.solvers import imu as imu_mod
 from mam3slam_tpu_torch.solvers.ba_window import _huber_w, _rho, _spd_inv3
@@ -186,18 +187,29 @@ def vi_cost(prob: VIProblem, kind: int, walk_g2, walk_a2,
     return c_vis + torch.where(prob.iedges.valid, ci, 0.0).sum()
 
 
-def _vi_lm_iteration(prob: VIProblem, kind: int, lam, walk_g2, walk_a2,
-                     huber_delta2, cg_iters, group=None):
-    """One LM step over the 15-dof nav blocks with the points
-    Schur-eliminated; with a process group every segment sum is
-    all-reduced over it (edges sharded).  Returns (q, t, vel, bg, ba,
-    pts)."""
+def _vi_plans(prob: VIProblem):
+    """The segment plans of the valid reprojection edges onto their
+    cameras and points and of the inertial edges onto their i and j
+    states, built once per solve."""
     K = prob.cam_q.shape[0]
-    P = prob.pts.shape[0]
+    cam_plan, pt_plan = ba_mod.edge_plans(prob)
+    return (cam_plan, pt_plan, segsum.segment_plan(prob.iedges.i, K),
+            segsum.segment_plan(prob.iedges.j, K))
+
+
+def _vi_lm_iteration(prob: VIProblem, kind: int, lam, walk_g2, walk_a2,
+                     huber_delta2, cg_iters, plans, group=None):
+    """One LM step over the 15-dof nav blocks with the points
+    Schur-eliminated (``plans`` are ``_vi_plans(prob)``); with a process
+    group every segment sum is all-reduced over it (edges sharded).
+    Returns (q, t, vel, bg, ba, pts)."""
+    K = prob.cam_q.shape[0]
     obs = prob.obs
     oc, op = obs.cam.long(), obs.pt.long()
-    def seg(vals, idx, n):
-        return ba_mod._segsum(vals, idx, n, group)
+    oc_plan, op_plan, ii_plan, jj_plan = plans
+
+    def seg(vals, plan):
+        return ba_mod._segsum(vals, plan, group)
 
     dt_, dev = prob.cam_t.dtype, prob.cam_t.device
     eye15 = _eye(15, prob.cam_t)
@@ -215,11 +227,11 @@ def _vi_lm_iteration(prob: VIProblem, kind: int, lam, walk_g2, walk_a2,
     wJp = Jp * w[:, None, None]
 
     g_c = torch.zeros(K, 15, dtype=dt_, device=dev)
-    g_c[:, :6] = seg(torch.einsum("eij,ei->ej", wJc, r), oc, K)
-    g_p = seg(torch.einsum("eij,ei->ej", wJp, r), op, P)
+    g_c[:, :6] = seg(torch.einsum("eij,ei->ej", wJc, r), oc_plan)
+    g_p = seg(torch.einsum("eij,ei->ej", wJp, r), op_plan)
     Hcc = torch.zeros(K, 15, 15, dtype=dt_, device=dev)
-    Hcc[:, :6, :6] = seg(torch.einsum("eik,eij->ekj", wJc, Jc6), oc, K)
-    Hpp = seg(torch.einsum("eik,eij->ekj", wJp, Jp), op, P)
+    Hcc[:, :6, :6] = seg(torch.einsum("eik,eij->ekj", wJc, Jc6), oc_plan)
+    Hpp = seg(torch.einsum("eik,eij->ekj", wJp, Jp), op_plan)
     W_e = torch.einsum("eik,eij->ekj", wJc, Jp)             # [E, 6, 3]
 
     # inertial part: a fixed endpoint's jacobian is zeroed, and the edge
@@ -234,12 +246,12 @@ def _vi_lm_iteration(prob: VIProblem, kind: int, lam, walk_g2, walk_a2,
     info = torch.where(em_any[:, None, None], info, 0.0)
     IJi = torch.einsum("mab,mbc->mac", info, Ji)
     IJj = torch.einsum("mab,mbc->mac", info, Jj)
-    g_c = g_c + seg(torch.einsum("mac,ma->mc", IJi, ri), ii, K)
-    g_c = g_c + seg(torch.einsum("mac,ma->mc", IJj, ri), jj, K)
+    g_c = g_c + seg(torch.einsum("mac,ma->mc", IJi, ri), ii_plan)
+    g_c = g_c + seg(torch.einsum("mac,ma->mc", IJj, ri), jj_plan)
     Hcc = Hcc + seg(torch.einsum("mca,mab->mcb", Ji.transpose(1, 2), IJi),
-                    ii, K)
+                    ii_plan)
     Hcc = Hcc + seg(torch.einsum("mca,mab->mcb", Jj.transpose(1, 2), IJj),
-                    jj, K)
+                    jj_plan)
 
     # damping
     diag = torch.diagonal(Hcc, dim1=-2, dim2=-1)
@@ -257,19 +269,19 @@ def _vi_lm_iteration(prob: VIProblem, kind: int, lam, walk_g2, walk_a2,
 
     def S_mv(v):  # [K, 15]
         u = torch.einsum("ekj,ek->ej", W_e, v[:, :6][oc])
-        z = torch.einsum("pij,pj->pi", Hpp_inv, seg(u, op, P))
+        z = torch.einsum("pij,pj->pi", Hpp_inv, seg(u, op_plan))
         back = torch.einsum("ekj,ej->ek", W_e, z[op])
         out = torch.einsum("kij,kj->ki", Hcc_l, v)
-        out[:, :6] -= seg(back, oc, K)
-        out = out + seg(torch.einsum("mcb,mb->mc", Hij, v[jj]), ii, K)
-        return out + seg(torch.einsum("mbc,mb->mc", Hij, v[ii]), jj, K)
+        out[:, :6] -= seg(back, oc_plan)
+        out = out + seg(torch.einsum("mcb,mb->mc", Hij, v[jj]), ii_plan)
+        return out + seg(torch.einsum("mbc,mb->mc", Hij, v[ii]), jj_plan)
 
     z0 = torch.einsum("pij,pj->pi", Hpp_inv, g_p)
     b = -g_c
-    b[:, :6] += seg(torch.einsum("ekj,ej->ek", W_e, z0[op]), oc, K)
+    b[:, :6] += seg(torch.einsum("ekj,ej->ek", W_e, z0[op]), oc_plan)
     WHW = torch.einsum("eik,ekl,ejl->eij", W_e, Hpp_inv[op], W_e)
     S_diag = Hcc_l.clone()
-    S_diag[:, :6, :6] -= seg(WHW, oc, K)
+    S_diag[:, :6, :6] -= seg(WHW, oc_plan)
     M_inv = _inv(S_diag + 1e-8 * eye15)
 
     def precond(v):
@@ -293,7 +305,7 @@ def _vi_lm_iteration(prob: VIProblem, kind: int, lam, walk_g2, walk_a2,
     dx = torch.where(prob.cam_free[:, None], x, 0.0)
 
     u = torch.einsum("ekj,ek->ej", W_e, dx[:, :6][oc])
-    dx_p = torch.einsum("pij,pj->pi", Hpp_inv, -g_p - seg(u, op, P))
+    dx_p = torch.einsum("pij,pj->pi", Hpp_inv, -g_p - seg(u, op_plan))
     dx_p = torch.where(prob.pt_free[:, None], dx_p, 0.0)
 
     dT = lie.se3_exp(dx[:, :6])
@@ -315,9 +327,10 @@ def run_vi_ba(prob: VIProblem, kind: int, calib: imu_mod.ImuCalib,
     lam = torch.tensor(lam0, dtype=prob.cam_t.dtype, device=prob.cam_t.device)
     cost = vi_cost(prob, kind, walk_g2, walk_a2, huber_delta2)
     names = ("cam_q", "cam_t", "vel", "bg", "ba", "pts")
+    plans = _vi_plans(prob)
     for _ in range(iters):
         new = _vi_lm_iteration(prob, kind, lam, walk_g2, walk_a2,
-                               huber_delta2, cg_iters, group)
+                               huber_delta2, cg_iters, plans, group)
         trial = prob._replace(**dict(zip(names, new)))
         new_cost = vi_cost(trial, kind, walk_g2, walk_a2, huber_delta2)
         accept = new_cost < cost

@@ -476,3 +476,41 @@ def test_pipelined_readback_equals_blocking_read(dev):
     tracked = [row[0] for row in a.trajectory]
     assert checked and checked == tracked[-len(checked):]
     assert len(checked) >= n - 10
+
+
+def _segsum_case(rng, E, n_out, C, dtype=np.float32, drop=0.1):
+    """Rows by a random index into ``n_out`` rows, ``drop`` of them outside
+    (summed nowhere), a few long segments among short ones."""
+    idx = rng.integers(0, max(n_out, 1), E)
+    idx[: E // 4] = rng.integers(0, 3, E // 4) if n_out >= 3 else 0
+    idx[rng.random(E) < drop] = -1
+    return idx, rng.normal(size=(E, C)).astype(dtype)
+
+
+@pytest.mark.parametrize("E,n_out,C,dtype", [
+    (1, 1, 1, np.float32), (100, 5, 27, np.float32),
+    (5000, 24, 27, np.float32), (3000, 3000 * 24, 18, np.float32),
+    (2000, 40 * 40, 49, np.float32), (4000, 300, 7, np.float64),
+    (777, 1, 3, np.float64)])
+def test_segsum_kernel_equals_plain_bit_for_bit(dev, E, n_out, C, dtype):
+    from mam3slam_tpu_torch.ops import segsum as SS
+
+    rng = np.random.default_rng(E + n_out)
+    idx, v = _segsum_case(rng, E, n_out, C, dtype)
+    plan = SS.segment_plan(torch.tensor(idx, device=dev), n_out)
+    vals = torch.tensor(v, device=dev)
+    got = _counted("segsum", lambda: SS.segment_sum(plan, vals))
+    again = SS.segment_sum(plan, vals)
+    cpu_plan = SS.segment_plan(torch.tensor(idx), n_out)
+    for p_dev, p_cpu in zip(plan[:4], cpu_plan[:4]):
+        assert torch.equal(p_dev.cpu(), p_cpu)
+    want = SS.segment_sum_plain(cpu_plan, torch.tensor(v))
+    assert torch.equal(got.cpu(), want) and torch.equal(again, got)
+
+
+def test_segsum_kernel_with_every_row_dropped(dev):
+    from mam3slam_tpu_torch.ops import segsum as SS
+
+    plan = SS.segment_plan(torch.full((64,), 9, device=dev), 9)
+    out = SS.segment_sum(plan, torch.ones(64, 5, device=dev))
+    assert torch.equal(out, torch.zeros(9, 5, device=dev))

@@ -4,7 +4,8 @@ or epoch runs with each set on the same state, so that the host's load,
 which sets a launch-bound frame's time, and the work itself fall on both
 alike.
 
-    python3 tools/ab_frames.py PARENT_CSRC [--profile | --kernels]
+    python3 tools/ab_frames.py PARENT_CSRC [--profile | --kernels |
+                                            --solvers]
     (needs a CUDA device)
 
 PARENT_CSRC is a ``csrc/`` directory of another version of the kernels
@@ -41,10 +42,22 @@ times and the bound) four times, parent / change / change / parent,
 then per kernel and caller the device and wrapper times of each set
 (mean of its two runs) and ptxas's report of each set's kernels.
 
+With ``--solvers``: the other version's solver modules
+(``solvers/ba_window.py`` and ``solvers/pgo.py`` of the package that
+holds PARENT_CSRC, loaded beside this tree's) against this tree's, on
+one state, parent / change / change / parent, EPOCH_REPS times: the
+next keyframe's ``mapping_epoch`` after PROFILE_AT frames of phase 5's
+first arc, ``global_ba`` at the arena caps on that map, and the 7DoF
+and 4DoF essential-graph PGO over its essential graph with a loop
+correction of its newest keyframe; every part as ``--profile`` reports
+it.  The kernels are this tree's in both sets.
+
 Every line carries the card's nvidia-smi name and power limit.
 """
 
+import contextlib
 import copy
+import importlib.util
 import os
 import statistics
 import sys
@@ -67,7 +80,8 @@ EPOCH_REPS = 3
 # the best2_kernel<true> instance before it had a kernel of its own)
 OWN = {"orb_desc_kernel": "orb_desc", "masked_match_kernel": "masked_match",
        "best2_kernel<true>": "masked_match", "best2_kernel": "min_hamming2",
-       "best2_mma_kernel": "min_hamming2", "pose_kernel": "pose_opt"}
+       "best2_mma_kernel": "min_hamming2", "pose_kernel": "pose_opt",
+       "segsum_kernel": "segsum"}
 
 
 def build_library(csrc: str):
@@ -336,6 +350,103 @@ def profile_runs(libs, smi, dev, scene, cam_r, orb_cfg, cfg, cam) -> None:
             report(f"{part} ({n})", runs[n], smi)
 
 
+def parent_solvers(pkg_dir: str) -> dict:
+    """The other version's ``solvers/ba_window.py`` and
+    ``solvers/pgo.py``, loaded as modules of their own (they import this
+    tree's geometry, ops and ``solvers.ba`` helpers)."""
+    mods = {}
+    for name in ("ba_window", "pgo"):
+        spec = importlib.util.spec_from_file_location(
+            f"parent_{name}", os.path.join(pkg_dir, "solvers", f"{name}.py"))
+        mods[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mods[name])
+    return mods
+
+
+def solver_runs(parent_pkg, smi, dev, scene, cam_r, orb_cfg, cfg,
+                cam) -> None:
+    from mam3slam_tpu_torch.geometry import lie
+    from mam3slam_tpu_torch.mapstate import state as S
+    from mam3slam_tpu_torch.slam import system
+    from mam3slam_tpu_torch.slam.server import LoopServer, ServerConfig
+    from mam3slam_tpu_torch.solvers import ba_window, pgo
+
+    mods = {"parent": parent_solvers(parent_pkg),
+            "change": {"ba_window": ba_window, "pgo": pgo}}
+    arc = render_arc(cs.SLAM_FRAMES, *cs.SLAM_ARCS[0])
+    sys_ = system.SlamSystem(cfg, cam, seed=0)
+    aid = sys_.add_agent()
+    for i in range(PROFILE_AT):
+        R, t, _ = arc[i]
+        sys_.track(aid, cs.frame_of(scene.render(R, t, cam_r), orb_cfg, cam),
+                   i * cs.DT)
+    captured = {}
+
+    def capture(*args):
+        captured["args"] = args
+        raise _Captured
+
+    i = PROFILE_AT
+    while "args" not in captured:
+        R, t, _ = arc[i]
+        trial = copy.deepcopy(sys_)
+        trial.fns = dict(trial.fns, mapping_epoch=capture)
+        try:
+            trial.track(aid, cs.frame_of(scene.render(R, t, cam_r), orb_cfg,
+                                         cam), i * cs.DT)
+        except _Captured:
+            pass
+        i += 1
+    ms, map_id = sys_.ms, sys_.agents[aid].map_id
+    in_map = ms.kf_valid & (ms.kf_map == map_id)
+    newest = int(torch.argmax(torch.where(in_map, ms.kf_seq, -1)))
+    oldest = int(torch.argmin(torch.where(in_map, ms.kf_seq, S.BIG_SEQ)))
+    srv = LoopServer(sys_, ServerConfig())
+    S_corr = lie.sim3_compose(lie.sim3_exp(torch.tensor(
+        cs.REPRO_LOOP_XI, device=dev)), srv._pose_sim3(newest))
+    edges = srv._essential_edges(ms, newest, oldest, S_corr,
+                                 in_map.cpu().numpy())
+    fixed = ~in_map
+    fixed[oldest] = True
+    ones = torch.ones(in_map.shape[0], device=dev)
+    cs.log("state", frames=i, keyframes=int(in_map.sum()),
+           map_points=int(ms.mp_valid.sum()), pgo_edges=len(edges.i),
+           arena=(cfg.max_kf, cfg.max_mp))
+    state = {}
+
+    @contextlib.contextmanager
+    def using(name):
+        saved = system.bw
+        system.bw = mods[name]["ba_window"]
+        state["pgo"] = mods[name]["pgo"]
+        try:
+            yield
+        finally:
+            system.bw = saved
+
+    def epoch():
+        args = copied(captured["args"])
+        return lambda: sys_.fns["mapping_epoch"](*args)[1].cpu()
+
+    parts = (
+        ("mapping epoch", epoch),
+        ("global_ba at the arena caps",
+         lambda: lambda: sys_.fns["global_ba"](ms, map_id).kf_t.cpu()),
+        ("PGO 7DoF", lambda: lambda: state["pgo"].optimize_essential_graph(
+            ms.kf_q, ms.kf_t, ones, fixed, edges, iters=12)[1].cpu()),
+        ("PGO 4DoF", lambda: lambda: state["pgo"]
+         .optimize_essential_graph_4dof(ms.kf_q, ms.kf_t, fixed, edges,
+                                        iters=12)[1].cpu()))
+    for part, make_fn in parts:
+        runs = {n: [] for n in NAMES}
+        for _ in range(EPOCH_REPS):
+            for n in ("parent", "change", "change", "parent"):
+                with using(n):
+                    runs[n].append(profiled(make_fn))
+        for n in NAMES:
+            report(f"{part} ({n})", runs[n], smi)
+
+
 def render_arc(n: int, a0: float, a1: float, bob: float):
     from mam3slam_tpu_torch.io import render
     return render.orbit_trajectory(n, a0, a1, radius=2.5, bob=bob)
@@ -350,9 +461,13 @@ def main() -> int:
     from mam3slam_tpu_torch.ops import orb as O
     from mam3slam_tpu_torch.slam import system
 
-    parent, parent_log = build_library(os.path.abspath(sys.argv[1]))
-    libs = {"parent": parent, "change": _build.library()}
     dev = torch.device("cuda", 0)
+    parent_csrc = os.path.abspath(sys.argv[1])
+    if "--solvers" in sys.argv[2:]:
+        parent, parent_log = _build.library(), "(this tree's kernels)"
+    else:
+        parent, parent_log = build_library(parent_csrc)
+    libs = {"parent": parent, "change": _build.library()}
     smi = cs.nvidia_smi()
     print(smi, flush=True)
     for name, log in (("parent", parent_log), ("change", _build.build_log)):
@@ -364,6 +479,10 @@ def main() -> int:
     orb_cfg = O.OrbConfig(height=cs.H, width=cs.W, n_features=cs.N_FEATURES)
     cfg = system.SlamConfig(width=cs.W, height=cs.H, n_feat=orb_cfg.capacity)
     cam = cameras.make_pinhole(cs.FX, cs.FY, cs.CX, cs.CY, device=dev)
+    if "--solvers" in sys.argv[2:]:
+        solver_runs(os.path.dirname(parent_csrc), smi, dev, scene, cam_r,
+                    orb_cfg, cfg, cam)
+        return 0
     run = (profile_runs if "--profile" in sys.argv[2:] else
            kernel_runs if "--kernels" in sys.argv[2:] else ab_runs)
     run(libs, smi, dev, scene, cam_r, orb_cfg, cfg, cam)

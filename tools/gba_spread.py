@@ -11,12 +11,13 @@ raw and after the similarity that aligns the camera centres
 (``chip_smoke.gauge_diff``; points that >= 3 keyframes observe), and
 each solution's robust cost:
 
-* the single-card ``global_ba`` twice with the card's atomic sums;
+* the single-card ``global_ba`` twice (equal bit for bit since the
+  solvers' sums take a fixed order);
 * the single-card epoch and ``dist_global_ba``'s dense branch on one
-  rank, with atomic and with deterministic sums;
+  rank;
 * the psum-CG branch against the single-device CG (``run_window_ba``)
-  and against the dense epoch, with deterministic sums, at each
-  ``--cg-iters`` count (the server runs 30).
+  and against the dense epoch, at each ``--cg-iters`` count (the server
+  runs 30).
 
 One JSON line per comparison, each with the card's nvidia-smi line (a
 solution with non-finite keyframes or points is reported as such).
@@ -85,24 +86,15 @@ def main() -> int:
                            dense=dwb.dist_global_ba(
                                ms, cfg, mesh, map_id, kind,
                                dense_free_cap=1 << 30))
-                torch.use_deterministic_algorithms(True, warn_only=True)
-                try:
-                    window = steps.build_window_problem(
-                        ms, mask, is2, cfg.max_kf, cfg.max_mp, with_cm=True)
-                    sol.update(
-                        single_det=glob(ms, map_id),
-                        dense_det=dwb.dist_global_ba(
-                            ms, cfg, mesh, map_id, kind,
-                            dense_free_cap=1 << 30))
-                    for k in args.cg_iters:
-                        sol[f"psum_det_cg{k}"] = dwb.dist_global_ba(
-                            ms, cfg, mesh, map_id, kind, dense_free_cap=0,
-                            cg_iters=k)
-                        sol[f"cg_det_cg{k}"] = steps.apply_window_result(
-                            ms, window, bw.run_window_ba(window, kind,
-                                                         cg_iters=k))
-                finally:
-                    torch.use_deterministic_algorithms(False)
+                window = steps.build_window_problem(
+                    ms, mask, is2, cfg.max_kf, cfg.max_mp, with_cm=True)
+                for k in args.cg_iters:
+                    sol[f"psum_cg{k}"] = dwb.dist_global_ba(
+                        ms, cfg, mesh, map_id, kind, dense_free_cap=0,
+                        cg_iters=k)
+                    sol[f"cg_cg{k}"] = steps.apply_window_result(
+                        ms, window, bw.run_window_ba(window, kind,
+                                                     cg_iters=k))
                 kf = ms.kf_valid.cpu().numpy()
                 held = (ms.mp_valid & (ms.mp_nobs >= cs.PHASE11_MIN_OBS)
                         ).cpu().numpy()
@@ -110,12 +102,11 @@ def main() -> int:
                     steps.build_window_problem(st, mask, is2, cfg.max_kf,
                                                cfg.max_mp),
                     kind, iters=0).cost) for name, st in sol.items()}
-                pairs = [("single_a", "single_b"), ("dense", "single_a"),
-                         ("dense_det", "single_det")]
+                pairs = [("single_a", "single_b"), ("dense", "single_a")]
                 for k in args.cg_iters:
-                    pairs += [(f"psum_det_cg{k}", f"cg_det_cg{k}"),
-                              (f"psum_det_cg{k}", "single_det"),
-                              (f"cg_det_cg{k}", "single_det")]
+                    pairs += [(f"psum_cg{k}", f"cg_cg{k}"),
+                              (f"psum_cg{k}", "single_a"),
+                              (f"cg_cg{k}", "single_a")]
                 for a, b in pairs:
                     if not all(bool(torch.isfinite(st.kf_t[ms.kf_valid]).all()
                                     and torch.isfinite(st.mp_pos[ms.mp_valid])

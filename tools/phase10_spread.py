@@ -3,13 +3,11 @@
 burst) several times in one process on the card and print 10a's ATE
 after each run, to see how far the card's runs spread.
 
-    python3 tools/phase10_spread.py [--reps N] [--deterministic]
+    python3 tools/phase10_spread.py [--reps N]
 
-With ``--deterministic`` every second run sets
-``torch.use_deterministic_algorithms(True, warn_only=True)``, so the
-runs with the card's atomic sums and those without alternate.  Phase
-6b's timings, which phase 10 prints beside its own, are not run: they
-print as 1.0.
+Since the solvers' sums take a fixed order (``ops/segsum.py``) every
+run prints the same ``ate_frac``.  Phase 6b's timings, which phase 10
+prints beside its own, are not run: they print as 1.0.
 """
 
 from __future__ import annotations
@@ -35,7 +33,6 @@ from mam3slam_tpu_torch.slam import system  # noqa: E402
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=4)
-    ap.add_argument("--deterministic", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("phase10_spread: no CUDA device", file=sys.stderr)
@@ -53,15 +50,11 @@ def main() -> int:
     loop_arc = render.orbit_trajectory(cs.LOOP_FRAMES, *cs.LOOP_ARC[:2],
                                        radius=2.5, bob=cs.LOOP_ARC[2])
     for rep in range(args.reps):
-        torch.use_deterministic_algorithms(
-            args.deterministic and rep % 2 == 1, warn_only=True)
         t = time.time()
         _, _, i10, _, _ = cs.run_phase10(
             dev, scene6, cam_r, cam, orb_cfg, cfg, loop_arc,
             dict(track_ms=[1.0], lc_ms=[1.0]), smi)
-        print(f"REP {rep} deterministic="
-              f"{torch.are_deterministic_algorithms_enabled()} "
-              f"ate_frac={i10['ate_frac']} "
+        print(f"REP {rep} ate_frac={i10['ate_frac']} "
               f"bound={cs.INERTIAL_MAX_ATE_FRAC} s={time.time() - t:.1f}",
               flush=True)
     return 0
