@@ -215,10 +215,14 @@ raises (exit code != 0) and no result line is printed:
    bit for bit.  The segment-sum kernel (``csrc/segsum.cu``, the
    solvers' fixed-order sums; no Pallas kernel matches it) against its
    plain version at every shape those solvers give it: equal bit for
-   bit, twice; its device us, wrapper, plain and ``index_add_`` times
-   and bound.  The four other kernels launched twice on one input: equal
-   bit for bit.  The segment-sum kernel must also have launched on the
-   SLAM path (phase 5) and the server path (phase 6) with no plain call.
+   bit, twice, and one launch a call; its device us, wrapper, plain and
+   ``index_add_`` (into a fresh zeroed output) times and bound; with
+   ``--segsum-parent PKG_DIR`` another version's kernel timed beside it
+   in turns.  The four other kernels launched twice on one input: equal
+   bit for bit.  ``mp_add_observation`` on a batch whose clamped reverse
+   writes collide, twice on the card: equal to the CPU's result.  The
+   segment-sum kernel must also have launched on the SLAM path (phase 5)
+   and the server path (phase 6) with no plain call.
 
 It prints a JSON line of per-kernel results (``ms``: the median time of
 one wrapper call at the kernel's first caller shape; ``device_ms``: the
@@ -577,13 +581,29 @@ def bound_ms(ops: float, rate: float, nbytes: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def events_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of ``fn``: CUDA events around ``reps``
+    calls queued behind a sleep kernel, so that the host's share of a
+    call is not timed but the gaps between its launches are."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def device_ms(fn, reps: int = 20, only: str = None):
     """Device time of one call of ``fn`` (which launches one kernel, or
     one whose name holds ``only`` beside others): the CUDA self time of
     the call's kernels in torch.profiler's ``key_averages`` over ``reps``
-    calls; where the profiler shows no device time, CUDA events around
-    ``reps`` calls queued behind a sleep kernel, so that the host's share
-    of a call is not timed.  Returns (ms, timer, names with their us)."""
+    calls; where the profiler shows no device time, ``events_ms``.
+    Returns (ms, timer, names with their us)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -609,15 +629,7 @@ def device_ms(fn, reps: int = 20, only: str = None):
         return us / reps / 1e3, "profiler", [
             f"{e.key[:48]}={us_of(e) / e.count:.2f}us"
             for e in (on_card if only else kern)]
-    torch.cuda._sleep(100_000_000)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps, "events", []
+    return events_ms(fn, reps), "events", []
 
 
 def measure(rows: list, kernel: str, caller: str, err: float, fn, plain_fn,
@@ -2869,6 +2881,27 @@ def plan_index(plan) -> torch.Tensor:
     return idx
 
 
+def parent_segsum(pkg_dir: str):
+    """Another version's ``ops/segsum.py`` bound to that version's own
+    ``_build.py`` and ``csrc/`` (built into a library of its own, with
+    launch counts of its own), to time its kernel beside this tree's in
+    one process.  ``pkg_dir``: the other version's ``mam3slam_tpu_torch``
+    (``git archive <commit> mam3slam_tpu_torch | tar -x -C DIR``)."""
+    import importlib.util
+
+    def load(name, path):
+        spec = importlib.util.spec_from_file_location(name, path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    build = load("parent_build", os.path.join(pkg_dir, "_build.py"))
+    mod = load("parent_segsum", os.path.join(pkg_dir, "ops", "segsum.py"))
+    mod._build = build
+    build.library()
+    return mod
+
+
 def recorded_segsums(fn, seen: dict, label: str):
     """Run ``fn`` and keep, in ``seen``, the (caller, plan, values) of
     its first segment sum into each distinct (rows, columns) shape."""
@@ -2906,7 +2939,7 @@ def bit_equal(a, b) -> bool:
 
 
 def run_phase13(dev, atlas: str, cfg, map_id: int, scene, cam_r, orb_cfg,
-                smi: str, rows: list) -> dict:
+                smi: str, rows: list, parent=None) -> dict:
     """Phase 13 on phase 11a's map (its atlas loaded into a fresh
     ``SlamSystem``): a mapping epoch's window BA (``local_ba`` about the
     map's newest keyframe), ``global_ba`` at the arena caps, the 7DoF and
@@ -2914,9 +2947,13 @@ def run_phase13(dev, atlas: str, cfg, map_id: int, scene, cam_r, orb_cfg,
     newest keyframe, and ``run_ba`` on the map's edge list, each run twice
     on the same input and compared bit for bit; the segment-sum kernel
     against its plain version, bit for bit and twice, at every shape those
-    solvers gave it (timed into ``rows``, beside ``index_add_``); and the
-    four other kernels launched twice on the same input and compared bit
-    for bit."""
+    solvers gave it (timed into ``rows``, beside ``index_add_`` into a
+    fresh zeroed output), each call one launch, and beside another
+    version's kernel where ``parent`` holds one (``segsum_ab``); the four
+    other kernels launched twice on the same input and compared bit for
+    bit; and ``mp_add_observation``'s colliding batch twice on the card
+    against the CPU (``mp_collisions_equal``)."""
+    from mam3slam_tpu_torch import _build
     from mam3slam_tpu_torch.geometry import cameras, lie
     from mam3slam_tpu_torch.mapstate import checkpoint
     from mam3slam_tpu_torch.mapstate import state as S
@@ -2966,9 +3003,11 @@ def run_phase13(dev, atlas: str, cfg, map_id: int, scene, cam_r, orb_cfg,
         solver_equal[name] = bit_equal(first, fn())
         del first
 
-    segsum_equal = {}
+    segsum_equal, one_launch = {}, {}
     for caller, plan, vals in shapes.values():
+        n0 = _build.LAUNCHES["segsum"]
         got = segsum.segment_sum(plan, vals)
+        one_launch[caller] = _build.LAUNCHES["segsum"] - n0
         plain = segsum.segment_sum_plain(plan, vals)
         segsum_equal[caller] = (bit_equal(got, plain)
                                 and bit_equal(got, segsum.segment_sum(
@@ -2976,15 +3015,24 @@ def run_phase13(dev, atlas: str, cfg, map_id: int, scene, cam_r, orb_cfg,
         err = float((got - plain).abs().max()) if got.numel() else 0.0
         flat = vals.reshape(vals.shape[0], -1)
         idx = plan_index(plan)
-        lib = torch.zeros(plan.n_out + 1, flat.shape[1], dtype=vals.dtype,
-                          device=dev)
+        length = plan.end - plan.start
+
+        def library():
+            return torch.zeros(plan.n_out + 1, flat.shape[1],
+                               dtype=vals.dtype, device=dev).index_add_(
+                                   0, idx, flat)
+
+        log("segsum_shape", caller=repr(caller), used=int((length > 0).sum()),
+            kept_rows=int(length.sum()), longest=int(length.max()),
+            medium_long=plan.counts.tolist(), group=plan.group)
         measure(rows, "segsum", caller, err,
                 lambda: segsum.segment_sum(plan, vals),
                 lambda: segsum.segment_sum_plain(plan, vals),
-                segsum_work(plan, vals), plain_reps=5,
-                library_fn=lambda: lib.index_add_(0, idx, flat),
+                segsum_work(plan, vals), plain_reps=5, library_fn=library,
                 only="segsum")
-        del got, plain, lib
+        if parent is not None:
+            segsum_ab(parent, plan, vals, caller, library, smi)
+        del got, plain
 
     # the four other kernels, each launched twice on one input
     from mam3slam_tpu_torch.io import render
@@ -3022,20 +3070,80 @@ def run_phase13(dev, atlas: str, cfg, map_id: int, scene, cam_r, orb_cfg,
                                              masked_args[8]),
         pose_opt=lambda: CP.pose_optimization_batched(*stacked))
     kernel_equal = {k: bit_equal(fn(), fn()) for k, fn in kernels.items()}
+    collisions_equal = mp_collisions_equal(dev)
     log("reproducibility", card=repr(smi), map_id=map_id,
         keyframes=int(in_map.sum()), pgo_edges=int(edges.i.shape[0]),
         solver_bit_equal=solver_equal,
         solver_ms={k: round(v, 3) for k, v in solver_ms.items()},
         segsum_bit_equal_to_plain=segsum_equal,
+        segsum_launches_a_call=one_launch,
         kernels_twice_bit_equal=kernel_equal,
+        mp_add_observation_collisions_equal_cpu=collisions_equal,
         phase13_seconds=time.perf_counter() - t13)
     if not (all(solver_equal.values()) and all(segsum_equal.values())
             and all(kernel_equal.values()) and len(segsum_equal) >= 6):
         raise AssertionError("phase 13: a result differs between two runs "
                              "on the same input, or segsum from its plain "
                              "version")
+    if set(one_launch.values()) != {1}:
+        raise AssertionError(f"phase 13: segment_sum launches {one_launch}")
+    if not all(collisions_equal):
+        raise AssertionError("phase 13: mp_add_observation's colliding "
+                             "batch differs on the card from the CPU")
     return dict(solver_equal=solver_equal, segsum_equal=segsum_equal,
                 kernel_equal=kernel_equal)
+
+
+def segsum_ab(parent, plan, vals, caller: str, library, smi: str) -> None:
+    """Device us of one segment sum at one caller's shape with another
+    version's kernel (``parent_segsum``; its own plan of the same index)
+    and with this tree's, in turns parent / change / change / parent,
+    each by CUDA events behind a sleep (a call's launches and the gaps
+    between them), beside the library call's."""
+    from mam3slam_tpu_torch.ops import segsum
+
+    pplan = parent.segment_plan(plan_index(plan), plan.n_out)
+    fns = {"parent": lambda: parent.segment_sum(pplan, vals),
+           "change": lambda: segsum.segment_sum(plan, vals)}
+    us = {"parent": [], "change": []}
+    for who in ("parent", "change", "change", "parent"):
+        us[who].append(events_ms(fns[who]) * 1e3)
+    parent_us, change_us = (statistics.mean(us[k]) for k in us)
+    log("segsum_ab", caller=repr(caller), card=repr(smi),
+        parent_us=parent_us, change_us=change_us,
+        change_over_parent=change_us / parent_us,
+        library_us=events_ms(library) * 1e3, turns=us)
+
+
+def mp_collisions_equal(dev) -> list:
+    """``mp_add_observation`` on a batch whose clamped reverse writes
+    collide (three ok observations each of a point at M and one at M - 1
+    reverse slots, a non-ok row between them), twice on the card, each
+    against the CPU's result on the same batch."""
+    from mam3slam_tpu_torch.mapstate import state as S
+
+    def batch(device):
+        ms = S.init_map_state(S.MapConfig(max_kf=16, max_mp=128, n_feat=32,
+                                          max_obs=8), device=device)
+        M = ms.mp_obs_kf.shape[1]
+        obs = torch.arange(M, dtype=torch.int32, device=device)
+        ms.mp_nobs[50], ms.mp_nobs[51] = M, M - 1
+        ms.mp_obs_kf[50], ms.mp_obs_feat[50] = obs % 5, obs
+        ms.mp_obs_kf[51, :M - 1] = obs[:M - 1] % 5
+        ms.mp_obs_feat[51, :M - 1] = obs[:M - 1] + 8
+        return [ms] + [torch.tensor(x, device=device) for x in (
+            [50, 51, 50, 52, 51, 50, 51], [0, 1, 2, 3, 4, 0, 2],
+            list(range(20, 27)),
+            [True, True, True, False, True, True, True])]
+
+    fields = ("mp_obs_kf", "mp_obs_feat", "mp_nobs", "kf_feat_mp")
+    want = S.mp_add_observation(*batch(torch.device("cpu")))
+    out = []
+    for _ in range(2):
+        got = S.mp_add_observation(*batch(dev))
+        out.append(all(torch.equal(getattr(got, f).cpu(), getattr(want, f))
+                       for f in fields))
+    return out
 
 
 def sync(dev) -> None:
@@ -3061,6 +3169,14 @@ def quat_rot_inv(q: np.ndarray, t: np.ndarray) -> np.ndarray:
 
 
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="The port on one CUDA card.")
+    ap.add_argument("--segsum-parent", metavar="PKG_DIR",
+                    help="another version's mam3slam_tpu_torch package: "
+                    "phase 13 times its segment-sum kernel beside this "
+                    "tree's at every caller's shape")
+    args = ap.parse_args()
     # 1. device
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3085,6 +3201,8 @@ def main() -> int:
     for line in _build.build_log.splitlines():
         if "ptxas info" in line or "bytes stack frame" in line:
             log("ptxas", line=repr(line.strip()))
+    parent = (parent_segsum(os.path.abspath(args.segsum_parent))
+              if args.segsum_parent else None)
 
     # 3. kernels vs plain
     cam_r = render.RenderCam(W, H, FX, FY, CX, CY)
@@ -3422,7 +3540,7 @@ def main() -> int:
     # 13. reproducibility: the solvers and kernels twice on one input, the
     # segment sums against their plain version at their callers' shapes
     run_phase13(dev, os.path.join(tmp11.name, "phase11.npz"), cfg,
-                p11["map_id"], scene6, cam_r, orb_cfg, smi, timed)
+                p11["map_id"], scene6, cam_r, orb_cfg, smi, timed, parent)
     tmp11.cleanup()
 
     phase8_launches = collections.Counter()

@@ -171,13 +171,21 @@ def alloc_mp_slots(ms: MapState, want: torch.Tensor):
 def mp_add_observation(ms: MapState, mp, kf, feat, ok) -> MapState:
     """Batch-add reverse + forward observations (mp/kf/feat [N], ok mask).
     Several observations of one point in a batch take consecutive
-    reverse slots in batch order; only ``ok`` rows write."""
+    reverse slots in batch order; only ``ok`` rows write.  Slots clamp at
+    ``M - 1``, so observations of a point at or near ``M`` can land on one
+    reverse slot: the last of them in batch order writes it (as the
+    reference's ordered scatter does), the others go to the scratch row.
+    The callers give distinct (kf, feat) pairs (a keyframe's own feature
+    table, a one-to-one match or fuse), so the forward writes never
+    collide."""
     P, M = ms.mp_obs_kf.shape
     K = ms.kf_feat_mp.shape[0]
     mp, kf, feat = mp.long(), kf.long(), feat.long()
     before = _rank_in_runs(torch.where(ok, mp, P))
     slot = torch.clamp(ms.mp_nobs[mp] + before, 0, M - 1)
-    row = torch.where(ok, mp, P)
+    cell = torch.where(ok, mp * M + slot, P * M)
+    later = _rank_in_runs(cell.flip(0)).flip(0)
+    row = torch.where(ok & (later == 0), mp, P)
     obs_kf = torch.cat([ms.mp_obs_kf, ms.mp_obs_kf[:1]])
     obs_kf[row, slot] = kf.to(torch.int32)
     obs_feat = torch.cat([ms.mp_obs_feat, ms.mp_obs_feat[:1]])

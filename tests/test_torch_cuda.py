@@ -491,7 +491,12 @@ def _segsum_case(rng, E, n_out, C, dtype=np.float32, drop=0.1):
     (1, 1, 1, np.float32), (100, 5, 27, np.float32),
     (5000, 24, 27, np.float32), (3000, 3000 * 24, 18, np.float32),
     (2000, 40 * 40, 49, np.float32), (4000, 300, 7, np.float64),
-    (777, 1, 3, np.float64)])
+    (777, 1, 3, np.float64),
+    # long camera-like segments (thousands of rows) beside short ones
+    (40000, 24, 27, np.float32),
+    # (point, slot)-like: mostly one row a segment, a few long ones, a
+    # wide output that is nearly all zero
+    (60000, 8192 * 24, 18, np.float32)])
 def test_segsum_kernel_equals_plain_bit_for_bit(dev, E, n_out, C, dtype):
     from mam3slam_tpu_torch.ops import segsum as SS
 
@@ -502,10 +507,40 @@ def test_segsum_kernel_equals_plain_bit_for_bit(dev, E, n_out, C, dtype):
     got = _counted("segsum", lambda: SS.segment_sum(plan, vals))
     again = SS.segment_sum(plan, vals)
     cpu_plan = SS.segment_plan(torch.tensor(idx), n_out)
-    for p_dev, p_cpu in zip(plan[:4], cpu_plan[:4]):
-        assert torch.equal(p_dev.cpu(), p_cpu)
+    for f in ("perm", "start", "end", "key", "work", "counts"):
+        assert torch.equal(getattr(plan, f).cpu(), getattr(cpu_plan, f)), f
     want = SS.segment_sum_plain(cpu_plan, torch.tensor(v))
     assert torch.equal(got.cpu(), want) and torch.equal(again, got)
+
+
+@pytest.mark.parametrize("lengths,n_out,C", [
+    ([255, 256, 257], 10, 5), ([3, 4, 5, 16, 17, 32, 33], 12, 3),
+    ([5000], 3, 27), ([1, 2, 3, 16, 17, 33, 256, 257, 700, 1, 5000, 2], 40,
+                      7),
+    ([1, 1, 2, 300, 1], 100000, 2)])
+def test_segsum_kernel_at_the_order_boundaries(dev, lengths, n_out, C):
+    """Segments of SHORT +- 1 (thread / warp path), LONG +- 1 (warp /
+    block), 5000 rows and all of them together, at keys with empty rows
+    between and after them: the kernel equals its plain version bit for
+    bit, in one launch, and every other row is 0."""
+    from mam3slam_tpu_torch.ops import segsum as SS
+
+    rng = np.random.default_rng(len(lengths) + n_out)
+    keys = np.sort(rng.choice(n_out - 1, len(lengths), replace=False))
+    idx = np.concatenate([np.full(n, k) for k, n in zip(keys, lengths)]
+                         + [np.full(7, -1)])
+    rng.shuffle(idx)
+    v = (rng.normal(size=(len(idx), C))
+         * 10.0 ** rng.uniform(-3, 3, (len(idx), 1))).astype(np.float32)
+    plan = SS.segment_plan(torch.tensor(idx, device=dev), n_out)
+    got = _counted("segsum", lambda: SS.segment_sum(
+        plan, torch.tensor(v, device=dev))).cpu()
+    want = SS.segment_sum_plain(SS.segment_plan(torch.tensor(idx), n_out),
+                                torch.tensor(v))
+    assert torch.equal(got, want)
+    empty = np.ones(n_out, bool)
+    empty[keys] = False
+    assert (got[torch.from_numpy(empty)] == 0).all()
 
 
 def test_segsum_kernel_with_every_row_dropped(dev):
@@ -514,3 +549,37 @@ def test_segsum_kernel_with_every_row_dropped(dev):
     plan = SS.segment_plan(torch.full((64,), 9, device=dev), 9)
     out = SS.segment_sum(plan, torch.ones(64, 5, device=dev))
     assert torch.equal(out, torch.zeros(9, 5, device=dev))
+
+
+def _collision_batch(dev):
+    """The port's map with point 50 at all M reverse slots and point 51
+    at M - 1, and a batch of three ok observations of each (they clamp
+    onto one slot), a non-ok row between them, distinct (kf, feat)."""
+    from mam3slam_tpu_torch.mapstate import state as S
+
+    ms = S.init_map_state(S.MapConfig(max_kf=16, max_mp=128, n_feat=32,
+                                      max_obs=8), device=dev)
+    M = ms.mp_obs_kf.shape[1]
+    obs = torch.arange(M, dtype=torch.int32, device=dev)
+    ms.mp_nobs[50], ms.mp_nobs[51] = M, M - 1
+    ms.mp_obs_kf[50], ms.mp_obs_feat[50] = obs % 5, obs
+    ms.mp_obs_kf[51, :M - 1] = obs[:M - 1] % 5
+    ms.mp_obs_feat[51, :M - 1] = obs[:M - 1] + 8
+    return [ms] + [torch.tensor(x, device=dev) for x in (
+        [50, 51, 50, 52, 51, 50, 51], [0, 1, 2, 3, 4, 0, 2],
+        list(range(20, 27)), [True, True, True, False, True, True, True])]
+
+
+def test_mp_add_observation_collisions_on_the_card_equal_cpu(dev):
+    """The clamped reverse writes of ``mp_add_observation`` give the CPU's
+    result on the card, twice (the last observation in batch order wins
+    each slot)."""
+    from mam3slam_tpu_torch.mapstate import state as S
+
+    want = S.mp_add_observation(*_collision_batch(torch.device("cpu")))
+    for _ in range(2):
+        got = S.mp_add_observation(*_collision_batch(dev))
+        for f in ("mp_obs_kf", "mp_obs_feat", "mp_nobs", "kf_feat_mp"):
+            assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    assert int(want.mp_obs_feat[50, -1]) == 25
+    assert int(want.mp_obs_feat[51, -1]) == 26

@@ -12,6 +12,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from mam3slam_tpu.geometry import cameras
 from mam3slam_tpu.mapstate import state as JS
@@ -179,6 +180,64 @@ def test_mp_add_observation_ranks_repeats(small_map):
     got = TS.mp_add_observation(ms_t, *(_T(x) for x in (mp, kf, feat, ok)))
     assert_maps_match(got, ref)
     assert int(got.mp_nobs[50]) == int(ms_t.mp_nobs[50]) + 3
+
+
+class _ReverseWrites(TorchDispatchMode):
+    """Record the (row, slot) indices of every write into a reverse
+    table (an int32 [P + 1, M] tensor: the table with its scratch row)."""
+
+    def __init__(self, shape):
+        super().__init__()
+        self.shape, self.cells = tuple(shape), []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if (str(func).startswith(("aten.index_put", "aten._index_put"))
+                and tuple(args[0].shape) == self.shape
+                and args[0].dtype == torch.int32):
+            self.cells.append(torch.stack([i.long() for i in args[1]], 1))
+        return func(*args, **kwargs)
+
+
+def collision_batch(ms_j):
+    """A map where point 50 holds all M reverse slots and point 51 all
+    but one, and a batch of three ok observations of each (so that they
+    clamp onto one slot), a non-ok row between them, and distinct (kf,
+    feat) pairs."""
+    M = CFG.max_obs
+    obs = np.arange(M, dtype=np.int32)
+    ms_j = ms_j._replace(
+        mp_nobs=ms_j.mp_nobs.at[50].set(M).at[51].set(M - 1),
+        mp_obs_kf=ms_j.mp_obs_kf.at[50].set(obs % 5)
+        .at[51, :M - 1].set(obs[:M - 1] % 5),
+        mp_obs_feat=ms_j.mp_obs_feat.at[50].set(obs)
+        .at[51, :M - 1].set(obs[:M - 1] + 8))
+    batch = (np.array([50, 51, 50, 52, 51, 50, 51], np.int32),
+             np.array([0, 1, 2, 3, 4, 0, 2], np.int32),
+             np.arange(20, 27, dtype=np.int32),
+             np.array([True, True, True, False, True, True, True]))
+    return ms_j, batch
+
+
+def test_mp_add_observation_clamped_writes_have_one_winner(small_map):
+    """Observations of points at M and M - 1 observations clamp onto
+    their last reverse slot: the port keeps the last in batch order, as
+    the reference's scatter does, and no two of its writes into the
+    reverse tables share a (row, slot) outside the scratch row, so no
+    device can pick another winner."""
+    ms_j, batch = collision_batch(small_map[0])
+    ms_t = convert.map_state_from_numpy(_np(ms_j), device="cpu")
+    ref = jax.jit(JS.mp_add_observation)(ms_j, *map(jnp.asarray, batch))
+    P, M = ms_t.mp_obs_kf.shape
+    with _ReverseWrites((P + 1, M)) as rec:
+        got = TS.mp_add_observation(ms_t, *map(_T, batch))
+    assert_maps_match(got, ref)
+    assert len(rec.cells) == 2
+    for cells in rec.cells:
+        mine = cells[cells[:, 0] < P]
+        assert len(mine) == len(torch.unique(mine, dim=0))
+    assert got.mp_obs_kf[50, M - 1] == 0 and got.mp_obs_feat[50, M - 1] == 25
+    assert got.mp_obs_kf[51, M - 1] == 2 and got.mp_obs_feat[51, M - 1] == 26
 
 
 # ---------------------------------------------------------------------------

@@ -9,6 +9,8 @@ version bit for bit in ``tests/test_torch_cuda.py``.
 """
 
 import contextlib
+import os
+import re
 
 import jax
 import numpy as np
@@ -18,7 +20,7 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from mam3slam_tpu_torch import convert
+from mam3slam_tpu_torch import _build, convert
 from mam3slam_tpu_torch.geometry import cameras as tcam
 from mam3slam_tpu_torch.ops import segsum as SS
 from mam3slam_tpu_torch.solvers import ba as tba
@@ -100,24 +102,32 @@ def test_plain_segment_sum_matches_float64(name):
     assert (got.reshape(n_out, -1)[empty] == 0).all()
 
 
+def _fold(x):
+    """x[:off] + x[off:2 off] for off = len(x) / 2, ..., 1."""
+    off = len(x) // 2
+    while off:
+        x[:off] = x[:off] + x[off:2 * off]
+        off //= 2
+    return x[0]
+
+
 def _kernel_order(idx, v, n_out):
-    """The kernel's order replayed one add at a time: lane l of segment k
-    adds the segment's rows l, l + 32, ... from 0, then the lanes fold
-    x[:off] + x[off:2 off] for off = 16 .. 1, in float64, rounded once to
-    v's dtype."""
+    """The kernel's order replayed one add at a time, in float64, rounded
+    once to v's dtype.  A segment of n <= LONG rows: lane l of 32 adds the
+    segment's rows l, l + 32, ... from 0, then the lanes fold x[:off] +
+    x[off:2 off] for off = 16 .. 1.  A longer one: lane t of 256 adds rows
+    t, t + 256, ... from 0, each group of 32 lanes folds so, then the 8
+    group sums fold for off = 4, 2, 1."""
     out = np.zeros((n_out,) + v.shape[1:], v.dtype)
-    for k in range(n_out):
+    for k in np.unique(idx[(idx >= 0) & (idx < n_out)]):
         rows = np.flatnonzero(idx == k)
-        if len(rows) == 0:
-            continue
-        lanes = np.zeros((32,) + v.shape[1:], np.float64)
+        n_lanes = 32 if len(rows) <= SS.LONG else 256
+        lanes = np.zeros((n_lanes,) + v.shape[1:], np.float64)
         for j, r in enumerate(rows):
-            lanes[j % 32] = lanes[j % 32] + v[r].astype(np.float64)
-        off = 16
-        while off:
-            lanes[:off] = lanes[:off] + lanes[off:2 * off]
-            off //= 2
-        out[k] = lanes[0].astype(v.dtype)
+            lanes[j % n_lanes] = lanes[j % n_lanes] + v[r].astype(np.float64)
+        groups = np.stack([_fold(lanes[g:g + 32].copy())
+                           for g in range(0, n_lanes, 32)])
+        out[k] = _fold(groups).astype(v.dtype)
     return out
 
 
@@ -149,6 +159,78 @@ def test_plain_segment_sum_float64_follows_the_kernels_order():
     assert got.dtype == torch.float64
     assert np.array_equal(got.numpy().view(np.int64),
                           _kernel_order(idx, v, 4).view(np.int64))
+
+
+def _lengths_case(lengths, n_out, C, seed):
+    """Segments of the given lengths at keys spread over ``n_out`` rows
+    (rows between them and after the last hold none), their rows
+    interleaved, and 7 dropped rows; float32 values over six decades."""
+    rng = np.random.default_rng(seed)
+    keys = np.sort(rng.choice(n_out - 1, len(lengths), replace=False))
+    idx = np.concatenate([np.full(n, k) for k, n in zip(keys, lengths)]
+                         + [np.full(7, -1)])
+    rng.shuffle(idx)
+    v = (rng.normal(size=(len(idx), C))
+         * 10.0 ** rng.uniform(-3, 3, (len(idx), 1))).astype(np.float32)
+    return idx, v, keys
+
+
+LENGTHS = {
+    "long_boundary": ([SS.LONG - 1, SS.LONG, SS.LONG + 1], 10, 5),
+    "short_boundary": ([SS.SHORT - 1, SS.SHORT, SS.SHORT + 1, 32, 33], 12,
+                       3),
+    "one_long": ([5000], 3, 27),
+    "long_and_short": ([1, 2, 3, SS.SHORT, SS.SHORT + 1, 33, SS.LONG,
+                        SS.LONG + 1, 700, 1, 5000, 2], 40, 7),
+    "n_out_far_above_rows": ([1, 1, 2, 300, 1], 100000, 2),
+}
+
+
+@pytest.mark.parametrize("name", sorted(LENGTHS))
+def test_plain_segment_sum_at_the_order_boundaries(name):
+    """Bit for bit the replay of the kernel's order at segments of LONG -
+    1, LONG and LONG + 1 rows (the last takes the 256-lane order), of
+    SHORT and SHORT + 1 (the kernel's thread and warp paths, one order),
+    of 5000 rows, and all of them in one plan; within one float32
+    rounding of float64; every row that no key names exactly 0; and the
+    plan lists the long and medium segments."""
+    lengths, n_out, C = LENGTHS[name]
+    idx, v, keys = _lengths_case(lengths, n_out, C, len(name))
+    plan = SS.segment_plan(torch.tensor(idx), n_out)
+    got = SS.segment_sum(plan, torch.tensor(v)).numpy()
+    assert np.array_equal(got.view(np.int32),
+                          _kernel_order(idx, v, n_out).view(np.int32))
+    ref, mag = _np64_sum(idx, v, n_out)
+    assert (np.abs(got - ref) <= 2.0 ** -24 * np.abs(ref) + 1e-12 * mag
+            ).all()
+    empty = np.ones(n_out, bool)
+    empty[keys] = False
+    assert (got[empty] == 0).all() and not (got[keys] == 0).all()
+    lengths = np.asarray(lengths)
+    med = (lengths > SS.SHORT) & (lengths <= SS.LONG)
+    assert plan.counts.tolist() == [int(med.sum()),
+                                    int((lengths > SS.LONG).sum())]
+    by_key = dict(zip(keys.tolist(), lengths.tolist()))
+    n_work = int(plan.counts.sum())
+    listed = [by_key[k] for k in plan.key[plan.work[:n_work].long()]
+              .tolist()]
+    sorted_key = np.where(plan.key.numpy() < 0, n_out, plan.key.numpy())
+    rows = np.arange(n_out // plan.group + 2) * plan.group
+    assert plan.group == (2 if n_out > SS.ROW_GROUPS else 1)
+    assert np.array_equal(plan.row_seg.numpy(),
+                          np.searchsorted(sorted_key, rows))
+    in_order = lengths[np.argsort(keys)].tolist()
+    assert listed == ([n for n in in_order if SS.SHORT < n <= SS.LONG]
+                      + [n for n in in_order if n > SS.LONG])
+
+
+def test_kernel_constants_match_the_plan():
+    """The kernel's thread / warp / block thresholds are the plan's."""
+    src = open(os.path.join(_build.CSRC_DIR, "segsum.cu")).read()
+    for name, want in (("kShort", SS.SHORT), ("kLong", SS.LONG),
+                       ("kThreads", SS.BLOCK)):
+        m = re.search(rf"constexpr int {name} = ([^;]+);", src)
+        assert m and eval(m.group(1), {"kWarps": 8}) == want, name
 
 
 def test_segment_sum_barely_depends_on_the_row_order():
@@ -202,6 +284,10 @@ def test_plan_fields():
     assert p.start.tolist() == [0, 2, 5, 6, 6, 6]
     assert p.end.tolist() == [2, 5, 6, 6, 6, 6]
     assert p.key.tolist() == [0, 3, 5, -1, -1, -1]
+    assert p.counts.tolist() == [0, 0]
+    assert sorted(p.work.tolist()) == list(range(6))
+    assert p.group == 1
+    assert p.row_seg.tolist() == [0, 1, 1, 1, 2, 2, 3, 6]
     assert p.perm.dtype == torch.int32 and p.n_out == 6
 
 

@@ -42,22 +42,22 @@ times and the bound) four times, parent / change / change / parent,
 then per kernel and caller the device and wrapper times of each set
 (mean of its two runs) and ptxas's report of each set's kernels.
 
-With ``--solvers``: the other version's solver modules
-(``solvers/ba_window.py`` and ``solvers/pgo.py`` of the package that
-holds PARENT_CSRC, loaded beside this tree's) against this tree's, on
-one state, parent / change / change / parent, EPOCH_REPS times: the
-next keyframe's ``mapping_epoch`` after PROFILE_AT frames of phase 5's
-first arc, ``global_ba`` at the arena caps on that map, and the 7DoF
-and 4DoF essential-graph PGO over its essential graph with a loop
-correction of its newest keyframe; every part as ``--profile`` reports
-it.  The kernels are this tree's in both sets.
+With ``--solvers``: the other version's segment sums
+(``ops/segsum.py`` of the package that holds PARENT_CSRC with that
+package's own ``_build.py`` and kernels, ``chip_smoke.parent_segsum``)
+in place of this tree's under the solvers, on one state, parent /
+change / change / parent, EPOCH_REPS times: the next keyframe's
+``mapping_epoch`` after PROFILE_AT frames of phase 5's first arc,
+``global_ba`` at the arena caps on that map, and the 7DoF and 4DoF
+essential-graph PGO over its essential graph with a loop correction of
+its newest keyframe; every part as ``--profile`` reports it.  The other
+kernels are this tree's in both sets.
 
 Every line carries the card's nvidia-smi name and power limit.
 """
 
 import contextlib
 import copy
-import importlib.util
 import os
 import statistics
 import sys
@@ -350,29 +350,18 @@ def profile_runs(libs, smi, dev, scene, cam_r, orb_cfg, cfg, cam) -> None:
             report(f"{part} ({n})", runs[n], smi)
 
 
-def parent_solvers(pkg_dir: str) -> dict:
-    """The other version's ``solvers/ba_window.py`` and
-    ``solvers/pgo.py``, loaded as modules of their own (they import this
-    tree's geometry, ops and ``solvers.ba`` helpers)."""
-    mods = {}
-    for name in ("ba_window", "pgo"):
-        spec = importlib.util.spec_from_file_location(
-            f"parent_{name}", os.path.join(pkg_dir, "solvers", f"{name}.py"))
-        mods[name] = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mods[name])
-    return mods
-
-
 def solver_runs(parent_pkg, smi, dev, scene, cam_r, orb_cfg, cfg,
                 cam) -> None:
     from mam3slam_tpu_torch.geometry import lie
     from mam3slam_tpu_torch.mapstate import state as S
+    from mam3slam_tpu_torch.ops import segsum
     from mam3slam_tpu_torch.slam import system
     from mam3slam_tpu_torch.slam.server import LoopServer, ServerConfig
-    from mam3slam_tpu_torch.solvers import ba_window, pgo
+    from mam3slam_tpu_torch.solvers import pgo
 
-    mods = {"parent": parent_solvers(parent_pkg),
-            "change": {"ba_window": ba_window, "pgo": pgo}}
+    other = cs.parent_segsum(parent_pkg)
+    sums = {"parent": (other.segment_plan, other.segment_sum),
+            "change": (segsum.segment_plan, segsum.segment_sum)}
     arc = render_arc(cs.SLAM_FRAMES, *cs.SLAM_ARCS[0])
     sys_ = system.SlamSystem(cfg, cam, seed=0)
     aid = sys_.add_agent()
@@ -412,17 +401,14 @@ def solver_runs(parent_pkg, smi, dev, scene, cam_r, orb_cfg, cfg,
     cs.log("state", frames=i, keyframes=int(in_map.sum()),
            map_points=int(ms.mp_valid.sum()), pgo_edges=len(edges.i),
            arena=(cfg.max_kf, cfg.max_mp))
-    state = {}
 
     @contextlib.contextmanager
     def using(name):
-        saved = system.bw
-        system.bw = mods[name]["ba_window"]
-        state["pgo"] = mods[name]["pgo"]
+        segsum.segment_plan, segsum.segment_sum = sums[name]
         try:
             yield
         finally:
-            system.bw = saved
+            segsum.segment_plan, segsum.segment_sum = sums["change"]
 
     def epoch():
         args = copied(captured["args"])
@@ -432,11 +418,10 @@ def solver_runs(parent_pkg, smi, dev, scene, cam_r, orb_cfg, cfg,
         ("mapping epoch", epoch),
         ("global_ba at the arena caps",
          lambda: lambda: sys_.fns["global_ba"](ms, map_id).kf_t.cpu()),
-        ("PGO 7DoF", lambda: lambda: state["pgo"].optimize_essential_graph(
+        ("PGO 7DoF", lambda: lambda: pgo.optimize_essential_graph(
             ms.kf_q, ms.kf_t, ones, fixed, edges, iters=12)[1].cpu()),
-        ("PGO 4DoF", lambda: lambda: state["pgo"]
-         .optimize_essential_graph_4dof(ms.kf_q, ms.kf_t, fixed, edges,
-                                        iters=12)[1].cpu()))
+        ("PGO 4DoF", lambda: lambda: pgo.optimize_essential_graph_4dof(
+            ms.kf_q, ms.kf_t, fixed, edges, iters=12)[1].cpu()))
     for part, make_fn in parts:
         runs = {n: [] for n in NAMES}
         for _ in range(EPOCH_REPS):
