@@ -35,6 +35,7 @@ from mam3slam_tpu_torch.ops import orb
 from mam3slam_tpu_torch.slam import steps
 from mam3slam_tpu_torch.slam.server import LoopServer, ServerConfig
 from mam3slam_tpu_torch.slam.system import SlamConfig, SlamSystem
+from mam3slam_tpu_torch.utils.timing import TRACER
 
 
 @functools.lru_cache(maxsize=None)
@@ -200,14 +201,16 @@ class MultiAgentSystem:
     def track_monocular(self, agent_id: int, image, ts: float):
         """Grayscale image [H, W] (uint8 or f32 0..255; numpy or a tensor)
         -> (state, (q, t) of T_cw or None)."""
-        img = self._frame_tensor(self._settings[agent_id], image)
         a = self.sys.agents[agent_id]
-        feats = orb.with_undistorted(
-            orb.extract_orb(img, self._orb_cfgs[agent_id]), a.cam)
-        frame = steps.FrameObs(uv=feats.uv, level=feats.level,
-                               angle=feats.angle, desc=feats.desc,
-                               valid=feats.valid)
-        return self.sys.track(agent_id, frame, ts)
+        with TRACER.frame(agent_id, a.calls):
+            img = self._frame_tensor(self._settings[agent_id], image)
+            with TRACER.span("extract"):
+                feats = orb.with_undistorted(
+                    orb.extract_orb(img, self._orb_cfgs[agent_id]), a.cam)
+            frame = steps.FrameObs(uv=feats.uv, level=feats.level,
+                                   angle=feats.angle, desc=feats.desc,
+                                   valid=feats.valid)
+            return self.sys.track(agent_id, frame, ts)
 
     # -- reference: MultiAgentSystem::GetAgentsInMap ------------------------
     def get_agents_in_map(self, map_id: int) -> List[int]:

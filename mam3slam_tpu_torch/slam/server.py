@@ -20,7 +20,6 @@ translation, scale held at 1); any other loop takes the Sim3 PGO.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
@@ -36,7 +35,7 @@ from mam3slam_tpu_torch.parallel import dist_window_ba
 from mam3slam_tpu_torch.slam.background_gba import BackgroundGBA
 from mam3slam_tpu_torch.solvers import pgo as pgo_mod
 from mam3slam_tpu_torch.solvers import sim3 as sim3_mod
-from mam3slam_tpu_torch.utils.timing import Timers
+from mam3slam_tpu_torch.utils.timing import TRACER, Timers
 
 
 @dataclass
@@ -128,15 +127,16 @@ class LoopServer:
         """Train a bootstrap vocabulary from the descriptors in the map
         when none was given, and allocate the keyframe database."""
         if self.voc is None:
-            ms = self.sys.ms
-            valid = ms.kf_feat_valid & ms.kf_valid[:, None]
-            sample = ms.kf_feat_desc[valid][:120000].cpu().numpy()
-            if len(sample) < 500:
-                sample = np.random.default_rng(0).integers(
-                    0, 256, (2000, 32), dtype=np.uint8)
-            self.voc = bow.build_vocabulary(
-                sample, k=self.cfg.vocab_k,
-                depth=self.cfg.vocab_depth).to(self.device)
+            with TRACER.span("server.vocab"):
+                ms = self.sys.ms
+                valid = ms.kf_feat_valid & ms.kf_valid[:, None]
+                sample = ms.kf_feat_desc[valid][:120000].cpu().numpy()
+                if len(sample) < 500:
+                    sample = np.random.default_rng(0).integers(
+                        0, 256, (2000, 32), dtype=np.uint8)
+                self.voc = bow.build_vocabulary(
+                    sample, k=self.cfg.vocab_k,
+                    depth=self.cfg.vocab_depth).to(self.device)
         if self.kf_bow_words is None:
             K, F = self.sys.cfg.max_kf, self.sys.cfg.n_feat
             self.kf_bow_words = np.full((K, F), -1, np.int32)
@@ -144,12 +144,14 @@ class LoopServer:
 
     def _index_keyframe(self, kf: int):
         """Quantize and store the keyframe's sparse BoW row."""
-        ms = self.sys.ms
-        words = bow.quantize(self.voc, ms.kf_feat_desc[kf])
-        wv = torch.stack([words, ms.kf_feat_valid[kf].to(torch.int32)]
-                         ).cpu().numpy()               # one packed read
-        self.kf_bow_words[kf], self.kf_bow_vals[kf] = bow.sparse_bow_row(
-            self.voc, wv[0], wv[1].astype(bool), self.kf_bow_words.shape[1])
+        with TRACER.span("server.index"):
+            ms = self.sys.ms
+            words = bow.quantize(self.voc, ms.kf_feat_desc[kf])
+            wv = torch.stack([words, ms.kf_feat_valid[kf].to(torch.int32)]
+                             ).cpu().numpy()               # one packed read
+            self.kf_bow_words[kf], self.kf_bow_vals[kf] = bow.sparse_bow_row(
+                self.voc, wv[0], wv[1].astype(bool),
+                self.kf_bow_words.shape[1])
 
     def score_database(self, q_dense: np.ndarray):
         """L1 scores and shared-word counts [K] of a dense query against
@@ -164,7 +166,7 @@ class LoopServer:
     def process_keyframe(self, agent_id: int, kf: int):
         """LoopClosing::Run body for one keyframe; returns "loop",
         "merge" or None."""
-        with self.timers.measure("PR"):
+        with TRACER.timed("server", self.timers, "PR"):
             return self._process_keyframe(agent_id, kf)
 
     def _process_keyframe(self, agent_id: int, kf: int):
@@ -200,7 +202,9 @@ class LoopServer:
         # 1. continue this agent's hypothesis
         h = self.hyp.get(agent_id)
         if h is not None and h.n_coincidences > 0:
-            if self._refine_hypothesis(agent_id, kf, h):
+            with TRACER.span("server.refine"):
+                refined = self._refine_hypothesis(agent_id, kf, h)
+            if refined:
                 h.n_coincidences += 1
                 h.n_misses = 0
                 if h.n_coincidences >= self.cfg.n_confirm:
@@ -211,12 +215,16 @@ class LoopServer:
                 del self.hyp[agent_id]
 
         # 2. fresh candidates from the BoW database
-        loop_c, merge_c = self._detect_candidates(kf)
+        with TRACER.span("server.detect"):
+            loop_c, merge_c = self._detect_candidates(kf)
         for cand, is_merge in ([(c, False) for c in loop_c]
                                + [(c, True) for c in merge_c]):
-            res = self._verify_candidate(kf, cand)
+            TRACER.count("verify_tried")
+            with TRACER.span("server.verify"):
+                res = self._verify_candidate(kf, cand)
             if res is None:
                 continue
+            TRACER.count("verify_passed")
             q, t, s = res
             self.hyp[agent_id] = Hypothesis(
                 target_kf=cand, is_merge=is_merge, n_coincidences=1,
@@ -441,19 +449,19 @@ class LoopServer:
         over ``cfg.gba_mesh`` when one is set), or started in the
         background with ``cfg.async_gba`` (unless one is in flight)."""
         self.gba_runs.append(map_id)
-        if self.cfg.gba_mesh is not None:
-            mesh = self.cfg.gba_mesh
-            self.sys.ms = dist_window_ba.dist_global_ba(
-                self.sys.ms, self.sys.cfg, mesh, map_id,
-                self.sys.cfg.cam_kind, axis=mesh.mesh_dim_names[-1])
-            return
-        if self.cfg.async_gba:
-            if self.gba is None:
-                self.gba = BackgroundGBA(self.sys, stream=self.gba_device)
-            if not self.gba.running:
-                self.gba.start(map_id)
-        else:
-            self.sys.ms = self.sys.fns["global_ba"](self.sys.ms, map_id)
+        with TRACER.span("server.gba"):
+            if self.cfg.gba_mesh is not None:
+                mesh = self.cfg.gba_mesh
+                self.sys.ms = dist_window_ba.dist_global_ba(
+                    self.sys.ms, self.sys.cfg, mesh, map_id,
+                    self.sys.cfg.cam_kind, axis=mesh.mesh_dim_names[-1])
+            elif self.cfg.async_gba:
+                if self.gba is None:
+                    self.gba = BackgroundGBA(self.sys, stream=self.gba_device)
+                if not self.gba.running:
+                    self.gba.start(map_id)
+            else:
+                self.sys.ms = self.sys.fns["global_ba"](self.sys.ms, map_id)
 
     def flush_gba(self):
         """Wait for and apply a pending background GBA.  It writes the
@@ -486,7 +494,10 @@ class LoopServer:
         the points with their reference KFs, record the loop edge, fuse
         duplicates around the loop, and run the global BA while the map
         is small and alone in the atlas."""
-        t0 = time.perf_counter()
+        with TRACER.timed("server.correct", self.timers, "LC"):
+            self._correct_loop(agent_id, kf, h)
+
+    def _correct_loop(self, agent_id: int, kf: int, h: Hypothesis):
         sysm = self.sys
         ms = sysm.ms
         K = ms.kf_valid.shape[0]
@@ -507,29 +518,31 @@ class LoopServer:
         s0 = torch.ones(K, device=self.device)
         q0[win], t0_[win], s0[win] = S_i.q, S_i.t, S_i.s
 
-        edges = self._essential_edges(ms, kf, h.target_kf, S_corr, in_map)
-        fixed = ~in_map_t
-        fixed[h.target_kf] = True
         # an inertial map (an agent's VI initialisation belongs to it):
         # gravity observes roll and pitch and the map is metric, so only
         # yaw about the map's up axis and translation move (the
         # reference's OptimizeEssentialGraph4DoF)
         inertial = next((a for a in sysm.agents if a.imu_initialized
                          and a.imu_init_map == kf_map), None)
-        if inertial is not None:
-            g = inertial.gravity_w
-            q_n, t_n = pgo_mod.optimize_essential_graph_4dof(
-                q0, t0_, fixed, edges, iters=12,
-                gravity_axis=None if g is None
-                else -np.asarray(g) / np.linalg.norm(g))
-            s_n = torch.ones(K, device=self.device)
-        else:
-            q_n, t_n, s_n = pgo_mod.optimize_essential_graph(
-                q0, t0_, s0, fixed, edges, iters=12)
-        new_pos = pgo_mod.correct_points_by_ref(
-            ms.mp_pos, ms.mp_ref_kf, ms.mp_valid & (ms.mp_map == kf_map),
-            ms.kf_q, ms.kf_t, torch.ones(K, device=self.device), q_n, t_n,
-            s_n)
+        with TRACER.span("server.pgo"):
+            edges = self._essential_edges(ms, kf, h.target_kf, S_corr,
+                                          in_map)
+            fixed = ~in_map_t
+            fixed[h.target_kf] = True
+            if inertial is not None:
+                g = inertial.gravity_w
+                q_n, t_n = pgo_mod.optimize_essential_graph_4dof(
+                    q0, t0_, fixed, edges, iters=12,
+                    gravity_axis=None if g is None
+                    else -np.asarray(g) / np.linalg.norm(g))
+                s_n = torch.ones(K, device=self.device)
+            else:
+                q_n, t_n, s_n = pgo_mod.optimize_essential_graph(
+                    q0, t0_, s0, fixed, edges, iters=12)
+            new_pos = pgo_mod.correct_points_by_ref(
+                ms.mp_pos, ms.mp_ref_kf, ms.mp_valid & (ms.mp_map == kf_map),
+                ms.kf_q, ms.kf_t, torch.ones(K, device=self.device), q_n,
+                t_n, s_n)
         # scale folds into the SE3 poses: T_cw = (R, t / s)
         upd = in_map_t[:, None]
         ms = ms._replace(
@@ -541,9 +554,10 @@ class LoopServer:
                                 ms.map_change[kf_map] + 1))
         # the closed loop stays a constraint of every later PGO
         ms = S.add_loop_edge(ms, h.target_kf, kf)
-        local_mask = sysm.fns["local_mp_mask"](ms, kf, 16)
-        ms, _ = sysm.fns["fuse_step"](ms, kf, local_mask)
-        sysm.ms = sysm.fns["refresh_stats"](ms, ms.mp_valid)
+        with TRACER.span("server.fuse"):
+            local_mask = sysm.fns["local_mp_mask"](ms, kf, 16)
+            ms, _ = sysm.fns["fuse_step"](ms, kf, local_mask)
+            sysm.ms = sysm.fns["refresh_stats"](ms, ms.mp_valid)
         # global BA only while the map is small AND alone in the atlas
         if (int(in_map.sum()) < self.cfg.max_kf_for_gba
                 and int(sysm.ms.map_valid.sum()) == 1):
@@ -551,7 +565,6 @@ class LoopServer:
         self.events.append(f"LOOP agent={agent_id} kf={kf} "
                            f"target={h.target_kf} map={kf_map}"
                            + (" pgo=4dof" if inertial is not None else ""))
-        self.timers.add("LC", (time.perf_counter() - t0) * 1e3)
 
     def _essential_edges(self, ms, kf, target_kf, S_corr, in_map):
         """The essential graph's edges (spanning tree, strong
@@ -612,7 +625,10 @@ class LoopServer:
         spanning-tree chain across the seam, record the merge edge,
         retarget the absorbed map's agents, then fuse, welding BA, merge
         PGO, and the global BA while the merged map is small."""
-        t0 = time.perf_counter()
+        with TRACER.timed("server.merge", self.timers, "MM"):
+            self._merge_maps(agent_id, kf, h)
+
+    def _merge_maps(self, agent_id: int, kf: int, h: Hypothesis):
         sysm = self.sys
         ms = sysm.ms
         cur_map, tgt_map = (int(x) for x in
@@ -678,20 +694,22 @@ class LoopServer:
 
         # weld: fuse around the seam, refresh, welding BA (adjust the
         # absorbed side of the window, the target side fixed), merge PGO
-        local_mask = sysm.fns["local_mp_mask"](sysm.ms, h.target_kf, 16)
-        ms2, _ = sysm.fns["fuse_step"](sysm.ms, kf, local_mask)
-        sysm.ms = sysm.fns["refresh_stats"](ms2, ms2.mp_valid)
+        with TRACER.span("server.fuse"):
+            local_mask = sysm.fns["local_mp_mask"](sysm.ms, h.target_kf, 16)
+            ms2, _ = sysm.fns["fuse_step"](sysm.ms, kf, local_mask)
+            sysm.ms = sysm.fns["refresh_stats"](ms2, ms2.mp_valid)
         q_pre, t_pre = sysm.ms.kf_q, sysm.ms.kf_t
         sysm.ms, weld_mask, weld_pts = sysm.fns["welding_ba"](sysm.ms, kf,
                                                               in_cur)
-        self._merge_pgo(in_cur, weld_mask, weld_pts, q_pre, t_pre, tgt_map)
+        with TRACER.span("server.pgo"):
+            self._merge_pgo(in_cur, weld_mask, weld_pts, q_pre, t_pre,
+                            tgt_map)
         n_in_tgt = int((sysm.ms.kf_valid & (sysm.ms.kf_map == tgt_map)).sum())
         if n_in_tgt < self.cfg.max_kf_for_gba:
             self._run_gba(tgt_map)
         self.events.append(
             f"MERGE agent={agent_id} map {cur_map} -> {tgt_map} kf={kf} "
             f"target={h.target_kf} ts={float(sysm.ms.kf_ts[kf]):.6f}")
-        self.timers.add("MM", (time.perf_counter() - t0) * 1e3)
 
     def _merge_pgo(self, in_cur, weld_mask, weld_pts, q_pre, t_pre,
                    tgt_map):

@@ -55,7 +55,7 @@ from mam3slam_tpu_torch.solvers import imu as imu_mod
 from mam3slam_tpu_torch.solvers import pnp
 from mam3slam_tpu_torch.solvers import twoview
 from mam3slam_tpu_torch.solvers import vi as vi_mod
-from mam3slam_tpu_torch.utils.timing import Timers
+from mam3slam_tpu_torch.utils.timing import TRACER, Timers
 
 NO_IMAGES_YET = 0
 NOT_INITIALIZED = 1
@@ -255,7 +255,9 @@ def programs(cfg: SlamConfig, kind: int) -> dict:
 
         r1 = stage(q_pred, t_pred, 6.0, 0.9)
         widened = r1[5] < cfg.min_track_inliers_lost
-        if bool(widened):  # host branch: one read of the coarse count
+        with TRACER.span("track.read"):  # one read of the coarse count
+            widen = bool(widened)
+        if widen:  # host branch
             r1 = stage(q_pred, t_pred, 12.0, 0.9)
         feat_mp, n_m, q, t, inlier, n_in, visible = r1
         r2 = stage(q, t, 1.0, 0.8)
@@ -654,6 +656,7 @@ class AgentState:
     pending_q: List = field(default_factory=list)
     trajectory: List = field(default_factory=list)  # (ts, ref, q, t, state)
     times_ms: List = field(default_factory=list)
+    calls: int = 0           # track calls so far: the frame id's number
 
 
 class SlamSystem:
@@ -733,13 +736,15 @@ class SlamSystem:
                             self.ms = self.fns["update_found_visible"](
                                 self.ms, *payload)
                     else:
-                        _, aid, kf = job
+                        # the inserting frame's span, when traced
+                        _, aid, kf, *cause = job
                         try:
-                            self._local_mapping(self.agents[aid], kf)
-                            self.ms_epoch += 1
-                            if self.server is not None:
-                                self.server.process_keyframe(aid, kf)
+                            with TRACER.adopt(*cause):
+                                self._local_mapping(self.agents[aid], kf)
                                 self.ms_epoch += 1
+                                if self.server is not None:
+                                    self.server.process_keyframe(aid, kf)
+                                    self.ms_epoch += 1
                         finally:
                             self._pending_mapping -= 1
             except Exception as e:   # re-raised by track() and flush()
@@ -805,18 +810,21 @@ class SlamSystem:
         t0 = time.perf_counter()
         self._raise_worker_error()
         a = self.agents[agent_id]
-        # complete the oldest deferred frames down to the lag bound
-        while len(a.pending_q) >= max(self.pipeline_depth, 1):
-            self._complete_pending(a)
-        if a.state in (NO_IMAGES_YET, NOT_INITIALIZED):
-            self.drain_agent(a)
-            a.last_rel = None
-            self._monocular_initialization(a, frame, ts)
-            self._post_frame(a, frame, ts, t0)
-        else:
-            self._track_frame(a, frame, ts, t0, imu)
-            if not self.pipeline:
+        call, a.calls = a.calls, a.calls + 1
+        with TRACER.frame(agent_id, call), TRACER.span("track"):
+            # complete the oldest deferred frames down to the lag bound
+            while len(a.pending_q) >= max(self.pipeline_depth, 1):
+                self._complete_pending(a)
+            if a.state in (NO_IMAGES_YET, NOT_INITIALIZED):
+                self.drain_agent(a)
+                a.last_rel = None
+                with TRACER.span("track.init"):
+                    self._monocular_initialization(a, frame, ts)
                 self._post_frame(a, frame, ts, t0)
+            else:
+                self._track_frame(a, frame, ts, t0, imu)
+                if not self.pipeline:
+                    self._post_frame(a, frame, ts, t0)
         return a.state, (a.q, a.t) if a.q is not None else None
 
     def _post_frame(self, a: AgentState, frame, ts, t0):
@@ -1028,10 +1036,11 @@ class SlamSystem:
             has_vel = a.vel_q is not None
             vel_q = self._tensor(a.vel_q if has_vel else [1, 0, 0, 0])
             vel_t = self._tensor(a.vel_t if has_vel else np.zeros(3))
-        (ms2, feat_mp, inlier, visible, vec,
-         a.dev_chain) = self.fns["track_frame_step"](
-            ms, frame, max(a.ref_kf, 0), vel_q, vel_t, has_vel, q_last,
-            t_last, q_ext, t_ext, use_imu, a.cam.params)
+        with TRACER.span("track.step"):
+            (ms2, feat_mp, inlier, visible, vec,
+             a.dev_chain) = self.fns["track_frame_step"](
+                ms, frame, max(a.ref_kf, 0), vel_q, vel_t, has_vel, q_last,
+                t_last, q_ext, t_ext, use_imu, a.cam.params)
         pend = dict(ms=ms, ms2=ms2, feat_mp=feat_mp, inlier=inlier,
                     visible=visible, vec=vec, frame=frame, ts=ts, t0=t0,
                     imu=imu, snap_epoch=snap_epoch, ref_kf=max(a.ref_kf, 0))
@@ -1068,7 +1077,8 @@ class SlamSystem:
         # completions run in order: the host pose is the previous frame's
         q_last, t_last = a.q, a.t
         feat_mp, inlier = pend["feat_mp"], pend["inlier"]
-        vec = self._read_vec(pend)
+        with TRACER.span("track.read"):
+            vec = self._read_vec(pend)
         q, t = vec[0:4], vec[4:7]
         vel_q, vel_t = vec[7:11], vec[11:14]
         q_rel, t_rel = vec[14:18], vec[18:21]
@@ -1080,22 +1090,22 @@ class SlamSystem:
         if (n_in < cfg.min_track_inliers_lost and a.ref_kf >= 0
                 and a.state == OK):
             # TrackReferenceKeyFrame fallback from the last pose
-            feat_mp_r, q_r, t_r, inlier_r, n_r, n_bow = self.fns[
-                "track_ref_kf"](ms, frame, pend["ref_kf"],
-                                self._tensor(q_last), self._tensor(t_last),
-                                a.cam.params)
-            if int(n_bow) >= 15 and int(n_r) > n_in and int(n_r) >= 10:
-                feat_mp, inlier = feat_mp_r, inlier_r
-                q, t = q_r.cpu().numpy(), t_r.cpu().numpy()
-                n_in = int(n_r)
-                a.dev_chain = None   # the host pose left the chain
-                vel_q, vel_t = _se3_compose_np(q, t,
-                                               *_se3_inverse_np(q_last,
-                                                                t_last))
-                rq = ms.kf_q[pend["ref_kf"]].cpu().numpy()
-                rt = ms.kf_t[pend["ref_kf"]].cpu().numpy()
-                q_rel, t_rel = _se3_compose_np(q, t,
-                                               *_se3_inverse_np(rq, rt))
+            with TRACER.span("track.ref_kf"):
+                feat_mp_r, q_r, t_r, inlier_r, n_r, n_bow = self.fns[
+                    "track_ref_kf"](ms, frame, pend["ref_kf"],
+                                    self._tensor(q_last),
+                                    self._tensor(t_last), a.cam.params)
+                if int(n_bow) >= 15 and int(n_r) > n_in and int(n_r) >= 10:
+                    feat_mp, inlier = feat_mp_r, inlier_r
+                    q, t = q_r.cpu().numpy(), t_r.cpu().numpy()
+                    n_in = int(n_r)
+                    a.dev_chain = None   # the host pose left the chain
+                    vel_q, vel_t = _se3_compose_np(
+                        q, t, *_se3_inverse_np(q_last, t_last))
+                    rq = ms.kf_q[pend["ref_kf"]].cpu().numpy()
+                    rt = ms.kf_t[pend["ref_kf"]].cpu().numpy()
+                    q_rel, t_rel = _se3_compose_np(q, t,
+                                                   *_se3_inverse_np(rq, rt))
 
         if self.async_mapping:
             # found/visible deltas go through the worker, the single
@@ -1123,10 +1133,13 @@ class SlamSystem:
                 a.frames_lost = 0
             else:
                 a.frames_lost += 1
-            if a.state == RECENTLY_LOST and self._relocalize(a, frame):
-                a.state = OK
-                a.frames_since_kf += 1
-                return
+            if a.state == RECENTLY_LOST:
+                with TRACER.span("track.reloc"):
+                    relocalized = self._relocalize(a, frame)
+                if relocalized:
+                    a.state = OK
+                    a.frames_since_kf += 1
+                    return
             if a.frames_lost > cfg.recently_lost_frames:
                 a.state = LOST
                 self._create_map_in_atlas(a)
@@ -1259,12 +1272,13 @@ class SlamSystem:
         feat_mp_in = torch.where(inlier, feat_mp, S.NO_MP)
 
         def insert():
-            ms, kf = self.fns["add_kf_step"](
-                self.ms, frame, self._tensor(a.q), self._tensor(a.t),
-                feat_mp_in, a.agent_id, a.map_id, float(ts),
-                a.next_agent_kf_id, a.cam.params)
-            self.ms = ms
-            return int(kf)
+            with TRACER.span("kf.insert"):
+                ms, kf = self.fns["add_kf_step"](
+                    self.ms, frame, self._tensor(a.q), self._tensor(a.t),
+                    feat_mp_in, a.agent_id, a.map_id, float(ts),
+                    a.next_agent_kf_id, a.cam.params)
+                self.ms = ms
+                return int(kf)
 
         if self.async_mapping:
             # insert only while the worker has no mapping job and the
@@ -1296,7 +1310,7 @@ class SlamSystem:
                       np.zeros(3, np.float32), kf)
         a.ref_kf_tracked = int((feat_mp_in >= 0).sum())
         if self.async_mapping:
-            self._jobs.put(("mapping", a.agent_id, kf))
+            self._jobs.put(("mapping", a.agent_id, kf, TRACER.current()))
             return
         self._local_mapping(a, kf)
         self.ms_epoch += 1
@@ -1311,21 +1325,28 @@ class SlamSystem:
 
     def _local_mapping(self, a: AgentState, kf: int):
         """LocalMapping::Run for one keyframe: the mapping epoch, one read
-        of its packed result, then the host's KeyFrameCulling loop (at
-        most two removals, re-scored after each)."""
-        t0 = time.perf_counter()
-        ms, packed = self.fns["mapping_epoch"](self.ms, kf, a.map_id,
-                                               self._protected_refs())
-        pk_all = packed.cpu().numpy()
-        self.epochs.append((a.agent_id, a.map_id, pk_all[0]))
-        n_drop = int(pk_all[0, 2])
-        if n_drop:
-            if self.mp_dropped == 0:
-                self.events.append(
-                    f"MP_ARENA_FULL agent={a.agent_id} dropping "
-                    f"triangulations (raise SlamConfig.max_mp)")
-            self.mp_dropped += n_drop
-        pk = pk_all[1:]
+        of its packed result, then the host's KeyFrameCulling loop."""
+        with TRACER.timed("mapping", self.timers, f"LM_{a.agent_id}"):
+            with TRACER.span("mapping.epoch"):
+                ms, packed = self.fns["mapping_epoch"](
+                    self.ms, kf, a.map_id, self._protected_refs())
+            with TRACER.span("mapping.read"):
+                pk_all = packed.cpu().numpy()
+            self.epochs.append((a.agent_id, a.map_id, pk_all[0]))
+            n_drop = int(pk_all[0, 2])
+            if n_drop:
+                if self.mp_dropped == 0:
+                    self.events.append(
+                        f"MP_ARENA_FULL agent={a.agent_id} dropping "
+                        f"triangulations (raise SlamConfig.max_mp)")
+                self.mp_dropped += n_drop
+            with TRACER.span("mapping.cull"):
+                self.ms = self._cull_keyframes(ms, kf, pk_all[1:])
+
+    def _cull_keyframes(self, ms, kf: int, pk: np.ndarray):
+        """KeyFrameCulling of ``kf``'s covisibles from the packed scores
+        ``pk``: at most two removals, re-scored after each.  Returns the
+        state."""
         culled = 0
         while culled < 2:
             cand_j = next((j for j in range(pk.shape[0])
@@ -1354,8 +1375,7 @@ class SlamSystem:
             if culled < 2:   # re-score on the post-removal state
                 pk = self.fns["cull_pack"](
                     ms, kf, self._protected_refs()).cpu().numpy()
-        self.ms = ms
-        self.timers.add(f"LM_{a.agent_id}", (time.perf_counter() - t0) * 1e3)
+        return ms
 
     # ------------------------------------------------------------------
     def _record_trajectory(self, a: AgentState, ts):
