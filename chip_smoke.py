@@ -223,6 +223,17 @@ raises (exit code != 0) and no result line is printed:
    writes collide, twice on the card: equal to the CPU's result.  The
    segment-sum kernel must also have launched on the SLAM path (phase 5)
    and the server path (phase 6) with no plain call.
+14. OptimizeSim3's kernel (``csrc/sim3.cu``; no Pallas kernel matches
+   it) against its plain version at the loop server's shapes: the
+   fixture's KB8 keyframes (N = 768), EuRoC's pinhole ones (N = 1024), a
+   pinhole keyframe against a KB8 one, and the arena's 24576 points of
+   which 768 may pair up (the server's call); about half the pairs valid,
+   an eighth planted outliers.  Rotation within 1e-5 rad, t and s within
+   1e-5 relative, the inlier masks equal but at chi2 within 1e-3 of
+   9.21, one launch a call, the same bits twice; its device ms (CUDA
+   events), wrapper and plain ms and bound at each shape.  The kernel
+   must also have launched on the server path (phase 6) with no plain
+   call.  ``run_phase14`` runs it alone.
 
 It prints a JSON line of per-kernel results (``ms``: the median time of
 one wrapper call at the kernel's first caller shape; ``device_ms``: the
@@ -445,6 +456,23 @@ KERNELS = {  # launch-counter name -> (source, replaced Pallas kernel)
 # segment sums (the reference's one-hot matmuls and XLA scatters)
 SEGSUM = ("segsum", "mam3slam_tpu_torch/csrc/segsum.cu", None)
 SEGSUM_LIBRARY = "index_add_ (atomic, its order changes from run to run)"
+# the Sim3 kernel, no Pallas counterpart: the reference's OptimizeSim3 in XLA
+SIM3 = ("sim3_opt", "mam3slam_tpu_torch/csrc/sim3.cu", None)
+SIM3_LIBRARY = ("none: no single PyTorch call computes a Gauss-Newton Sim3 "
+                "solve")
+# phase 14: (caller, camera kinds, pairs N, of which the first n_pairs may
+# be valid)
+SIM3_SHAPES = (("fixture, KB8 x KB8, N=768", (1, 1), 768, 768),
+               ("EuRoC, pinhole x pinhole, N=1024", (0, 0), 1024, 1024),
+               ("merge, pinhole x KB8, N=768", (0, 1), 768, 768),
+               ("server, KB8 arena, N=24576", (1, 1), 24576, 768))
+SIM3_KB8 = (352.65, 352.65, 359.925, 359.925, 0.0034823894, 0.00071503485,
+            -0.0020532361, 0.00020293674)      # reference_kb8_cam(0.75)
+# f32 ops of one direction of a pair: linearised (rotation, projection and
+# its derivative, residual, the 2 x 7 rows, Huber weight, 28 H and 7 g
+# entries) and residual only, by camera kind (KB8's projection: sqrtf,
+# atan2f, six divisions, two quartics)
+SIM3_OPS = {0: (280, 75), 1: (355, 150)}
 # phase 13: a Sim3 tangent (translation, rotation, log scale) that moves
 # the newest keyframe of phase 11a's map as a loop correction would
 REPRO_LOOP_XI = (0.02, -0.01, 0.03, 0.01, -0.02, 0.015, 0.01)
@@ -572,6 +600,18 @@ def pose_work(n_valid: int, n_in: int, n: int, kind: int = 0,
                              + (n_valid - n_in) * chi2)
            + n_valid * chi2)
     return ops, F32_OPS, 26 * n + 92
+
+
+def sim3_work(n: int, n_valid: int, kinds, iters: int = 20):
+    """``iters`` linearisations of both directions of each valid pair
+    (``SIM3_OPS[kind][0]``), then one residual pass for the inliers
+    (``[1]``); each pair's valid flag read and inlier flag written, each
+    valid pair's 48 bytes (points, pixels, sigma^2) read once, 96 bytes of
+    cameras and start in, 40 out."""
+    lin = sum(SIM3_OPS[k][0] for k in kinds)
+    res = sum(SIM3_OPS[k][1] for k in kinds)
+    return (iters * n_valid * lin + n_valid * res, F32_OPS,
+            2 * n + 48 * n_valid + 136)
 
 
 def bound_ms(ops: float, rate: float, nbytes: float):
@@ -3146,6 +3186,111 @@ def mp_collisions_equal(dev) -> list:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: OptimizeSim3's kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def sim3_problem(dev, kinds, n: int, n_pairs: int, seed: int):
+    """OptimizeSim3's inputs as the loop server gives them: ``n`` pairs
+    (the arena's points at the server's shape), of which about half of
+    the first ``n_pairs`` are valid; S12 with a scale of 1.3, 0.7 px
+    noise, an eighth of the pairs planted 20-60 px off in camera 1, level
+    sigmas 1.2^(2 level) per pair and direction, and a start 0.02 rad,
+    6 cm and 7% off.  Camera 0 is EuRoC's pinhole, 1 the fixture's KB8."""
+    from mam3slam_tpu_torch.geometry import cameras as C
+    from mam3slam_tpu_torch.geometry import lie
+
+    rng = np.random.default_rng(seed)
+    cams = [C.Camera(torch.tensor((FX, FY, CX, CY, 0.0, 0.0, 0.0, 0.0)
+                                  if k == C.PINHOLE else SIM3_KB8,
+                                  device=dev), k) for k in kinds]
+
+    def T(x):
+        return torch.tensor(np.asarray(x, np.float32), device=dev)
+
+    pc2 = T(np.stack([rng.uniform(-5, 5, n), rng.uniform(-4, 4, n),
+                      rng.uniform(1.5, 10, n)], 1))
+    q_true = lie.so3_exp_quat(T([0.05, -0.08, 0.03]))
+    t_true, s_true = T([0.3, -0.2, 0.4]), 1.3
+    pc1 = s_true * lie.quat_rotate(q_true[None], pc2) + t_true
+    uv1 = C.project_ideal(cams[0], pc1) + T(rng.normal(0, 0.7, (n, 2)))
+    uv2 = C.project_ideal(cams[1], pc2) + T(rng.normal(0, 0.7, (n, 2)))
+    out = rng.choice(n_pairs, n_pairs // 8, replace=False)
+    uv1[out] += T(rng.uniform(20, 60, (len(out), 2)))
+    valid = torch.tensor((np.arange(n) < n_pairs) & (rng.random(n) < 0.5),
+                         device=dev)
+    sigma2 = [T(1.44 ** rng.integers(0, 8, n)) for _ in range(2)]
+    q0 = lie.quat_normalize(lie.quat_mul(lie.so3_exp_quat(
+        T([0.01, 0.015, -0.01])), q_true))
+    t0 = t_true + T([0.04, -0.03, 0.02])
+    s0 = torch.tensor(s_true * 1.07, device=dev)
+    return (q0, t0, s0, pc1, pc2, uv1, uv2, valid, cams[0], cams[1],
+            *sigma2)
+
+
+def sim3_errors(args, got, want) -> dict:
+    """The kernel's result ``got`` against the plain version's ``want``:
+    the rotation angle between them (rad), t's and s's relative
+    differences, and the inlier flags that differ at pairs whose chi2
+    lies further than 1e-3 from 9.21 at ``want``."""
+    from mam3slam_tpu_torch.geometry import cameras as C
+    from mam3slam_tpu_torch.geometry import lie
+
+    _, _, _, pc1, pc2, uv1, uv2, _, cam1, cam2, s2_1, s2_2 = args
+    q, t, s = want[:3]
+    d = lie.quat_mul(lie.quat_conj(q.double()), got[0].double())
+    r1 = C.project_ideal(cam1, s * lie.quat_rotate(q[None], pc2) + t) - uv1
+    r2 = C.project_ideal(cam2, lie.quat_rotate(lie.quat_conj(q)[None],
+                                               pc1 - t) / s) - uv2
+    edge = (((r1 ** 2).sum(-1) / s2_1 - 9.21).abs() < 1e-3) | (
+        ((r2 ** 2).sum(-1) / s2_2 - 9.21).abs() < 1e-3)
+    return dict(angle=float(2 * torch.atan2(d[1:].norm(), d[0].abs())),
+                t_rel=float((got[1] - t).norm() / t.norm()),
+                s_rel=abs(float(got[2] / s) - 1),
+                inliers_differ=int(((got[3] != want[3]) & ~edge).sum()))
+
+
+def run_phase14(dev, smi: str) -> list:
+    """OptimizeSim3's kernel against its plain version at
+    ``SIM3_SHAPES``; raises where it disagrees, launches otherwise than
+    once a call or differs between two calls.  Returns phase 3's rows."""
+    from mam3slam_tpu_torch import _build
+    from mam3slam_tpu_torch.ops import cuda_sim3 as CS
+
+    t14, rows = time.perf_counter(), []
+    for caller, kinds, n, n_pairs in SIM3_SHAPES:
+        args = sim3_problem(dev, kinds, n, n_pairs, seed=n + kinds[1])
+        before = _build.LAUNCHES["sim3_opt"]
+        got = CS.optimize_sim3(*args)
+        again = CS.optimize_sim3(*args)
+        torch.cuda.synchronize()
+        want = CS.optimize_sim3_plain(*args)
+        err = sim3_errors(args, got, want)
+        same = all(bit_equal(a, b) for a, b in zip(got, again))
+        n_valid = int(args[7].sum())
+        if (err["angle"] >= 1e-5 or err["t_rel"] >= 1e-5
+                or err["s_rel"] >= 1e-5 or err["inliers_differ"]
+                or int(got[4]) != int(got[3].sum()) or not same
+                or _build.LAUNCHES["sim3_opt"] != before + 2):
+            raise AssertionError(f"phase 14, {caller}: {err}, same bits "
+                                 f"{same}")
+        b_ms, b_by = bound_ms(*sim3_work(n, n_valid, kinds))
+        dev_ms = events_ms(lambda: CS.optimize_sim3(*args))
+        row = dict(kernel=SIM3[0], caller=caller,
+                   max_abs_err=max(err["angle"], err["t_rel"], err["s_rel"]),
+                   device_ms=dev_ms, timer="events",
+                   wrapper_ms=median_ms(lambda: CS.optimize_sim3(*args)),
+                   plain_ms=median_ms(lambda: CS.optimize_sim3_plain(*args),
+                                      reps=3, warmup=1),
+                   library_ms=None, bound_us=b_ms * 1e3, bound_by=b_by,
+                   share=b_ms / dev_ms)
+        rows.append(row)
+        log("sim3", **row, n=n, n_valid=n_valid, n_inliers=int(got[4]),
+            same_bits=same, card=repr(smi), **err)
+    log("sim3_done", phase14_seconds=time.perf_counter() - t14)
+    return rows
+
+
 def sync(dev) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -3324,7 +3469,7 @@ def main() -> int:
     loop6b = dict(track_ms=list(agents6[0]["track_ms"]),
                   lc_ms=list(sys6.server.timers.series.get("LC", [])))
     server_launches = {k: merge_launches.get(k, 0) + loop_launches.get(k, 0)
-                       for k in (*KERNELS, SEGSUM[0])}
+                       for k in (*KERNELS, SEGSUM[0], SIM3[0])}
     if (any(n == 0 for n in server_launches.values()) or any(
             merge_plain.values()) or any(loop_plain.values())):
         raise AssertionError("the server path did not run every kernel")
@@ -3543,6 +3688,9 @@ def main() -> int:
                 p11["map_id"], scene6, cam_r, orb_cfg, smi, timed, parent)
     tmp11.cleanup()
 
+    # 14. OptimizeSim3's kernel against its plain version
+    timed += run_phase14(dev, smi)
+
     phase8_launches = collections.Counter()
     for counts in (res8a["launches"], res8b["launches"],
                    res_bare["launches"], launches8c):
@@ -3553,6 +3701,7 @@ def main() -> int:
 
     kernels = dict(KERNELS)
     kernels[SEGSUM[0]] = SEGSUM[1:]
+    kernels[SIM3[0]] = SIM3[1:]
     rows = {k: [r for r in timed if r["kernel"] == k] for k in kernels}
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
@@ -3567,7 +3716,8 @@ def main() -> int:
          "bound_ms": rows[k][0]["bound_us"] / 1e3,
          "bound_by": rows[k][0]["bound_by"],
          "library_ms": rows[k][0].get("library_ms"),
-         "library": SEGSUM_LIBRARY if k == SEGSUM[0] else NO_LIBRARY,
+         "library": {SEGSUM[0]: SEGSUM_LIBRARY, SIM3[0]: SIM3_LIBRARY}.get(
+             k, NO_LIBRARY),
          "launches_per_tracked_frame": track_per_frame.get(k, 0),
          "launches_per_slam_frame": slam_per["per_frame"].get(k, 0),
          "launches_per_epoch": slam_per["per_epoch"].get(k, 0),

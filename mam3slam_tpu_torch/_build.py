@@ -58,6 +58,8 @@ _SIGNATURES = {
                       _P, _P, _P, _P, _P],
     "mam3_segsum": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
                     _P, _P],
+    "mam3_sim3_opt": [_P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+                      _I, _I, ctypes.c_float, _P, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()

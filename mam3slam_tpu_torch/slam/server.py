@@ -30,6 +30,7 @@ from mam3slam_tpu_torch.geometry import cameras as cam_mod
 from mam3slam_tpu_torch.geometry import lie
 from mam3slam_tpu_torch.mapstate import state as S
 from mam3slam_tpu_torch.ops import bow
+from mam3slam_tpu_torch.ops import cuda_sim3
 from mam3slam_tpu_torch.ops import matching as M
 from mam3slam_tpu_torch.parallel import dist_window_ba
 from mam3slam_tpu_torch.slam.background_gba import BackgroundGBA
@@ -322,26 +323,31 @@ class LoopServer:
     def _optimize_sim3_pairs(self, kf: int, cand: int, mres, S12_init):
         """OptimizeSim3 on genuine pairs: the matched feature of ``kf``
         carries its own map point and the candidate point is observed in
-        ``cand``, so both reprojection directions are independent."""
-        ms = self.sys.ms
-        T2 = self._pose_sim3(cand)
-        pc2 = lie.sim3_apply(T2, ms.mp_pos)               # candidate camera
-        f1 = torch.clamp(mres.idx, min=0).long()
-        mp1 = ms.kf_feat_mp[kf][f1]
-        p1w = ms.mp_pos[torch.clamp(mp1, min=0).long()]
-        pc1 = lie.quat_rotate(ms.kf_q[kf][None], p1w) + ms.kf_t[kf][None]
-        hit2 = ms.mp_obs_kf == cand                       # [P, M]
-        P = hit2.shape[0]
-        f2 = torch.clamp(ms.mp_obs_feat[
-            torch.arange(P, device=self.device),
-            torch.argmax(hit2.to(torch.int32), -1)], min=0).long()
-        pair_ok = mres.ok & (mp1 >= 0) & hit2.any(-1)
-        return sim3_mod.optimize_sim3(
-            S12_init.q, S12_init.t, S12_init.s, pc1, pc2,
-            ms.kf_feat_uv[kf][f1], ms.kf_feat_uv[cand][f2], pair_ok,
-            self._camera(kf), self._camera(cand),
-            self._sigma2(ms.kf_feat_level[kf][f1]),
-            self._sigma2(ms.kf_feat_level[cand][f2])), T2
+        ``cand``, so both reprojection directions are independent.
+        Returns (q, t, s) of the optimised S12 and its inlier count, read
+        to the host."""
+        with TRACER.span("server.sim3_opt"):
+            ms = self.sys.ms
+            pc2 = lie.sim3_apply(self._pose_sim3(cand),  # candidate camera
+                                 ms.mp_pos)
+            f1 = torch.clamp(mres.idx, min=0).long()
+            mp1 = ms.kf_feat_mp[kf][f1]
+            p1w = ms.mp_pos[torch.clamp(mp1, min=0).long()]
+            pc1 = (lie.quat_rotate(ms.kf_q[kf][None], p1w)
+                   + ms.kf_t[kf][None])
+            hit2 = ms.mp_obs_kf == cand                       # [P, M]
+            P = hit2.shape[0]
+            f2 = torch.clamp(ms.mp_obs_feat[
+                torch.arange(P, device=self.device),
+                torch.argmax(hit2.to(torch.int32), -1)], min=0).long()
+            pair_ok = mres.ok & (mp1 >= 0) & hit2.any(-1)
+            q, t, s, _, n_in = cuda_sim3.optimize_sim3(
+                S12_init.q, S12_init.t, S12_init.s, pc1, pc2,
+                ms.kf_feat_uv[kf][f1], ms.kf_feat_uv[cand][f2], pair_ok,
+                self._camera(kf), self._camera(cand),
+                self._sigma2(ms.kf_feat_level[kf][f1]),
+                self._sigma2(ms.kf_feat_level[cand][f2]))
+            return q, t, s, int(n_in)
 
     def _verify_candidate(self, kf: int, cand: int):
         """BoW-space matching -> Sim3 RANSAC -> guided projection (th 8)
@@ -389,10 +395,9 @@ class LoopServer:
         self.last_verify["n_proj"] = n_proj
         if n_proj < cfg.n_proj_matches:
             return None
-        (q_o, t_o, s_o, _, n_in), _ = self._optimize_sim3_pairs(
-            kf, cand, mres, S12)
-        self.last_verify["n_opt_inl"] = int(n_in)
-        if int(n_in) < cfg.n_sim3_inliers:
+        q_o, t_o, s_o, n_in = self._optimize_sim3_pairs(kf, cand, mres, S12)
+        self.last_verify["n_opt_inl"] = n_in
+        if n_in < cfg.n_sim3_inliers:
             return None
 
         Scw_o = lie.sim3_compose(lie.Sim3(q_o, t_o, s_o), T2)
@@ -430,10 +435,10 @@ class LoopServer:
         if n1 < n_proj_th:
             return False
         T2 = self._pose_sim3(h.target_kf)
-        (q_o, t_o, s_o, _, n_in), _ = self._optimize_sim3_pairs(
+        q_o, t_o, s_o, n_in = self._optimize_sim3_pairs(
             kf, h.target_kf, mres,
             lie.sim3_compose(S_cur, lie.sim3_inverse(T2)))
-        if int(n_in) < n_opt_th:
+        if n_in < n_opt_th:
             return False
         Scw_o = lie.sim3_compose(lie.Sim3(q_o, t_o, s_o), T2)
         _, n2 = self._project_match_sim3(kf, Scw_o, mp_mask, th=5.0)

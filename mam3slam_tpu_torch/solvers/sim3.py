@@ -1,13 +1,14 @@
-"""Sim3 estimation: Horn's closed form, batched RANSAC and Sim3 refinement.
+"""Sim3 estimation: Horn's closed form and batched RANSAC.
 
-Port of ``mam3slam_tpu.solvers.sim3`` (the reference's Sim3Solver and
-Optimizer::OptimizeSim3): every RANSAC hypothesis is one batched Horn
-solve (a 4x4 ``eigh``) scored by one fused bidirectional reprojection
-test.  The hypotheses' 3-point samples come from ``probe [R, 3]``, uniform
-draws in [0, 1) that the caller makes, so a test can hand both packages
-the same draws.  On a degenerate sample ``eigh`` may return another
-eigenvector than LAPACK does in the reference, so only the chosen Sim3
-and its inliers are comparable, never hypothesis indices.
+Port of ``mam3slam_tpu.solvers.sim3`` (the reference's Sim3Solver; its
+Optimizer::OptimizeSim3 is ``ops/cuda_sim3.py``): every RANSAC
+hypothesis is one batched Horn solve (a 4x4 ``eigh``) scored by one
+fused bidirectional reprojection test.  The hypotheses' 3-point samples
+come from ``probe [R, 3]``, uniform draws in [0, 1) that the caller
+makes, so a test can hand both packages the same draws.  On a degenerate
+sample ``eigh`` may return another eigenvector than LAPACK does in the
+reference, so only the chosen Sim3 and its inliers are comparable, never
+hypothesis indices.
 """
 
 from __future__ import annotations
@@ -18,7 +19,6 @@ import torch
 
 from mam3slam_tpu_torch.geometry import cameras as cam_mod
 from mam3slam_tpu_torch.geometry import lie
-from mam3slam_tpu_torch.utils import autodiff
 
 
 class Sim3Result(NamedTuple):
@@ -122,55 +122,3 @@ def ransac_sim3(p1, p2, valid, uv1, uv2, cam1: cam_mod.Camera,
     n_in = inl_f.sum()
     return Sim3Result(ok=n_in >= min_inliers, q=q_f, t=t_f, s=s_f,
                       inliers=inl_f, n_inliers=n_in)
-
-
-def optimize_sim3(q12, t12, s12, pc1, pc2, uv1, uv2, valid,
-                  cam1: cam_mod.Camera, cam2: cam_mod.Camera,
-                  sigma2_1, sigma2_2, iters: int = 20, huber2: float = 100.0):
-    """Gauss-Newton refinement of S12 on bidirectional reprojection
-    residuals of camera-frame points pc1 / pc2 (reference
-    Optimizer::OptimizeSim3, Huber delta^2 = 100).  The [4N, 7] jacobian
-    is forward-mode (``utils.autodiff.jacfwd``) in the tangent [rho, phi,
-    sigma], left-perturbing the rotation.  Returns (q, t, s, inliers,
-    n_inliers)."""
-    sig1 = torch.sqrt(sigma2_1)[:, None]
-    sig2 = torch.sqrt(sigma2_2)[:, None]
-
-    def residuals(q, t, log_s):
-        s = torch.exp(log_s)
-        p12 = s * lie.quat_rotate(q[None], pc2) + t[None]
-        r1 = (cam_mod.project_ideal(cam1, p12) - uv1) / sig1
-        p21 = (1.0 / s) * lie.quat_rotate(lie.quat_conj(q)[None],
-                                          pc1 - t[None])
-        r2 = (cam_mod.project_ideal(cam2, p21) - uv2) / sig2
-        return r1, r2
-
-    eye7 = torch.eye(7, dtype=pc1.dtype, device=pc1.device)
-    q, t = q12, t12
-    log_s = torch.log(torch.clamp(torch.as_tensor(s12, dtype=pc1.dtype,
-                                                  device=pc1.device),
-                                  min=1e-6))
-    act2 = torch.cat([valid, valid])
-    for _ in range(iters):
-        def res_tangent(xi):
-            nq = lie.quat_normalize(lie.quat_mul(lie.so3_exp_quat(xi[3:6]),
-                                                 q))
-            r1, r2 = residuals(nq, t + xi[0:3], log_s + xi[6])
-            r = torch.cat([r1, r2], dim=0).reshape(-1)
-            return r, r
-
-        xi0 = torch.zeros(7, dtype=pc1.dtype, device=pc1.device)
-        J, r = autodiff.jacfwd(res_tangent, xi0, has_aux=True)  # [4N, 7]
-        chi = (r.reshape(-1, 2) ** 2).sum(-1)
-        wh = torch.where(chi <= huber2, 1.0,
-                         torch.sqrt(huber2 / torch.clamp(chi, min=1e-12)))
-        wr = torch.where(act2, wh, 0.0).repeat_interleave(2)
-        H = J.T @ (J * wr[:, None]) + 1e-6 * eye7
-        g = J.T @ (r * wr)
-        dx = torch.linalg.solve_ex(H, -g)[0]
-        q = lie.quat_normalize(lie.quat_mul(lie.so3_exp_quat(dx[3:6]), q))
-        t = t + dx[0:3]
-        log_s = log_s + dx[6]
-    r1, r2 = residuals(q, t, log_s)
-    inl = valid & ((r1 ** 2).sum(-1) < 9.21) & ((r2 ** 2).sum(-1) < 9.21)
-    return q, t, torch.exp(log_s), inl, inl.sum()

@@ -5,8 +5,9 @@ variable of ``torch.autograd.forward_ad``: a thread that leaves its level
 while another thread is inside ``jacfwd`` resets that thread's level,
 whose next dual tensor then raises.  Under asynchronous mapping the
 tracking thread (relocalization's PnP) and the mapping worker (the
-server's Sim3 refinement and pose-graph optimisation) both differentiate,
-so every jacobian of the port is taken here, one at a time.
+server's pose-graph optimisation, and its Sim3 refinement on the CPU)
+both differentiate, so every jacobian of the port is taken here, one at
+a time.
 """
 
 from __future__ import annotations

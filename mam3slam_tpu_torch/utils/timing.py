@@ -48,6 +48,7 @@ SPAN_NAMES = (
     "server",                      # LoopServer.process_keyframe -> PR
     "server.vocab", "server.index", "server.detect", "server.verify",
     "server.refine",
+    "server.sim3_opt",             # OptimizeSim3 and its inlier count
     "server.correct",              # correct_loop -> LC
     "server.merge",                # merge_maps -> MM
     "server.pgo", "server.fuse", "server.gba")

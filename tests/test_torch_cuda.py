@@ -1,11 +1,16 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 card, at small shapes and at the callers' shapes (tracking, fuse, Sim3
 search; the pose at a batch of two and past the edges kept in
-registers, and at the agent batches of ``batched_pose_optimization``).
+registers, and at the agent batches of ``batched_pose_optimization``;
+OptimizeSim3 at the fixture's and EuRoC's cameras, mixed, and over the
+arena's points).
 Marked ``cuda``: they skip where torch sees no CUDA device.
 
     pytest --noconftest tests/test_torch_cuda.py
 """
+
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -16,7 +21,13 @@ from mam3slam_tpu_torch.geometry import lie
 from mam3slam_tpu_torch.ops import cuda_match as CM
 from mam3slam_tpu_torch.ops import cuda_orb_desc as CO
 from mam3slam_tpu_torch.ops import cuda_pose as CP
+from mam3slam_tpu_torch.ops import cuda_sim3 as CS
 from mam3slam_tpu_torch.ops import orb as O
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+import chip_smoke  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -430,6 +441,32 @@ def test_pose_kernel_kb8_matches_plain(dev, B, n, degenerate):
         assert int(n_in[b]) == int(inl[b].sum())
         if degenerate:
             assert not inl[b, 8:16].any()
+
+
+@pytest.mark.parametrize("caller,kinds,n,n_pairs", [
+    *chip_smoke.SIM3_SHAPES,
+    ("past the registers, KB8 arena", (1, 1), 24576, 3000)])
+def test_sim3_kernel_matches_plain(dev, caller, kinds, n, n_pairs):
+    """Tolerances: both sides stop at one Gauss-Newton fixed point in
+    float32 (each sums H in its own order and the plain version solves by
+    LU), so the rotation agrees within 1e-5 rad, t and s within 1e-5
+    relative; the inlier masks agree but for pairs whose chi2 lies within
+    1e-3 of 9.21 at the plain result; the count is the mask's."""
+    args = chip_smoke.sim3_problem(dev, kinds, n, n_pairs, seed=n_pairs + 1)
+    got = _counted("sim3_opt", lambda: CS.optimize_sim3(*args))
+    err = chip_smoke.sim3_errors(args, got, CS.optimize_sim3_plain(*args))
+    assert err["angle"] < 1e-5 and err["t_rel"] < 1e-5, err
+    assert err["s_rel"] < 1e-5 and err["inliers_differ"] == 0, err
+    valid = args[7]
+    assert int(got[4]) == int(got[3].sum()) > 0.7 * int(valid.sum())
+    assert not got[3][~valid].any()
+
+
+def test_sim3_kernel_gives_the_same_bits_twice(dev):
+    args = chip_smoke.sim3_problem(dev, (1, 1), 24576, 768, seed=2)
+    a = _counted("sim3_opt", lambda: CS.optimize_sim3(*args))
+    b = _counted("sim3_opt", lambda: CS.optimize_sim3(*args))
+    assert chip_smoke.bit_equal(a, b)
 
 
 def test_pipelined_readback_equals_blocking_read(dev):

@@ -16,9 +16,10 @@ from mam3slam_tpu.geometry import lie as jlie
 from mam3slam_tpu.solvers import pgo as jpgo
 from mam3slam_tpu.solvers import pnp as jpnp
 from mam3slam_tpu.solvers import sim3 as jsim3
-from mam3slam_tpu_torch import convert
+from mam3slam_tpu_torch import _build, convert
 from mam3slam_tpu_torch.geometry import cameras as tcam
 from mam3slam_tpu_torch.geometry import lie as tlie
+from mam3slam_tpu_torch.ops import cuda_sim3
 from mam3slam_tpu_torch.solvers import pgo as tpgo
 from mam3slam_tpu_torch.solvers import pnp as tpnp
 from mam3slam_tpu_torch.solvers import sim3 as tsim3
@@ -83,6 +84,17 @@ def test_ransac_sim3_matches_reference():
     assert int(got.n_inliers) == int(ref.n_inliers) > 50
 
 
+def _plain_counted(fn):
+    """``fn()`` through the wrapper on CPU tensors: one plain call counted,
+    no launch."""
+    plain, launched = (_build.PLAIN_CALLS["sim3_opt"],
+                       _build.LAUNCHES["sim3_opt"])
+    out = fn()
+    assert _build.PLAIN_CALLS["sim3_opt"] == plain + 1
+    assert _build.LAUNCHES["sim3_opt"] == launched
+    return out
+
+
 def test_optimize_sim3_matches_reference():
     pc1, pc2, uv1, uv2, R, t, s, out = _sim3_scene(noise=0.0, n_out=0)
     n = len(pc1)
@@ -98,15 +110,69 @@ def test_optimize_sim3_matches_reference():
         jnp.asarray(q0), jnp.asarray(t0), jnp.asarray(s0), jnp.asarray(pc1),
         jnp.asarray(pc2), jnp.asarray(uv1), jnp.asarray(uv2),
         jnp.asarray(valid), jnp.asarray(sig), jnp.asarray(sig))
-    got = tsim3.optimize_sim3(
+    got = _plain_counted(lambda: cuda_sim3.optimize_sim3(
         _T(q0), _T(t0), _T(s0), _T(pc1), _T(pc2), _T(uv1), _T(uv2),
-        _T(valid), TCAM, TCAM, _T(sig), _T(sig))
+        _T(valid), TCAM, TCAM, _T(sig), _T(sig)))
     assert _ang(got[0], ref[0]) < 1e-3
     np.testing.assert_allclose(got[1].numpy(), np.asarray(ref[1]), rtol=1e-3,
                                atol=1e-3 * np.abs(np.asarray(ref[1])).max())
     assert abs(float(got[2]) / float(ref[2]) - 1) < 1e-3
     np.testing.assert_array_equal(got[3].numpy(), np.asarray(ref[3]))
     assert int(got[4]) == int(ref[4]) > 0.9 * valid.sum()
+    # the wrapper's CPU path is the plain version itself
+    plain = cuda_sim3.optimize_sim3_plain(
+        _T(q0), _T(t0), _T(s0), _T(pc1), _T(pc2), _T(uv1), _T(uv2),
+        _T(valid), TCAM, TCAM, _T(sig), _T(sig))
+    for g, p in zip(got, plain):
+        assert torch.equal(g, p)
+
+
+def test_optimize_sim3_mixed_cameras_match_reference():
+    """A pinhole keyframe against a KB8 one (two agents' maps merging):
+    half the pairs valid, a fifth of them planted outliers, level sigmas
+    that differ by pair and direction; the plain version against the
+    reference with the tolerances of the pinhole test above."""
+    rng = np.random.default_rng(5)
+    n = 120
+    pc2 = np.stack([rng.uniform(-4, 4, n), rng.uniform(-3, 3, n),
+                    rng.uniform(1.5, 9, n)], 1).astype(np.float32)
+    R = Rsc.from_euler("xyz", [6, -9, 4], degrees=True).as_matrix()
+    t, s = np.array([0.2, -0.3, 0.5]), 0.8
+    pc1 = (s * pc2 @ R.T + t).astype(np.float32)
+    jkb8 = jcam.make_kb8(352.65, 352.65, 359.925, 359.925, 0.0034823894,
+                         0.00071503485, -0.0020532361, 0.00020293674)
+    tkb8 = tcam.make_kb8(352.65, 352.65, 359.925, 359.925, 0.0034823894,
+                         0.00071503485, -0.0020532361, 0.00020293674,
+                         device="cpu")
+    uv1 = np.asarray(jcam.project_ideal(JCAM, jnp.asarray(pc1)))
+    uv2 = np.asarray(jcam.project_ideal(jkb8, jnp.asarray(pc2)))
+    uv1 = (uv1 + rng.normal(0, 0.5, uv1.shape)).astype(np.float32)
+    uv2 = (uv2 + rng.normal(0, 0.5, uv2.shape)).astype(np.float32)
+    valid = rng.random(n) < 0.5
+    out = rng.choice(n, n // 10, replace=False)
+    uv1[out] += rng.uniform(15, 60, (len(out), 2)).astype(np.float32)
+    q0 = np.asarray(jlie.quat_mul(
+        jlie.so3_exp_quat(jnp.asarray([0.015, 0.02, -0.01])),
+        jlie.quat_from_matrix(jnp.asarray(R.astype(np.float32)))))
+    t0 = (t + [-0.04, 0.03, 0.05]).astype(np.float32)
+    s0 = np.float32(s * 0.93)
+    sig1 = (1.2 ** (2 * rng.integers(0, 8, n))).astype(np.float32)
+    sig2 = (1.2 ** (2 * rng.integers(0, 8, n))).astype(np.float32)
+    ref = jax.jit(lambda *a: jsim3.optimize_sim3(*a[:8], JCAM, jkb8,
+                                                 *a[8:]))(
+        jnp.asarray(q0), jnp.asarray(t0), jnp.asarray(s0), jnp.asarray(pc1),
+        jnp.asarray(pc2), jnp.asarray(uv1), jnp.asarray(uv2),
+        jnp.asarray(valid), jnp.asarray(sig1), jnp.asarray(sig2))
+    got = _plain_counted(lambda: cuda_sim3.optimize_sim3(
+        _T(q0), _T(t0), _T(s0), _T(pc1), _T(pc2), _T(uv1), _T(uv2),
+        _T(valid), TCAM, tkb8, _T(sig1), _T(sig2)))
+    assert _ang(got[0], ref[0]) < 1e-3
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(ref[1]), rtol=1e-3,
+                               atol=1e-3 * np.abs(np.asarray(ref[1])).max())
+    assert abs(float(got[2]) / float(ref[2]) - 1) < 1e-3
+    np.testing.assert_array_equal(got[3].numpy(), np.asarray(ref[3]))
+    assert int(got[4]) == int(ref[4]) > 0.8 * (valid.sum() - len(out))
+    assert not got[3][~torch.from_numpy(valid)].any()
 
 
 def _drifted_ring(K=40, radius=5.0):

@@ -15,6 +15,9 @@ reduction of its records against a device trace
   feeds no series, and ``take`` loses no span another thread records;
 * under ``async_mapping`` the worker's ``mapping`` spans run under the
   inserting frame's ``track`` span with its frame id;
+* every OptimizeSim3 call is one ``server.sim3_opt`` span, under
+  ``server.verify`` or ``server.refine``, which
+  ``server_sim3_opt_ms_per_call`` averages over the window;
 * the anchors put the spans on the device trace's clock: an idle gap
   inside a ``server.verify`` span is named by it, and a device op that
   starts inside ``mapping`` counts for it.
@@ -26,6 +29,7 @@ import tracemalloc
 
 import pytest
 
+from mam3slam_tpu_torch import _build
 from mam3slam_tpu_torch.io import writers
 from mam3slam_tpu_torch.slam import system as tsys
 from mam3slam_tpu_torch.slam.server import Hypothesis, LoopServer, ServerConfig
@@ -152,7 +156,8 @@ PARENTS = {"extract": {"frame"}, "track": {"frame"},
               ("vocab", "index", "detect", "verify", "refine", "correct",
                "merge")},
            **{f"server.{n}": {"server.correct", "server.merge"} for n in
-              ("pgo", "fuse", "gba")}}
+              ("pgo", "fuse", "gba")},
+           "server.sim3_opt": {"server.verify", "server.refine"}}
 
 
 @pytest.fixture(scope="module")
@@ -168,16 +173,19 @@ def merge_run():
         made = count_insertions(sys_)
         a0, a1 = sys_.add_agent(), sys_.add_agent()
         calls = 0
+        sim3_calls = _build.PLAIN_CALLS["sim3_opt"]
         for aid, x0, ts0 in ((a0, 0.0, 0.0), (a1, 1.1, 100.0)):
             for i, (R, t) in enumerate(arc_trajectory(50, start_x=x0)):
                 sys_.track(aid, port_frame(world, R, t), ts0 + i)
                 calls += 1
+        sim3_calls = _build.PLAIN_CALLS["sim3_opt"] - sim3_calls
         mission = TRACER.take()
         close_loop(sys_, a0)
         loop = TRACER.take()
     finally:
         TRACER.disable()
-    return dict(sys=sys_, made=made, calls=calls, mission=mission, loop=loop)
+    return dict(sys=sys_, made=made, calls=calls, mission=mission, loop=loop,
+                sim3_calls=sim3_calls)
 
 
 def test_every_call_is_one_frame_root_with_its_spans_inside(merge_run):
@@ -251,6 +259,40 @@ def test_counters_match_the_events(merge_run):
     # a count carries the frame id of the call it was made in
     frames = {s.frame for s in spans if s.name == "server.verify"}
     assert {c.frame for c in counts} == frames
+
+
+def test_every_sim3_optimisation_is_one_span_under_verification(merge_run):
+    spans = merge_run["mission"].spans
+    by_id = {s.id: s for s in spans}
+    opt = [s for s in spans if s.name == "server.sim3_opt"]
+    assert {by_id[s.parent].name for s in opt} == {"server.verify",
+                                                    "server.refine"}
+    # on the CPU each call runs the plain version once
+    assert len(opt) == merge_run["sim3_calls"] >= 2
+
+
+def test_sim3_opt_reader_means_the_window_spans():
+    from slambench.layers import server_sim3_opt_ms_per_call as reader
+
+    TRACER.disable()                  # its import turned the tracer on
+    ms, p0 = 1_000_000, 10**18 + 10**9
+
+    def trace(*spans):
+        t = type("Trace", (), {})()
+        t.program = pt.Program(
+            [pt.Span(i, name, 10**18 + a * ms, 10**18 + b * ms, None, None)
+             for i, (name, a, b) in enumerate(spans)], [], p0)
+        return t
+
+    assert reader.read(trace(("server.verify", 0, 90),
+                             ("server.sim3_opt", 10, 12),
+                             ("server.refine", 100, 150),
+                             ("server.sim3_opt", 110, 111),
+                             ("server.sim3_opt", 1500, 1600)),  # profiled
+                       None) == pytest.approx(1.5)
+    assert reader.read(trace(("server.verify", 0, 90)), None) is None
+    none = type("Trace", (), {"program": None})()
+    assert reader.read(none, None) is None
 
 
 def test_a_raising_block_feeds_no_series_and_take_loses_nothing():
