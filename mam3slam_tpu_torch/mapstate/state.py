@@ -383,10 +383,17 @@ def remove_map_points(ms: MapState, kill_mask) -> MapState:
 def replace_map_points(ms: MapState, src, dst, ok) -> MapState:
     """MapPoint::Replace for batches: redirect every forward link from
     ``src[i]`` to ``dst[i]`` and kill src, carrying its found/visible
-    counts over.  Reverse tables are left to ``rebuild_reverse_obs``."""
+    counts over.  A pair whose ``dst`` is itself replaced in the batch is
+    skipped (its src lives on): in a chain ``a -> b, b -> c`` or a cycle
+    the links redirected to ``b`` would point at a dead slot, which a
+    later point, of any map, may take.  Reverse tables are left to
+    ``rebuild_reverse_obs``."""
     P = ms.mp_valid.shape[0]
     dev = ms.mp_valid.device
     src, dst = src.long(), dst.long()
+    replaced = set_rows(torch.zeros(P, dtype=torch.bool, device=dev),
+                        torch.where(ok, src, P), True)
+    ok = ok & ~replaced[torch.clamp(dst, 0, P - 1)]
     w = torch.where(ok, src, P)
     lut = set_rows(torch.arange(P, dtype=torch.int32, device=dev), w,
                     dst.to(torch.int32))

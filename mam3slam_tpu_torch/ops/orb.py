@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from mam3slam_tpu_torch.geometry import cameras as cam_mod
 from mam3slam_tpu_torch.ops import cuda_orb_desc
+from mam3slam_tpu_torch.utils.timing import TRACER
 
 # FAST circle of radius 3 — 16 (dx, dy) offsets in OpenCV order.
 _FAST_OFFSETS = (
@@ -360,7 +361,9 @@ def extract_orb(img: torch.Tensor, cfg: OrbConfig) -> Features:
 
 
 def with_undistorted(feats: Features, cam: cam_mod.Camera) -> Features:
-    """Fill uv (match space): undistorted for pinhole, raw for KB8."""
+    """Fill uv (match space): undistorted for pinhole (span
+    ``extract.undistort``), raw for KB8."""
     if cam.kind == cam_mod.PINHOLE:
-        return feats._replace(uv=cam_mod.undistort_points(cam, feats.xy))
+        with TRACER.span("extract.undistort"):
+            return feats._replace(uv=cam_mod.undistort_points(cam, feats.xy))
     return feats._replace(uv=feats.xy)

@@ -13,9 +13,10 @@ asynchronous mapping.  With ``ServerConfig.async_gba`` the conditional
 global BA runs in the background (``slam/background_gba.py``) and is
 applied at a later keyframe or at ``flush_gba``; a new loop or merge
 aborts it.  The RANSAC draws come from the server's own seeded
-``torch.Generator``.  A loop in a map that an agent's inertial
-initialisation belongs to takes the 4DoF PGO (yaw about gravity and
-translation, scale held at 1); any other loop takes the Sim3 PGO.
+``torch.Generator``s, one for each agent whose keyframes it processes.
+A loop in a map that an agent's inertial initialisation belongs to takes
+the 4DoF PGO (yaw about gravity and translation, scale held at 1); any
+other loop takes the Sim3 PGO.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from mam3slam_tpu_torch.ops import cuda_sim3
 from mam3slam_tpu_torch.ops import matching as M
 from mam3slam_tpu_torch.parallel import dist_window_ba
 from mam3slam_tpu_torch.slam.background_gba import BackgroundGBA
+from mam3slam_tpu_torch.slam.system import agent_seed
 from mam3slam_tpu_torch.solvers import pgo as pgo_mod
 from mam3slam_tpu_torch.solvers import sim3 as sim3_mod
 from mam3slam_tpu_torch.utils.timing import TRACER, Timers
@@ -99,7 +101,9 @@ class LoopServer:
         self.cfg = cfg or ServerConfig()
         self.voc = None if vocab is None else vocab.to(system.device)
         self.hyp: Dict[int, Hypothesis] = {}
-        self.gen = torch.Generator().manual_seed(seed + 1234)
+        # per agent, made at its first draw (agent_seed of seed + 1234)
+        self.seed = seed + 1234
+        self.gens: Dict[int, torch.Generator] = {}
         # sparse BoW rows of the keyframes (host): word ids (-1 pad) and
         # tf-idf values, [K, F] each, allocated with the vocabulary
         self.kf_bow_words = None
@@ -119,9 +123,14 @@ class LoopServer:
     def _tensor(self, x, dtype=torch.float32) -> torch.Tensor:
         return torch.tensor(np.asarray(x), dtype=dtype, device=self.device)
 
-    def _probe(self, shape) -> torch.Tensor:
-        """Uniform RANSAC draws from the server's generator."""
-        return torch.rand(shape, generator=self.gen).to(self.device)
+    def _probe(self, shape, agent_id: int) -> torch.Tensor:
+        """Uniform RANSAC draws from the server's generator of the agent
+        whose keyframe it processes."""
+        gen = self.gens.get(agent_id)
+        if gen is None:
+            gen = self.gens[agent_id] = torch.Generator().manual_seed(
+                agent_seed(self.seed, agent_id))
+        return torch.rand(shape, generator=gen).to(self.device)
 
     # ------------------------------------------------------------------
     def ensure_vocab(self):
@@ -221,11 +230,15 @@ class LoopServer:
         for cand, is_merge in ([(c, False) for c in loop_c]
                                + [(c, True) for c in merge_c]):
             TRACER.count("verify_tried")
+            if is_merge:
+                TRACER.count("verify_tried_merge")
             with TRACER.span("server.verify"):
-                res = self._verify_candidate(kf, cand)
+                res = self._verify_candidate(kf, cand, agent_id)
             if res is None:
                 continue
             TRACER.count("verify_passed")
+            if is_merge:
+                TRACER.count("verify_passed_merge")
             q, t, s = res
             self.hyp[agent_id] = Hypothesis(
                 target_kf=cand, is_merge=is_merge, n_coincidences=1,
@@ -349,9 +362,10 @@ class LoopServer:
                 self._sigma2(ms.kf_feat_level[cand][f2]))
             return q, t, s, int(n_in)
 
-    def _verify_candidate(self, kf: int, cand: int):
-        """BoW-space matching -> Sim3 RANSAC -> guided projection (th 8)
-        -> OptimizeSim3 -> the decisive projection through the optimised
+    def _verify_candidate(self, kf: int, cand: int, agent_id: int):
+        """BoW-space matching -> Sim3 RANSAC (the draws of ``agent_id``,
+        whose keyframe ``kf`` is) -> guided projection (th 8) ->
+        OptimizeSim3 -> the decisive projection through the optimised
         Sim3 (th 5).  Returns (q, t, s) of S_cw, candidate-map world ->
         camera of ``kf`` (host values), or None; ``last_verify`` holds the
         funnel's counts."""
@@ -375,7 +389,7 @@ class LoopServer:
             ms.mp_pos[torch.clamp(fmp2[idx], min=0).long()], res.ok,
             ms.kf_feat_uv[kf], ms.kf_feat_uv[cand][idx], self._camera(kf),
             self._camera(cand), ms.kf_q[kf], ms.kf_t[kf], ms.kf_q[cand],
-            ms.kf_t[cand], self._probe((128, 3)),
+            ms.kf_t[cand], self._probe((128, 3), agent_id),
             self._sigma2(ms.kf_feat_level[kf]),
             self._sigma2(ms.kf_feat_level[cand][idx]),
             min_inliers=cfg.n_sim3_inliers)

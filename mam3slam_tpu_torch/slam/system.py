@@ -657,6 +657,21 @@ class AgentState:
     trajectory: List = field(default_factory=list)  # (ts, ref, q, t, state)
     times_ms: List = field(default_factory=list)
     calls: int = 0           # track calls so far: the frame id's number
+    # the RANSAC draws of the agent's two-view initialisation and
+    # relocalization (``agent_seed``), so that no agent's draws depend on
+    # how many the others made
+    gen: Optional[torch.Generator] = None
+
+
+def agent_seed(seed: int, agent_id: int) -> int:
+    """The seed of agent ``agent_id``'s generator in a system seeded with
+    ``seed``: ``seed`` itself for agent 0, so that a one-agent system
+    draws what one generator of the system drew; drawn from
+    ``SeedSequence([seed, agent_id])`` for the others."""
+    if agent_id == 0:
+        return seed
+    return int(np.random.SeedSequence([seed % 2**64, agent_id])
+               .generate_state(1, np.uint64)[0])
 
 
 class SlamSystem:
@@ -678,8 +693,7 @@ class SlamSystem:
         self.ms = S.init_map_state(cfg.map_config(), self.device)
         self.fns = programs(cfg, cfg.cam_kind)
         self.agents: List[AgentState] = []
-        # the RANSAC draws of two-view initialisation and relocalization
-        self.gen = torch.Generator().manual_seed(seed)
+        self.seed = seed         # of each agent's generator (agent_seed)
         self.events: List[str] = []
         self.mp_dropped = 0      # triangulations dropped on arena overflow
         self.server = None       # optional LoopServer (slam/server.py)
@@ -708,9 +722,10 @@ class SlamSystem:
                                             daemon=True)
             self._worker.start()
 
-    def _probe(self, shape) -> torch.Tensor:
-        """Uniform RANSAC draws from the system's generator."""
-        return torch.rand(shape, generator=self.gen).to(self.device)
+    def _probe(self, shape, agent_id: int) -> torch.Tensor:
+        """Uniform RANSAC draws from the agent's generator."""
+        return torch.rand(shape, generator=self.agents[agent_id].gen).to(
+            self.device)
 
     def _structural_lock(self):
         return (self._ms_lock if self.async_mapping
@@ -778,8 +793,10 @@ class SlamSystem:
     def add_agent(self, cam: Optional[cam_mod.Camera] = None) -> int:
         """Register an agent (optionally with its own intrinsics, same
         camera kind) in a fresh map slot."""
-        a = AgentState(agent_id=len(self.agents),
-                       cam=self.cam if cam is None else cam)
+        aid = len(self.agents)
+        a = AgentState(agent_id=aid, cam=self.cam if cam is None else cam,
+                       gen=torch.Generator().manual_seed(
+                           agent_seed(self.seed, aid)))
         a.map_id = self._alloc_map_id()
         self.agents.append(a)
         return a.agent_id
@@ -978,7 +995,7 @@ class SlamSystem:
             uv1 = cam_mod.undistort_points(a.cam, uv1)
             uv2 = cam_mod.undistort_points(a.cam, uv2)
         rec = self.fns["reconstruct"](uv1, uv2, res.ok, a.cam.K(),
-                                      self._probe((200, 8)))
+                                      self._probe((200, 8), a.agent_id))
         if not bool(rec.ok):
             return
         self._kf_capacity_check(2)
@@ -1209,7 +1226,8 @@ class SlamSystem:
             mpc = torch.clamp(mp, min=0).long()
             pr = pnp.ransac_pnp(ms.mp_pos[mpc], frame.uv,
                                 res.ok & (mp >= 0) & ms.mp_valid[mpc], a.cam,
-                                self._probe((128, 6)), is2[frame.level.long()])
+                                self._probe((128, 6), a.agent_id),
+                                is2[frame.level.long()])
             if not bool(pr.ok):
                 continue
             local_mask = self.fns["local_mp_mask"](ms, cand, 32)

@@ -40,6 +40,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 SPAN_NAMES = (
     "frame",                       # MultiAgentSystem.track_monocular
     "extract",                     # extract_orb + with_undistorted
+    "extract.undistort",           # with_undistorted, pinhole only
     "track",                       # SlamSystem.track
     "track.init", "track.step", "track.read", "track.ref_kf",
     "track.reloc", "kf.insert",
@@ -52,7 +53,9 @@ SPAN_NAMES = (
     "server.correct",              # correct_loop -> LC
     "server.merge",                # merge_maps -> MM
     "server.pgo", "server.fuse", "server.gba")
-COUNTER_NAMES = ("verify_tried", "verify_passed")   # _verify_candidate
+# _verify_candidate: every candidate, and those of another map (a merge)
+COUNTER_NAMES = ("verify_tried", "verify_passed", "verify_tried_merge",
+                 "verify_passed_merge")
 
 
 class Timers:

@@ -40,10 +40,12 @@ def reference_draws(obj, seed: int) -> None:
     """Give a port ``SlamSystem`` or ``LoopServer`` the RANSAC draws of
     its reference counterpart built with ``seed``: the reference splits
     its ``jax.random`` key once per draw and draws uniforms from the
-    subkey."""
+    subkey.  The port draws from one generator per agent (its ``_probe``
+    takes the agent); the reference's one key serves every agent, so the
+    agent is ignored here and every draw comes from that one sequence."""
     key = [jax.random.PRNGKey(seed)]
 
-    def probe(shape):
+    def probe(shape, agent_id=None):
         key[0], sub = jax.random.split(key[0])
         return torch.tensor(np.asarray(jax.random.uniform(sub, tuple(shape))),
                             device=obj.device)

@@ -29,9 +29,10 @@ def test_detect_and_verify_match_reference(snap):
     n_passed = 0
     for cand in cands:
         sub = jax.random.split(jsrv.key)[1]
-        tsrv._probe = lambda shape: _T(jax.random.uniform(sub, shape))
+        tsrv._probe = lambda shape, agent_id: _T(
+            jax.random.uniform(sub, shape))
         ref = jsrv._verify_candidate(kf, cand)
-        got = tsrv._verify_candidate(kf, cand)
+        got = tsrv._verify_candidate(kf, cand, 0)
         assert tsrv.last_verify == jsrv.last_verify
         assert (got is None) == (ref is None)
         if ref is not None:

@@ -18,16 +18,23 @@ reduction of its records against a device trace
 * every OptimizeSim3 call is one ``server.sim3_opt`` span, under
   ``server.verify`` or ``server.refine``, which
   ``server_sim3_opt_ms_per_call`` averages over the window;
+* the facade's pinhole undistortion is a span ``extract.undistort`` under
+  ``extract`` (none for KB8), and the counters ``verify_tried_merge`` /
+  ``verify_passed_merge`` count the candidates of another map only;
+  ``undistort_ms_p50`` and ``merge_verify_per_kf`` read them;
 * the anchors put the spans on the device trace's clock: an idle gap
   inside a ``server.verify`` span is named by it, and a device op that
   starts inside ``mapping`` counts for it.
 """
 
+import os
 import re
 import threading
 import tracemalloc
 
+import numpy as np
 import pytest
+import torch
 
 from mam3slam_tpu_torch import _build
 from mam3slam_tpu_torch.io import writers
@@ -35,6 +42,7 @@ from mam3slam_tpu_torch.slam import system as tsys
 from mam3slam_tpu_torch.slam.server import Hypothesis, LoopServer, ServerConfig
 from mam3slam_tpu_torch.utils import timing
 from mam3slam_tpu_torch.utils.timing import TRACER
+from slambench import harness
 from slambench import program_trace as pt
 from test_server_merge import arc_trajectory
 from test_slam_e2e import SyntheticWorld
@@ -144,7 +152,8 @@ def test_an_off_span_is_one_shared_object():
 # -- on: a two-agent merge, then a loop closed by hand -------------------
 
 # the spans each span runs under in a synchronous system
-PARENTS = {"extract": {"frame"}, "track": {"frame"},
+PARENTS = {"extract": {"frame"}, "extract.undistort": {"extract"},
+           "track": {"frame"},
            "track.init": {"track"}, "track.step": {"track"},
            "track.read": {"track", "track.step"},   # the two reads
            "track.ref_kf": {"track"},
@@ -256,6 +265,10 @@ def test_counters_match_the_events(merge_run):
     assert n("server.correct") == len(events(sys_, "LOOP")) == 1
     assert total("verify_tried") == n("server.verify") >= 1
     assert 1 <= total("verify_passed") <= total("verify_tried")
+    # the MERGE followed candidates of the other map
+    assert 1 <= total("verify_passed_merge") <= total("verify_tried_merge")
+    assert total("verify_tried_merge") <= total("verify_tried")
+    assert total("verify_passed_merge") <= total("verify_passed")
     # a count carries the frame id of the call it was made in
     frames = {s.frame for s in spans if s.name == "server.verify"}
     assert {c.frame for c in counts} == frames
@@ -293,6 +306,127 @@ def test_sim3_opt_reader_means_the_window_spans():
     assert reader.read(trace(("server.verify", 0, 90)), None) is None
     none = type("Trace", (), {"program": None})()
     assert reader.read(none, None) is None
+
+
+@pytest.mark.parametrize("passing,want", [
+    ("loop", dict(verify_tried=1, verify_passed=1)),
+    ("merge", dict(verify_tried=2, verify_passed=1, verify_tried_merge=1,
+                   verify_passed_merge=1)),
+    (None, dict(verify_tried=2, verify_tried_merge=1))])
+def test_merge_counters_count_the_other_maps_candidates(merge_run, passing,
+                                                         want):
+    """A keyframe given one planted loop candidate and one merge candidate
+    (loop candidates are verified first; the first to pass ends the
+    search): only the merge candidate counts as ``*_merge``."""
+    sys_ = merge_run["sys"]
+    srv = LoopServer(sys_, ServerConfig(min_kfs_in_map=1))
+    kfs = [k for k in range(sys_.ms.kf_valid.shape[0])
+           if bool(sys_.ms.kf_valid[k])]
+    kf, loop_c, merge_c = kfs[-1], kfs[0], kfs[1]
+    srv.voc = object()                    # trained: no bootstrap, no index
+    srv.ensure_vocab = srv._index_keyframe = lambda *a: None
+    srv._detect_candidates = lambda k: ([loop_c], [merge_c])
+    kind = {loop_c: "loop", merge_c: "merge"}
+
+    def verify(k, cand, agent_id):
+        return ((np.array([1.0, 0, 0, 0]), np.zeros(3), 1.0)
+                if kind[cand] == passing else None)
+
+    srv._verify_candidate = verify
+    TRACER.enable()
+    with TRACER.frame(0, 0):
+        srv.process_keyframe(0, kf)
+    counts = {}
+    for c in TRACER.take().counts:
+        counts[c.name] = counts.get(c.name, 0) + c.amount
+    assert counts == want
+    assert (0 in srv.hyp) == (passing is not None)
+    assert passing is None or srv.hyp[0].is_merge == (passing == "merge")
+
+
+@pytest.mark.parametrize("camera", ["PinHole", "KannalaBrandt8"])
+def test_undistortion_is_a_span_under_extract_for_a_pinhole_only(tmp_path,
+                                                                 camera):
+    config = harness.load_json(os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "slambench", "tests", "data", "tiny.json"))
+    st = config["settings"]
+    if camera != "PinHole":
+        st = dict(st, **{"Camera.type": camera, "Camera1.k3": 0.0,
+                         "Camera1.k4": 0.0, "Camera.width": 240,
+                         "Camera1.cx": 119.5, "Camera1.cy": 119.5})
+    path = str(tmp_path / "settings.yaml")
+    with open(path, "w") as f:
+        f.write(harness.settings_yaml(st))
+    mas = harness.build_system(config, path, 1, "cpu")
+    gen = torch.Generator().manual_seed(5)
+    TRACER.enable()
+    for i in range(2):
+        img = torch.randint(0, 256, (int(st["Camera.height"]),
+                                     int(st["Camera.width"])),
+                            generator=gen).to(torch.uint8)
+        mas.track_monocular(0, img, i / 20)
+    spans = TRACER.take().spans
+    by_id = {s.id: s for s in spans}
+    extract = [s for s in spans if s.name == "extract"]
+    undistort = [s for s in spans if s.name == "extract.undistort"]
+    assert len(extract) == 2
+    if camera == "PinHole":
+        assert sorted(s.parent for s in undistort) == sorted(
+            s.id for s in extract)
+        for s in undistort:
+            p = by_id[s.parent]
+            assert p.t0_ns <= s.t0_ns <= s.t1_ns <= p.t1_ns
+            assert s.frame == p.frame
+    else:
+        assert undistort == []
+
+
+def test_undistort_and_merge_verify_readers_read_the_window():
+    from slambench.layers import merge_verify_per_kf, undistort_ms_p50
+
+    TRACER.disable()                  # their import turned the tracer on
+    ms, t0 = 1_000_000, 10**18
+    p0 = t0 + 10**9                   # the profiled mission's start
+
+    def trace(spans, counts=()):
+        t = type("Trace", (), {})()
+        t.program = pt.Program(
+            [pt.Span(i, name, t0 + a * ms, t0 + b * ms, None, None)
+             for i, (name, a, b) in enumerate(spans)],
+            [pt.Count(name, n, None, t0 + at * ms)
+             for name, n, at in counts], p0)
+        return t
+
+    full = trace([("extract.undistort", 0, 2), ("extract.undistort", 10, 19),
+                  ("extract.undistort", 20, 24), ("server", 30, 40),
+                  ("server", 50, 60), ("extract.undistort", 1100, 1190),
+                  ("server", 1200, 1300)],             # the last two profiled
+                 [("verify_tried_merge", 2, 35), ("verify_tried_merge", 1, 55),
+                  ("verify_tried", 5, 56), ("verify_tried_merge", 4, 1250)])
+    assert undistort_ms_p50.read(full, None) == pytest.approx(4.0)
+    assert merge_verify_per_kf.read(full, None) == pytest.approx(1.5)
+    # a server with no merge candidate reads 0; no keyframe, nothing
+    assert merge_verify_per_kf.read(
+        trace([("server", 30, 40)]), None) == 0.0
+    for empty in (trace([]), trace([("extract", 0, 5)]),
+                  type("Trace", (), {"program": None})()):
+        assert undistort_ms_p50.read(empty, None) is None
+        assert merge_verify_per_kf.read(empty, None) is None
+
+
+def test_merge_verify_reader_reads_nothing_from_a_program_without_the_counter(
+        monkeypatch):
+    from slambench.layers import merge_verify_per_kf
+
+    TRACER.disable()
+    t = type("Trace", (), {})()
+    t.program = pt.Program([pt.Span(0, "server", 0, 10, None, None)], [],
+                           None)
+    assert merge_verify_per_kf.read(t, None) == 0.0
+    monkeypatch.setattr(timing, "COUNTER_NAMES",
+                        ("verify_tried", "verify_passed"))
+    assert merge_verify_per_kf.read(t, None) is None
 
 
 def test_a_raising_block_feeds_no_series_and_take_loses_nothing():
