@@ -234,6 +234,20 @@ raises (exit code != 0) and no result line is printed:
    events), wrapper and plain ms and bound at each shape.  The kernel
    must also have launched on the server path (phase 6) with no plain
    call.  ``run_phase14`` runs it alone.
+15. The PGO kernels (``csrc/pgo.cu``: ``pgo_linearize``, ``pgo_damp``,
+   ``pgo_update`` around the segment sums and the Cholesky solve; no
+   Pallas kernel matches them) against the plain version
+   (``optimize_essential_graph_plain``) at the loop correction's shape
+   (K = 512 slots, 45 live keyframes, ~150 edges with a weight-5 loop
+   edge, 12 iterations) and the merge's (30 fixed keyframes of the target
+   map, a fixed welded window, 17 free, 10 iterations).  Rotation within
+   1e-4 rad, t within 1e-4 of the largest |t|, s within 1e-4 relative,
+   the same bits twice, 1 + 3 iters launches of its own a call at two
+   edge counts, no plain call; whether both keep the same steps; device
+   ms a call (CUDA events) and per iteration, wrapper and plain ms,
+   bound; every device kernel of a call by the profiler (cuSOLVER's
+   included).  The kernels must also have launched on the server path
+   (phase 6) with no plain call.  ``run_phase15`` runs it alone.
 
 It prints a JSON line of per-kernel results (``ms``: the median time of
 one wrapper call at the kernel's first caller shape; ``device_ms``: the
@@ -460,6 +474,20 @@ SEGSUM_LIBRARY = "index_add_ (atomic, its order changes from run to run)"
 SIM3 = ("sim3_opt", "mam3slam_tpu_torch/csrc/sim3.cu", None)
 SIM3_LIBRARY = ("none: no single PyTorch call computes a Gauss-Newton Sim3 "
                 "solve")
+# the PGO kernels, no Pallas counterpart: the reference's essential-graph
+# PGO in XLA; named by the launch that counts an iteration
+PGO = ("pgo_linearize", "mam3slam_tpu_torch/csrc/pgo.cu", None)
+PGO_LIBRARY = ("none: no single PyTorch call computes an LM pose-graph "
+               "iteration")
+# phase 15: (caller, problem kind, iterations); the arena's K = 512 slots
+PGO_SHAPES = (("loop correction, K=512, 45 live", "loop", 12),
+              ("merge, K=512, 30 fixed + 25", "merge", 10))
+PGO_K = 512
+# f32 ops of one lane of pgo_linearize (a residual with one dual
+# derivative: two retractions, three compositions, the log; two W matrices
+# with their sin / cos / exp) and its 14 x 7 products, and of one residual
+# or one retraction of pgo_update (values only)
+PGO_LANE_OPS, PGO_VALUE_OPS = 2200, 800
 # phase 14: (caller, camera kinds, pairs N, of which the first n_pairs may
 # be valid)
 SIM3_SHAPES = (("fixture, KB8 x KB8, N=768", (1, 1), 768, 768),
@@ -3291,6 +3319,261 @@ def run_phase14(dev, smi: str) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the PGO kernels against the plain version
+# ---------------------------------------------------------------------------
+
+def pgo_problem(dev, kind: str, seed: int, dense: bool = True,
+                K: int = PGO_K):
+    """The essential-graph PGO as the server gives it at the arena's
+    ``K`` slots: keyframes on one turn of a 2.5 m circle, scattered
+    over the first slots, their poses a chain of noisy relative motions
+    (1 cm, 0.004 rad and 0.4% of scale a step, the scale folded into SE3
+    poses as the map keeps them); edges measured at those poses (the
+    spanning tree, covisibility to the 2nd and 3rd predecessor and to the
+    4th of every other keyframe; ``dense=False`` keeps the tree alone).
+    ``loop``: 45 keyframes, the loop edge (weight 5) from the first to the
+    newest measuring the true pose, the 8 newest moved onto it as
+    ``_correct_loop`` moves its window (scale included); the first and
+    every unused slot fixed.  ``merge``: 55 keyframes, the first 30 a
+    target map held fixed, the last 8 a welded window moved onto the truth
+    and fixed, edges from each of them to the 4 first keyframes (the
+    seam), the other 17 free; s = 1.  Returns (q, t, s, fixed, PGOEdges)
+    on ``dev``."""
+    from mam3slam_tpu_torch.geometry import lie
+    from mam3slam_tpu_torch.solvers import pgo as P
+
+    rng = np.random.default_rng(seed)
+    n = 45 if kind == "loop" else 55
+    slots = np.sort(rng.choice(n + 20, n, replace=False))
+
+    def T(x):
+        return torch.tensor(np.asarray(x, np.float64))
+
+    def take(S, k):
+        return lie.Sim3(S.q[k], S.t[k], S.s[k])
+
+    ang = 2 * np.pi * np.arange(n) / n
+    c, sn = np.cos(ang), np.sin(ang)
+    R_wc = np.stack([np.stack([c, 0 * c, sn], -1),
+                     np.stack([0 * c, 1 + 0 * c, 0 * c], -1),
+                     np.stack([-sn, 0 * c, c], -1)], 1)
+    centre = np.stack([2.5 * sn, 0.05 * np.sin(3 * ang), 2.5 * (1 - c)], -1)
+    R_cw = np.transpose(R_wc, (0, 2, 1))
+    gt = lie.Sim3(lie.quat_from_matrix(T(R_cw)),
+                  T(-np.einsum("kij,kj->ki", R_cw, centre)), T(np.ones(n)))
+    noise = lie.sim3_exp(T(np.concatenate([
+        rng.normal(0, 0.01, (n, 3)), rng.normal(0, 0.004, (n, 3)),
+        rng.normal(0, 0.004, (n, 1))], 1)))
+    est = [take(gt, 0)]
+    for k in range(1, n):
+        rel = lie.sim3_compose(take(gt, k), lie.sim3_inverse(take(gt, k - 1)))
+        est.append(lie.sim3_compose(lie.sim3_compose(take(noise, k), rel),
+                                    est[-1]))
+    q_est = torch.stack([e.q for e in est])
+    t_est = torch.stack([e.t / e.s for e in est])   # SE3, as the map keeps
+    ones = torch.ones(n, dtype=torch.float64)
+    pose = lie.Sim3(q_est, t_est, ones)
+
+    ei, ej = [], []
+    for k in range(1, n):
+        for d in ((1, 2, 3) if dense else (1,)):
+            if k - d >= 0:
+                ei.append(k - d)
+                ej.append(k)
+        if dense and k % 2 == 0 and k >= 4:
+            ei.append(k - 4)
+            ej.append(k)
+    win = np.arange(n - 8, n)
+    if kind == "merge":
+        for k in win:
+            for a in range(4):
+                ei.append(a)
+                ej.append(int(k))
+    ei, ej = np.asarray(ei), np.asarray(ej)
+    m = lie.sim3_compose(take(pose, ej), lie.sim3_inverse(take(pose, ei)))
+    w = np.ones(len(ei))
+    newest = n - 1
+    # the correction: the newest keyframe's true pose, as a Sim3 in the
+    # drifted map's scale for the loop
+    s_corr = float(est[newest].s) if kind == "loop" else 1.0
+    S_corr = lie.Sim3(gt.q[newest], gt.t[newest] / s_corr,
+                      torch.tensor(1.0 / s_corr, dtype=torch.float64))
+    moved = lie.sim3_compose(lie.sim3_compose(
+        take(pose, win), lie.sim3_inverse(take(pose, newest))), S_corr)
+    q0, t0, s0 = pose.q.clone(), pose.t.clone(), ones.clone()
+    q0[win], t0[win], s0[win] = moved.q, moved.t, moved.s
+    if kind == "loop":
+        m_loop = lie.sim3_compose(S_corr, lie.sim3_inverse(take(pose, 0)))
+        m = lie.Sim3(torch.cat([m.q, m_loop.q[None]]),
+                     torch.cat([m.t, m_loop.t[None]]),
+                     torch.cat([m.s, m_loop.s[None]]))
+        ei, ej = np.append(ei, 0), np.append(ej, newest)
+        w = np.append(w, 5.0)
+        fixed_kf = np.arange(n) == 0
+    else:
+        t0[win] = t0[win] / s0[win][:, None]
+        s0[win] = 1.0
+        fixed_kf = (np.arange(n) < 30) | np.isin(np.arange(n), win)
+
+    E = len(ei)
+    q = torch.zeros(K, 4, dtype=torch.float64)
+    q[:, 0] = 1.0
+    t = torch.zeros(K, 3, dtype=torch.float64)
+    s = torch.ones(K, dtype=torch.float64)
+    q[slots], t[slots], s[slots] = q0, t0, s0
+    fixed = np.ones(K, bool)
+    fixed[slots] = fixed_kf
+    f32 = dict(dtype=torch.float32, device=dev)
+    edges = P.PGOEdges(
+        i=torch.tensor(slots[ei], dtype=torch.int32, device=dev),
+        j=torch.tensor(slots[ej], dtype=torch.int32, device=dev),
+        q=m.q.to(**f32), t=m.t.to(**f32), s=m.s.to(**f32),
+        w=torch.tensor(w, **f32),
+        valid=torch.ones(E, dtype=torch.bool, device=dev))
+    return (q.to(**f32), t.to(**f32), s.to(**f32),
+            torch.tensor(fixed, device=dev), edges)
+
+
+def pgo_errors(got, want) -> dict:
+    """The kernels' result ``got`` = (q, t, s) against the plain
+    version's ``want``: the largest rotation angle between them (rad), the
+    largest translation difference over the largest |t| of ``want``, the
+    largest relative difference of s."""
+    from mam3slam_tpu_torch.geometry import lie
+
+    d = lie.quat_mul(lie.quat_conj(want[0].double()), got[0].double())
+    ang = 2 * torch.atan2(d[:, 1:].norm(dim=-1), d[:, 0].abs())
+    return dict(angle=float(ang.max()),
+                t_rel=float((got[1] - want[1]).abs().max()
+                            / want[1].abs().max()),
+                s_rel=float((got[2] / want[2] - 1).abs().max()))
+
+
+def pgo_accepts(solve, iters: int) -> list:
+    """Which of ``iters`` LM iterations kept their step: ``solve(n)``
+    runs n iterations, and iteration n kept its step where the vertices
+    after it differ from those after n - 1."""
+    prev, out = None, []
+    for n in range(iters + 1):
+        cur = solve(n)
+        if prev is not None:
+            out.append(not bit_equal(cur, prev))
+        prev = cur
+    return out
+
+
+def pgo_work(K: int, E: int, iters: int):
+    """Per call: ``iters`` dense Cholesky factorisations of the [7K, 7K]
+    system ((7K)^3 / 3 flops) and their two triangular solves, the
+    linearisation's 16 lanes an edge and the update's retraction of each
+    vertex and residual of each edge (``PGO_LANE_OPS``,
+    ``PGO_VALUE_OPS``), one more update for the starting cost; bytes:
+    the dense system written by the segment sum, read and written by
+    ``pgo_damp`` (4 bytes x 49 K^2 each)."""
+    n = 7 * K
+    ops = iters * (n ** 3 / 3 + 2 * n * n + 16 * E * PGO_LANE_OPS
+                   + (K + E) * PGO_VALUE_OPS) + E * PGO_VALUE_OPS
+    return ops, F32_OPS, iters * 3 * 4 * 49 * K * K
+
+
+def pgo_profile(fn, reps: int = 3) -> dict:
+    """Device us and launches a call of ``fn`` by kernel name
+    (torch.profiler), and their sum."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = (getattr(e, "self_device_time_total", None)
+              or getattr(e, "self_cuda_time_total", 0))
+        by[e.key[:60]] = (e.count / reps, us / reps)
+    return dict(launches=sum(c for c, _ in by.values()),
+                device_us=sum(u for _, u in by.values()),
+                by_kernel=sorted(by.items(), key=lambda kv: -kv[1][1]))
+
+
+def run_phase15(dev, smi: str) -> list:
+    """The PGO kernels against their plain version at ``PGO_SHAPES``;
+    raises where they disagree beyond 1e-4 (rotation rad, t over the
+    largest |t|, s relative), launch otherwise than 1 + 3 iters a call
+    whatever E is, call the plain version or differ between two calls.
+    Logs whether the two accept the same steps.  Returns phase 3's
+    rows."""
+    from mam3slam_tpu_torch import _build
+    from mam3slam_tpu_torch.solvers import pgo as P
+
+    t15, rows = time.perf_counter(), []
+    for caller, kind, iters in PGO_SHAPES:
+        q, t, s, fixed, edges = pgo_problem(dev, kind, seed=15)
+        E = int(edges.i.shape[0])
+
+        def kern(n=iters, e=edges):
+            return P.optimize_essential_graph(q, t, s, fixed, e, iters=n)
+
+        def plain(n=iters):
+            return P.optimize_essential_graph_plain(q, t, s, fixed, edges,
+                                                    iters=n)
+
+        before, plain0 = collections.Counter(_build.LAUNCHES), \
+            _build.PLAIN_CALLS["pgo"]
+        got, again = kern(), kern()
+        sparse = pgo_problem(dev, kind, seed=15, dense=False)[4]
+        kern(e=sparse)
+        torch.cuda.synchronize()
+        launched = {k: _build.LAUNCHES[k] - before[k]
+                    for k in ("pgo_linearize", "pgo_damp", "pgo_update",
+                              "segsum")}
+        no_plain = _build.PLAIN_CALLS["pgo"] == plain0
+        want = plain()
+        err = pgo_errors(got, want)
+        same = bit_equal(got, again)
+        acc_k = pgo_accepts(kern, iters)
+        acc_p = pgo_accepts(plain, iters)
+        per_call = dict(pgo_linearize=iters, pgo_damp=iters,
+                        pgo_update=iters + 1, segsum=2 * iters)
+        if (err["angle"] >= 1e-4 or err["t_rel"] >= 1e-4
+                or err["s_rel"] >= 1e-4 or not same or not no_plain
+                or any(launched[k] != 3 * per_call[k] for k in per_call)):
+            raise AssertionError(f"phase 15, {caller}: {err}, same bits "
+                                 f"{same}, launches {launched}, no plain "
+                                 f"{no_plain}")
+        b_ms, b_by = bound_ms(*pgo_work(PGO_K, E, iters))
+        dev_ms = events_ms(kern, reps=5)
+        prof = pgo_profile(kern)
+        row = dict(kernel=PGO[0], caller=caller,
+                   max_abs_err=max(err["angle"], err["t_rel"], err["s_rel"]),
+                   device_ms=dev_ms, timer="events",
+                   wrapper_ms=median_ms(kern, reps=10),
+                   plain_ms=median_ms(plain, reps=3, warmup=1),
+                   library_ms=None, bound_us=b_ms * 1e3, bound_by=b_by,
+                   share=b_ms / dev_ms)
+        rows.append(row)
+        log("pgo", **row, E=E, iters=iters,
+            device_us_per_iter=dev_ms * 1e3 / iters,
+            wrapper_us_per_iter=row["wrapper_ms"] * 1e3 / iters,
+            launches_per_call=launched, same_bits=same,
+            accepts_kernel="".join("y" if a else "n" for a in acc_k),
+            accepts_plain="".join("y" if a else "n" for a in acc_p),
+            accepts_agree=acc_k == acc_p, card=repr(smi), **err)
+        log("pgo_profile", caller=caller, iters=iters,
+            device_launches_per_call=prof["launches"],
+            profiled_device_us_per_call=prof["device_us"],
+            by_kernel=[[k, round(c, 2), round(u, 2)]
+                       for k, (c, u) in prof["by_kernel"]])
+    log("pgo_done", phase15_seconds=time.perf_counter() - t15)
+    return rows
+
+
 def sync(dev) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -3469,7 +3752,7 @@ def main() -> int:
     loop6b = dict(track_ms=list(agents6[0]["track_ms"]),
                   lc_ms=list(sys6.server.timers.series.get("LC", [])))
     server_launches = {k: merge_launches.get(k, 0) + loop_launches.get(k, 0)
-                       for k in (*KERNELS, SEGSUM[0], SIM3[0])}
+                       for k in (*KERNELS, SEGSUM[0], SIM3[0], PGO[0])}
     if (any(n == 0 for n in server_launches.values()) or any(
             merge_plain.values()) or any(loop_plain.values())):
         raise AssertionError("the server path did not run every kernel")
@@ -3691,6 +3974,9 @@ def main() -> int:
     # 14. OptimizeSim3's kernel against its plain version
     timed += run_phase14(dev, smi)
 
+    # 15. the PGO kernels against their plain version
+    timed += run_phase15(dev, smi)
+
     phase8_launches = collections.Counter()
     for counts in (res8a["launches"], res8b["launches"],
                    res_bare["launches"], launches8c):
@@ -3702,6 +3988,7 @@ def main() -> int:
     kernels = dict(KERNELS)
     kernels[SEGSUM[0]] = SEGSUM[1:]
     kernels[SIM3[0]] = SIM3[1:]
+    kernels[PGO[0]] = PGO[1:]
     rows = {k: [r for r in timed if r["kernel"] == k] for k in kernels}
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
@@ -3716,8 +4003,8 @@ def main() -> int:
          "bound_ms": rows[k][0]["bound_us"] / 1e3,
          "bound_by": rows[k][0]["bound_by"],
          "library_ms": rows[k][0].get("library_ms"),
-         "library": {SEGSUM[0]: SEGSUM_LIBRARY, SIM3[0]: SIM3_LIBRARY}.get(
-             k, NO_LIBRARY),
+         "library": {SEGSUM[0]: SEGSUM_LIBRARY, SIM3[0]: SIM3_LIBRARY,
+                     PGO[0]: PGO_LIBRARY}.get(k, NO_LIBRARY),
          "launches_per_tracked_frame": track_per_frame.get(k, 0),
          "launches_per_slam_frame": slam_per["per_frame"].get(k, 0),
          "launches_per_epoch": slam_per["per_epoch"].get(k, 0),

@@ -56,6 +56,9 @@ _SIGNATURES = {
     "mam3_min_hamming2": [_P, _P, _I, _P, _P, _I, _P, _P, _P, _P],
     "mam3_pose_opt": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
                       _P, _P, _P, _P, _P],
+    "mam3_pgo_linearize": [_I] + [_P] * 13,
+    "mam3_pgo_damp": [_I] + [_P] * 7,
+    "mam3_pgo_update": [_I, _I, _I] + [_P] * 18,
     "mam3_segsum": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
                     _P, _P],
     "mam3_sim3_opt": [_P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P,

@@ -7,7 +7,10 @@ edges carry relative Sim3 measurements, the residual of edge (i, j) is
 jacobians by forward mode, assembles the dense [7K, 7K] normal system with
 fixed-order segment sums (``ops/segsum.py``; one keyframe pair may carry
 several edges) and solves it by Cholesky; a step is kept only when it
-lowers the cost.
+lowers the cost.  On the card ``optimize_essential_graph`` runs these
+iterations in the kernels of ``ops/cuda_pgo.py`` (``csrc/pgo.cu``) around
+the same segment sums and Cholesky; on the CPU it runs
+``optimize_essential_graph_plain``.
 
 ``optimize_essential_graph_4dof`` is the inertial variant
 (OptimizeEssentialGraph4DoF): for a map whose roll and pitch gravity
@@ -22,8 +25,9 @@ from typing import NamedTuple
 
 import torch
 
+from mam3slam_tpu_torch import _build
 from mam3slam_tpu_torch.geometry import lie
-from mam3slam_tpu_torch.ops import segsum
+from mam3slam_tpu_torch.ops import cuda_pgo, segsum
 from mam3slam_tpu_torch.utils import autodiff
 
 
@@ -92,7 +96,25 @@ def optimize_essential_graph(q_kw, t_kw, s_kw, fixed, edges: PGOEdges,
                              iters: int = 20, lam0: float = 1e-4):
     """Damped Gauss-Newton (LM with accept/reject) over Sim3 vertices
     (q, t, s) [K] world -> keyframe; ``fixed`` [K] bool.  Returns the
-    corrected (q, t, s)."""
+    corrected (q, t, s).  CUDA tensors launch ``csrc/pgo.cu``
+    (``ops/cuda_pgo.py``); CPU tensors run the plain version."""
+    if not _build.is_cuda(q_kw, t_kw, s_kw, fixed, *edges):
+        return optimize_essential_graph_plain(q_kw, t_kw, s_kw, fixed, edges,
+                                              iters, lam0)
+    K = q_kw.shape[0]
+    ei, ej = edges.i.int(), edges.j.int()
+    return cuda_pgo.essential_graph(
+        q_kw.contiguous(), t_kw.contiguous(), s_kw.contiguous(), fixed, ei,
+        ej, edges.q.contiguous(), edges.t.contiguous(),
+        edges.s.contiguous(), torch.where(edges.valid, edges.w, 0.0),
+        _block_plans(ei.long(), ej.long(), K), iters, lam0)
+
+
+def optimize_essential_graph_plain(q_kw, t_kw, s_kw, fixed, edges: PGOEdges,
+                                   iters: int = 20, lam0: float = 1e-4):
+    """Plain PyTorch ``optimize_essential_graph``: the per-edge jacobians
+    by ``torch.func.jacfwd`` (``batched_jacfwd``)."""
+    _build.count_plain("pgo")
     K = q_kw.shape[0]
     dev, dt = q_kw.device, q_kw.dtype
     ei, ej = edges.i.long(), edges.j.long()

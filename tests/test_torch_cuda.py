@@ -3,7 +3,8 @@ card, at small shapes and at the callers' shapes (tracking, fuse, Sim3
 search; the pose at a batch of two and past the edges kept in
 registers, and at the agent batches of ``batched_pose_optimization``;
 OptimizeSim3 at the fixture's and EuRoC's cameras, mixed, and over the
-arena's points).
+arena's points; the essential-graph PGO at the loop correction's and the
+merge's shapes).
 Marked ``cuda``: they skip where torch sees no CUDA device.
 
     pytest --noconftest tests/test_torch_cuda.py
@@ -467,6 +468,64 @@ def test_sim3_kernel_gives_the_same_bits_twice(dev):
     a = _counted("sim3_opt", lambda: CS.optimize_sim3(*args))
     b = _counted("sim3_opt", lambda: CS.optimize_sim3(*args))
     assert chip_smoke.bit_equal(a, b)
+
+
+@pytest.mark.parametrize("caller,kind,iters", chip_smoke.PGO_SHAPES)
+def test_pgo_kernels_match_plain(dev, caller, kind, iters):
+    """Tolerances: the kernels sum H and g in the plain version's fixed
+    order, but their residuals, jacobians and cost sums round in another
+    order than its ATen ops, so a step whose cost change lies at rounding
+    near convergence may be kept by one and not the other: the rotation
+    agrees within 1e-4 rad, t within 1e-4 of the largest |t|, s within
+    1e-4 relative.  The kernels launch 1 + 3 iters times and the plain
+    version is not called."""
+    from mam3slam_tpu_torch.solvers import pgo as P
+
+    q, t, s, fixed, edges = chip_smoke.pgo_problem(dev, kind, seed=iters)
+    before = dict(_build.LAUNCHES)
+    plain0 = _build.PLAIN_CALLS["pgo"]
+    got = P.optimize_essential_graph(q, t, s, fixed, edges, iters=iters)
+    torch.cuda.synchronize()
+    for name, n in (("pgo_linearize", iters), ("pgo_damp", iters),
+                    ("pgo_update", iters + 1), ("segsum", 2 * iters)):
+        assert _build.LAUNCHES[name] - before.get(name, 0) == n, name
+    assert _build.PLAIN_CALLS["pgo"] == plain0
+    want = P.optimize_essential_graph_plain(q, t, s, fixed, edges,
+                                            iters=iters)
+    err = chip_smoke.pgo_errors(got, want)
+    assert err["angle"] < 1e-4 and err["t_rel"] < 1e-4, err
+    assert err["s_rel"] < 1e-4, err
+    moved = chip_smoke.pgo_errors(got, (q, t, s))
+    assert moved["angle"] > 1e-3 and moved["t_rel"] > 1e-3, moved
+
+
+def test_pgo_kernels_give_the_same_bits_twice(dev):
+    from mam3slam_tpu_torch.solvers import pgo as P
+
+    q, t, s, fixed, edges = chip_smoke.pgo_problem(dev, "loop", seed=2)
+    a = P.optimize_essential_graph(q, t, s, fixed, edges, iters=12)
+    b = P.optimize_essential_graph(q, t, s, fixed, edges, iters=12)
+    assert chip_smoke.bit_equal(a, b)
+
+
+@pytest.mark.parametrize("kind", ["loop", "merge"])
+def test_pgo_launches_do_not_depend_on_the_edges(dev, kind):
+    """The spanning tree alone and the whole essential graph: the same
+    launches a call, none of them the plain version's."""
+    from mam3slam_tpu_torch.solvers import pgo as P
+
+    counts = []
+    for dense in (False, True):
+        q, t, s, fixed, edges = chip_smoke.pgo_problem(dev, kind, seed=3,
+                                                       dense=dense)
+        before = dict(_build.LAUNCHES)
+        P.optimize_essential_graph(q, t, s, fixed, edges, iters=5)
+        torch.cuda.synchronize()
+        counts.append({k: v - before.get(k, 0)
+                       for k, v in _build.LAUNCHES.items()
+                       if v != before.get(k, 0)})
+    assert counts[0] == counts[1] == dict(
+        pgo_linearize=5, pgo_damp=5, pgo_update=6, segsum=10)
 
 
 def test_pipelined_readback_equals_blocking_read(dev):
