@@ -3,8 +3,13 @@
 
     python3 chip_smoke.py
 
-Phases, each printing its findings on a line of its own; any failure
-raises (exit code != 0) and no result line is printed:
+Phases, each printing what it checked on a line of its own; any failure
+raises (exit code != 0) and no result line is printed.  What the card
+costs on the benchmark's cells (frame times, launches per frame, device
+idle, the program's spans) is ``slambench/``'s to measure; this script
+gates the kernels and the paths no cell runs.  Each path of phases 4-12
+prints its kernel launches and plain-version calls by name on a
+``counters`` line.
 
 1. Device: requires CUDA; prints the card's name and its
    ``nvidia-smi`` name / power limit.
@@ -14,16 +19,16 @@ raises (exit code != 0) and no result line is printed:
 3. Kernels vs their plain PyTorch versions on the card, at the shapes of
    the tracking path (EuRoC monocular: 752x480, 8 levels, 1000 features;
    4096 projected map points x 1024 features; and at the reference
-   fixture point of phase 7: describe on 8 levels of 720x720 with 700
-   keypoints, Q=4096 x F=768, the KB8 pose at N=768), of the mapping path's
-   fuse (the whole 24576-point arena as queries, most not visible) and of
-   the loop server (the Sim3-guided search over the arena at radii
+   fixture point: describe on 8 levels of 720x720 with 700 keypoints,
+   Q=4096 x F=768, the KB8 pose at N=768), of the mapping path's fuse
+   (the whole 24576-point arena as queries, most not visible) and of the
+   loop server (the Sim3-guided search over the arena at radii
    8 x 1.2^level and 5 x 1.2^level; 1024 x 1024 best-two with partial
    masks on both sides).  Per kernel and caller shape: the device time
    per launch (torch.profiler), the median CUDA-event time of one call
    of the wrapper and of the plain version, and the bound (the larger of
    the operations and the bytes these inputs need over the H100's peak
-   rates) with its share of the device time.
+   rates, ``slambench/ref/work.py``) with its share of the device time.
 4. Tracking: a room scene is rendered at EuRoC cam0 intrinsics, a map of
    32 keyframes is seeded from the scene's true depth in one shared arena
    (512 KF / 24576 MP), and two agents track interleaved arcs through
@@ -31,8 +36,7 @@ raises (exit code != 0) and no result line is printed:
    pose/velocity state on the device; each runs ``track_ref_kf`` once.
    Every frame must keep >= 30 inliers and land within 1 cm / 0.2 deg of
    the pose that rendered it, and the four kernels' launch counters must
-   be > 0 with no plain version called.  Prints the launches per tracked
-   frame.
+   be > 0 with no plain version called.
 5. SLAM: one ``SlamSystem`` at the same EuRoC point with the
    ``SlamConfig`` defaults (512 KF / 24576 MP arena); two agents start
    from no images on their own rendered arcs of 200 frames (-10 to 150
@@ -42,79 +46,65 @@ raises (exit code != 0) and no result line is printed:
    bound after Sim3 alignment (``MAX_ATE_FRAC`` of the arc's span), and
    own a map of >= 8 live keyframes and >= 2000 points in which a mapping
    epoch ran a window BA; forward and reverse observations must agree,
-   and the describe, masked-match and pose kernels must have launched
-   with no plain version called.  Prints the init, per-frame and
-   mapping-epoch times, the keyframes culled and the kernel launches per
-   frame and per mapping epoch.
+   and the describe, masked-match, pose and segment-sum kernels must have
+   launched with no plain version called.
 6. Loop server: ``SlamSystem`` + ``LoopServer`` at the same point with
    the ``SlamConfig`` and ``ServerConfig`` defaults, on another room
    (seed 3), on the orbit of the reference's rendered merge and loop
    tests at 0.8 deg per frame.  6a: two agents, 263 interleaved frames
    each on arcs 0..210 and 150..360 deg (bob +0.05): a MERGE event, one
-   map holding both
-   agents and every live keyframe, >= 95% of frames OK after init and
-   the ATE bound per agent, forward and reverse observations agreeing;
-   then agent 1 sees 3 blank frames and 10 frames from the middle of
-   agent 0's arc, and must log a RELOC event and end OK.  Prints the
-   time of one global BA at the arena caps.  6b: a fresh system, one
-   agent over 526 frames on 0..420 deg: a LOOP event, a global BA run,
-   >= 95% OK and the ATE bound.  Prints the server's PR / LC / MM times;
-   all four kernels must have launched in phase 6 with no plain version
-   called.
-7. Facade at the reference fixture point (the reference's
-   settingsForTest_00.yaml camera, KannalaBrandt8 at 0.75x = 720x720, 8
-   levels, 700 features; bench.py's SlamConfig: 768 slots, 128 KF /
-   16384 MP, min_init_matches 80, kf_max_interval 8; ServerConfig
-   defaults): a settings file read by ``load_settings``, one
-   ``MultiAgentSystem`` on the card, and 240 frames of a 450-deg orbit
-   (room seed 5, bob 0.05) rendered on the card and pre-staged there,
-   fed through ``track_monocular``.  Gates of the reference's
-   tests/test_rendered_hard.py:265-271: > 90% of frames OK after the
-   first OK, a LOOP event, ATE after Sim3 < 1.2% of the span; the
-   describe, masked-match and pose kernels launched with no plain version
-   called; ``shutdown(out_dir)`` writes the artifact set with unit
-   quaternions.  Prints frames per wall second over frames 60-239 (every
-   program warm, as bench.py times them), per-frame ms p50 / p90 / p99 /
-   max, the loop-closing frame's ms, the port's kernel launches per
-   frame, and, from a torch.profiler window over frames 40-59, every
-   CUDA kernel and copy launched per frame and the device's busy ms per
-   frame; and the phase's seconds.  The stored loop and merge edges: the
-   map state's valid edges equal the (target, kf) pairs of the LOOP and
-   MERGE events, less those whose endpoint is no longer a live keyframe,
-   and the essential graph of a later PGO (``_essential_edge_set``)
-   holds every one with weight 5; prints their count.
-8. Slice 4b on phase 7's 240 pre-staged frames.  8a, bench.py's
-   configuration: ``MultiAgentSystem(pipeline=True)`` with
-   ``sys.pipeline_depth = 4`` and synchronous mapping; phase 7's gates,
-   and each of the first 60 completed frames' pinned read must equal a
-   blocking read of the same device tensor.  Prints frames per wall
-   second over frames 60-239 (``flush`` inside the timed wall, as
-   bench.py times it) and per-call ms p50 / p90 / p99 / max beside phase
-   7's, the refused insertions and the launches per frame.  8b, the
+   map holding both agents and every live keyframe, >= 95% of frames OK
+   after init and the ATE bound per agent, forward and reverse
+   observations agreeing; then agent 1 sees 3 blank frames and 10 frames
+   from the middle of agent 0's arc, and must log a RELOC event and end
+   OK.  6b: a fresh system, one agent over 526 frames on 0..420 deg: a
+   LOOP event, a global BA run, >= 95% OK and the ATE bound.  Every
+   kernel, the Sim3 and PGO ones included, must have launched in phase 6
+   with no plain version called.
+7. The reference fixture point (its settingsForTest_00.yaml camera,
+   KannalaBrandt8 at 0.75x = 720x720, 8 levels, 700 features; bench.py's
+   SlamConfig: 768 slots, 128 KF / 16384 MP, min_init_matches 80,
+   kf_max_interval 8; ServerConfig defaults): 240 frames of a 450-deg
+   orbit (room seed 5, bob 0.05) rendered on the card and a settings file
+   of the camera, which phases 8 and 9 feed.  The facade's synchronous
+   run at this point is the benchmark's ``kb8_fixture.loop1`` cell, which
+   checks its output (``slambench/check.py``).
+8. Pipelining, the mapping worker, the background global BA and
+   checkpoints on phase 7's frames, fed through ``MultiAgentSystem``
+   (a settings file read by ``load_settings``) and ``track_monocular``.
+   8a, bench.py's configuration: ``MultiAgentSystem(pipeline=True)`` with
+   ``sys.pipeline_depth = 4`` and synchronous mapping; the gates of the
+   reference's tests/test_rendered_hard.py:265-271 (> 90% of frames OK
+   after the first OK, a LOOP event, ATE after Sim3 < 1.2% of the span),
+   the describe, masked-match and pose kernels launched with no plain
+   version called, ``shutdown(out_dir)``'s artifact set with unit
+   quaternions, and each of the first 60 completed frames' pinned read
+   equal to a blocking read of the same device tensor.  The stored loop
+   and merge edges: the map state's valid edges equal the (target, kf)
+   pairs of the LOOP and MERGE events, less those whose endpoint is no
+   longer a live keyframe, and the essential graph of a later PGO
+   (``_essential_edge_set``) holds every one with weight 5.  8b, the
    asynchronous system: the mapping worker, depth-4 pipelining and
    ``ServerConfig(async_gba=True)``, frames fed at their 20 Hz stamps
    and its back end drained (``flush``) every 5 frames, as the
-   reference's own test of this configuration feeds it; phase 7's gates,
-   no worker error, the worker joined, at least one background GBA
-   started and each applied or aborted.  8b-bare: the same system fed
-   the 20 Hz stamps alone, measured with the worker's gates only (the
+   reference's own test of this configuration feeds it; 8a's facade
+   gates, no worker error, the worker joined, at least one background
+   GBA started and each applied or aborted.  8b-bare: the same system fed
+   the 20 Hz stamps alone, held to the worker's gates only (the
    reference, fed unthrottled in the CPU rehearsal, loses its map too).
-   Both print the refused insertions, the GBA events, the mapping
-   epochs and per-call ms.  8c: 8b's atlas
-   saved after shutdown (``save_atlas``) and loaded into a fresh facade
-   on the card (``load_atlas``): every field equal in value, dtype and
-   device; the resumed agent then tracks the orbit's next 20 frames,
-   rendered on the card, at least 18 of them OK.  Every phase-8 path
-   must launch the describe, masked-match and pose kernels with no plain
-   version called.
-9. Slice 4c through the example scripts' own code.  9a: phase 7's
-   frames written as u8 PNGs (``write_asl_sequence``) and read back by
-   ``euroc.frames`` with the native loader built for this host, each
-   equal to the frame written; then ``examples/torch_run_euroc.py``'s
-   ``build_system`` / ``run_sequences`` (ten frames drawn) / ``finish``
-   with bench.py's SlamConfig fields: phase 7's gates, ten annotated
-   frames and ``map.png``; prints fps over frames 60-239 beside phase
-   7's.  9b, the deployment the daemon exists for: a
+   8c: 8b's atlas saved after shutdown (``save_atlas``) and loaded into
+   a fresh facade on the card (``load_atlas``): every field equal in
+   value, dtype and device; the resumed agent then tracks the orbit's
+   next 20 frames, rendered on the card, at least 18 of them OK.  Every
+   phase-8 path must launch the describe, masked-match and pose kernels
+   with no plain version called.
+9. The example scripts' own code.  9a: phase 7's frames written as u8
+   PNGs (``write_asl_sequence``) and read back by ``euroc.frames`` with
+   the native loader built for this host, each equal to the frame
+   written; then ``examples/torch_run_euroc.py``'s ``build_system`` /
+   ``run_sequences`` (ten frames drawn) / ``finish`` with bench.py's
+   SlamConfig fields: 8a's facade gates, ten annotated frames and
+   ``map.png``.  9b, the deployment the daemon exists for: a
    ``MultiAgentSystem`` with two agents from two settings files at the
    fixture point, fed phase 6's merge arcs (0-210 and 150-360 deg,
    room seed 3) in 146 frames each, 1.44 deg apart as on the merge arcs
@@ -130,10 +120,7 @@ raises (exit code != 0) and no result line is printed:
    each agent's first OK, >= 10 whole JPEGs (SOI ... EOI, an SOF0 of the
    published size) per agent view, ``/mapdata`` stats at most one
    keyframe from the system's, all four kernels launched with no plain
-   call, the loop ending by itself after its clients.  Prints per agent
-   the frames pushed, taken and dropped, and per frame p50 / p90 / p99 /
-   max of ``track``, draw and JPEG encode, the JPEG bytes, the map
-   view's render ms and the wall time.  9c:
+   call, the loop ending by itself after its clients.  9c:
    ``examples/torch_run_synthetic_demo.py`` on the card: both agents
    OK, a MERGE in ``MapLogs.txt``, the artifact set and ``map.png``.
 10. The mono-inertial path at the EuRoC point, ``SlamSystem.track(...,
@@ -145,20 +132,14 @@ raises (exit code != 0) and no result line is printed:
    closed by the 4DoF PGO (``pgo=4dof``), the scale against the Umeyama
    scale of the trajectory to the truth and the gravity against the
    room's within their bounds, >= 95% OK and the ATE bound; describe,
-   masked match, pose and best-two launched with no plain call.  Prints
-   per-frame ``track`` ms with IMU and with the constant-velocity model
-   beside phase 6b's, the port's launches per frame of each kind, every
-   CUDA kernel and copy of single frames of each kind and of the
-   preintegration + prediction alone (``torch.profiler``), the IMU_INIT
-   frame's ms and the 4DoF ``LC`` ms beside phase 6b's Sim3 ``LC``.
+   masked match, pose and best-two launched with no plain call.
    10b: 100 frames on the same room with a vertical shake and a 6-frame
    yaw burst of 7 deg a frame at frame 60, once with IMU and once
    without: tests/test_inertial_tracking.py's gates (the IMU_INIT
    before the burst, >= 13 of the 15 frames from the burst OK,
    ``n_fallback`` with IMU below the constant-velocity run's and <= 1).
-
-11. Slice 6, the multi-device solvers, at the EuRoC point on phase 6's
-   room (seed 3).  11a: a one-rank NCCL mesh (``parallel/mesh.py``) and
+11. The multi-device solvers, at the EuRoC point on phase 6's room (seed
+   3).  11a: a one-rank NCCL mesh (``parallel/mesh.py``) and
    ``SlamSystem`` + ``LoopServer(ServerConfig(gba_mesh=mesh))`` with
    four agents on arcs 0-150, 90-240, 180-330 and 270-420 deg (188
    frames each, interleaved): >= 3 MERGEs into one map holding every
@@ -176,37 +157,29 @@ raises (exit code != 0) and no result line is printed:
    ``run_ba`` (cameras 1e-2, the cost no worse than 1.001x the start);
    the pose kernel at the agent batches B = 4 and 8 of
    ``batched_pose_optimization`` against its plain version (phase 3's
-   tolerance), timed.  Prints the ms of each GBA the server ran, the
-   single-card and distributed epochs on one state (median of 3), the
-   pose kernel's device us per launch and the launches per frame.  11b:
-   two NCCL ranks on the one card (refused: "Duplicate GPU detected",
-   logged), then 11a's atlas (``save_atlas``) loaded by 2 and 4 gloo
-   ranks and a ("host", "chip") = (2, 2) mesh sharing the card, spawned
-   against a deadline: rank 0 runs the server's ``_run_gba`` while the
-   others follow in ``dist_window_ba.serve``, and every rank runs the
-   distributed solvers on a window with each agent's oldest keyframe
-   fixed, each held to the one-rank results, and every replicated
-   solver's cameras equal bit for bit across the ranks; prints ms per
-   solve at 1, 2 and 4 ranks (the collectives' cost on one card, not
-   scaling).
+   tolerance).  11b: two NCCL ranks on the one card (refused:
+   "Duplicate GPU detected", logged), then 11a's atlas (``save_atlas``)
+   loaded by 2 and 4 gloo ranks and a ("host", "chip") = (2, 2) mesh
+   sharing the card, spawned against a deadline: rank 0 runs the
+   server's ``_run_gba`` while the others follow in
+   ``dist_window_ba.serve``, and every rank runs the distributed solvers
+   on a window with each agent's oldest keyframe fixed, each held to the
+   one-rank results, and every replicated solver's cameras equal bit for
+   bit across the ranks.
 12. The facade's INTER_AREA resize (``api.area_resize``, cv2's rule as
    tensor ops on the card).  12a: ``area_resize`` on the card against
    the same call on the CPU, f32 noise in 0..255, at 600x600 -> 720x720,
    480x640 -> 480x752 (one axis up, one equal), 400x800 -> 480x752
    (mixed), 960x960 -> 720x720 and 480x752 -> 360x564: the largest
-   difference <= 1e-3 on each; prints each pair's CUDA-event us (median
-   of 20), its device us and the kernels a call launches.  12b:
-   ``MultiAgentSystem`` at the fixture point (bench.py's SlamConfig)
-   from a settings file whose Camera.newWidth / newHeight are 720, fed
-   u8 host frames of the first 120 frames of phase 7's orbit rendered at
-   600x600 (upscaled; intrinsics x 1.2) and at 960x960 (downscaled;
-   x 0.75): the working geometry 720x720, the scaled intrinsics, > 90%
-   of frames OK after the first OK, ATE after Sim3 within 1.5x the
-   reference's at half size (``tools/chip_rehearsal_12b.log``), the
-   describe, masked-match and pose kernels with no plain call.  Prints
-   fps over frames 60-119, per-call ms p50 / p90 / p99 / max, and from a
-   torch.profiler window over frames 40-59 the device busy ms per frame
-   and the resize's device us and share of it.
+   difference <= 1e-3 on each.  12b: ``MultiAgentSystem`` at the fixture
+   point (bench.py's SlamConfig) from a settings file whose
+   Camera.newWidth / newHeight are 720, fed u8 host frames of the first
+   120 frames of phase 7's orbit rendered at 600x600 (upscaled;
+   intrinsics x 1.2) and at 960x960 (downscaled; x 0.75): the working
+   geometry 720x720, the scaled intrinsics, > 90% of frames OK after the
+   first OK, ATE after Sim3 within 1.5x the reference's at half size
+   (``tools/chip_rehearsal_12b.log``), the describe, masked-match and
+   pose kernels with no plain call.
 13. Reproducibility, on phase 11a's map (its atlas loaded into a fresh
    ``SlamSystem``): a mapping epoch's window BA (``local_ba``),
    ``global_ba`` at the arena caps, the 7DoF and 4DoF PGO over the map's
@@ -251,9 +224,9 @@ raises (exit code != 0) and no result line is printed:
 
 It prints a JSON line of per-kernel results (``ms``: the median time of
 one wrapper call at the kernel's first caller shape; ``device_ms``: the
-device time per launch there; every caller shape's times and bound; the
-launches in phases 4-12 and per frame and epoch), the nvidia-smi line,
-and as its last line ``{"ok": true, "device": {...}}``.
+device time per launch there; ``launches``: its launches over the
+paths of phases 4-12; every caller shape's times and bound),
+the nvidia-smi line, and as its last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -271,6 +244,8 @@ import time
 
 import numpy as np
 import torch
+
+from slambench.ref import geometry, work
 
 W, H = 752, 480
 FX, FY, CX, CY = 458.654, 457.296, 367.215, 248.375   # EuRoC cam0
@@ -315,17 +290,16 @@ SERVER_MIN_OK_FRAC = 0.95
 # output in tools/chip_rehearsal_6a.log)
 MERGE_MAX_ATE_FRAC = (1.5 * 0.01488, 0.01)
 LOOP_MAX_ATE_FRAC = (0.01,)
-# phase 7 and the fixture shapes of phase 3: the reference's own operating
-# point (its test/settingsForTest_00.yaml: 960x960 KannalaBrandt8, 8
-# levels, 700 features) at 0.75x = 720x720, as bench.py:70-126 and
-# tests/test_rendered_hard.py:236 run it: the room of seed 5, a 450-deg
-# orbit in 240 frames, frames 60-239 timed with every program warm, and
-# the reference test's gates (> 90% of frames OK after the first OK, a
-# LOOP, ATE after Sim3 < 1.2% of the span)
+# phases 7-9 and the fixture shapes of phase 3: the reference's own
+# operating point (its test/settingsForTest_00.yaml: 960x960
+# KannalaBrandt8, 8 levels, 700 features) at 0.75x = 720x720, as
+# bench.py:70-126 and tests/test_rendered_hard.py:236 run it: the room of
+# seed 5, a 450-deg orbit in 240 frames, a ``flush`` after the 60 warm-up
+# frames as bench.py feeds them, and the reference test's gates (> 90% of
+# frames OK after the first OK, a LOOP, ATE after Sim3 < 1.2% of the span)
 FIXTURE_SCALE = 0.75
 FIXTURE_FEATURES = 700
 FACADE_FRAMES, FACADE_WARM = 240, 60
-FACADE_CENSUS = 20   # profiled frames just before the timed ones
 FACADE_ARC = (0.0, 450.0, 0.05)
 FACADE_SLAM = dict(max_kf=128, max_mp=16384, min_init_matches=80,
                    kf_max_interval=8)
@@ -387,7 +361,6 @@ BURST_FRAMES, BURST_AT, BURST_LEN, BURST_DEG = 100, 60, 6, 7.0
 BURST_SHAKE = (0.05, 1.0)   # m, Hz
 BURST_MIN_OK, BURST_MAX_FALLBACK = 13, 1     # of the 15 frames from BURST_AT
 INERTIAL_KERNELS = SLAM_KERNELS + ("min_hamming2",)
-INERTIAL_CENSUS = 5   # profiled frames of each kind (IMU / constant velocity)
 # phase-10 bounds: 1.5x what the reference SlamSystem (+ LoopServer in
 # 10a) reaches on phase 10's own frames and IMU at the EuRoC camera, arena
 # cut to 128 KF / 12288 MP (tools/chip_rehearsal.py --inertial, its
@@ -445,13 +418,6 @@ RESIZE_RUNS = (("up", 0.625), ("down", 1.0))
 # tools/chip_rehearsal_12b.log)
 RESIZE_MAX_ATE_FRAC = {"up": 1.5 * 0.00169, "down": 1.5 * 0.00143}
 
-# H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): f32 (and f64)
-# on the CUDA cores (every SIMT op of a kernel is counted at this rate),
-# int8 on the tensor cores (the rate of a binary AND-popc product), HBM3
-F32_OPS = 67e12
-F64_OPS = 34e12
-INT8_TC_OPS = 1979e12
-HBM_BYTES_PER_S = 3.35e12
 NO_LIBRARY = ("none: no single PyTorch call computes a masked or unmasked "
               "best-two Hamming search, an LM pose solve, or IC angles with "
               "rBRIEF")
@@ -535,16 +501,6 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def launches_now() -> collections.Counter:
-    from mam3slam_tpu_torch import _build
-    return collections.Counter(_build.LAUNCHES)
-
-
-def per(counts: collections.Counter, n: int) -> dict:
-    """Launches per kernel per unit (frame, epoch) over ``n`` units."""
-    return {k: v / n for k, v in sorted(counts.items())} if n else {}
-
-
 def rot_err(q: np.ndarray, q_ref: np.ndarray) -> float:
     d = abs(float(np.dot(q.astype(np.float64), q_ref.astype(np.float64))))
     return 2.0 * math.acos(min(d, 1.0))
@@ -559,94 +515,12 @@ def quat_of(R: np.ndarray) -> torch.Tensor:
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def masked_work(a):
-    """Operations and bytes that the masked search needs on these inputs:
-    8 SIMT ops per (valid query, valid target) pair (2 level compares;
-    dx, dy, 2 mul, add, compare), 24 per pair inside the mask (8 XOR,
-    8 popc, 8 add); each valid query's 48-byte record and each valid
-    target's 44 bytes read once, every valid flag read, 12 bytes written
-    per query."""
-    from mam3slam_tpu_torch.ops import cuda_match as CM
-
-    dq, quv, rad, ql, qv, dt, tuv, tl, tv = a
-    mask = (CM.radius_mask(quv, tuv, rad) & CM.level_window_mask(ql, tl, 1, 1)
-            & qv[:, None] & tv[None, :])
-    nq, nqv, nt, ntv = len(qv), int(qv.sum()), len(tv), int(tv.sum())
-    return (8 * nqv * ntv + 24 * int(mask.sum()), F32_OPS,
-            nq + 48 * nqv + nt + 44 * ntv + 12 * nq)
-
-
-def best2_work(a):
-    """The unmasked search as a binary tensor-core product: 2 ops (AND,
-    popc-add) per bit of each (valid query, valid target) pair at the
-    int8 tensor-core rate; descriptors of the valid rows and every flag
-    read once, 12 bytes written per query."""
-    dq, qv, dt, tv = a
-    nq, nqv, nt, ntv = len(qv), int(qv.sum()), len(tv), int(tv.sum())
-    return (2 * 256 * nqv * ntv, INT8_TC_OPS,
-            nq + 32 * nqv + nt + 32 * ntv + 12 * nq)
-
-
-def describe_work(args, angle):
-    """Operations and bytes of describing the keypoints of ``args`` with
-    their ``angle``s: per keypoint 749 raw pixels of the r=15 circle (4
-    ops each for the two moments) and 512 blurred taps (8 ops each:
-    rotate, round, clamp, compare); each distinct f32 pixel that the
-    keypoints touch read once (neighbouring patches overlap), the 4 KB
-    pattern, 20 bytes of keypoint in and 36 out."""
-    from mam3slam_tpu_torch.ops import cuda_orb_desc as CO
-
-    raw, _, xy, lvl, hw = args
-    n = len(xy)
-    pixels = (CO.ic_taps(xy, lvl, raw.shape)[0].unique().numel()
-              + CO.brief_taps(xy, lvl, hw, angle, raw.shape).unique().numel())
-    return (n * (749 * 4 + 512 * 8), F32_OPS,
-            4 * pixels + CO.load_pattern().nbytes + n * (20 + 36))
-
-
-# f32 ops an edge of a pose linearisation and of a projection + chi2:
-# pinhole; KB8 (csrc/pose.cu: sqrtf, atan2f (~25), six divisions (~8
-# each), the two quartics, a jacobian with no zero entries and H rows 0-1
-# in full)
-POSE_OPS = {0: (150, 35), 1: (250, 75)}
-
-
-def pose_work(n_valid: int, n_in: int, n: int, kind: int = 0,
-              rounds: int = 4, iters: int = 5):
-    """Round 0 linearises and accumulates the valid edges iters + 1 times
-    (``POSE_OPS[kind][0]`` f32 ops an edge and pass); each later round
-    classifies the valid edges at the pose its first evaluation
-    linearises (projection and chi2, ``POSE_OPS[kind][1]`` ops, which an
-    edge that stays active reuses) and linearises and accumulates its
-    active edges iters + 1 times; a last chi2-only pass over the valid
-    edges gives the inliers.  The active sets of rounds 1-3 are counted
-    as the ``n_in`` returned inliers.  Each edge's 25 bytes read once and
-    its inlier flag written, 60 bytes of pose and camera in, 32 out."""
-    lin, chi2 = POSE_OPS[kind]
-    ops = ((iters + 1) * n_valid * lin
-           + (rounds - 1) * ((iters + 1) * n_in * lin
-                             + (n_valid - n_in) * chi2)
-           + n_valid * chi2)
-    return ops, F32_OPS, 26 * n + 92
-
-
-def sim3_work(n: int, n_valid: int, kinds, iters: int = 20):
-    """``iters`` linearisations of both directions of each valid pair
-    (``SIM3_OPS[kind][0]``), then one residual pass for the inliers
-    (``[1]``); each pair's valid flag read and inlier flag written, each
-    valid pair's 48 bytes (points, pixels, sigma^2) read once, 96 bytes of
-    cameras and start in, 40 out."""
-    lin = sum(SIM3_OPS[k][0] for k in kinds)
-    res = sum(SIM3_OPS[k][1] for k in kinds)
-    return (iters * n_valid * lin + n_valid * res, F32_OPS,
-            2 * n + 48 * n_valid + 136)
-
-
-def bound_ms(ops: float, rate: float, nbytes: float):
-    """The least time the card could take: the larger of operations over
-    their peak rate and bytes over the memory rate (ms, and which)."""
-    t_ops, t_bytes = ops / rate * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+def bound(w):
+    """The least time the card could take for ``w`` = (ops, peak ops/s,
+    bytes), ``work.bound_s``, in ms, and which of its two limits binds
+    ("operations" or "bytes")."""
+    t = work.bound_s(*w)
+    return t * 1e3, "operations" if t == w[0] / w[1] else "bytes"
 
 
 def events_ms(fn, reps: int = 20) -> float:
@@ -701,15 +575,15 @@ def device_ms(fn, reps: int = 20, only: str = None):
 
 
 def measure(rows: list, kernel: str, caller: str, err: float, fn, plain_fn,
-            work, plain_reps: int = 20, library_fn=None,
+            cost, plain_reps: int = 20, library_fn=None,
             only: str = None) -> None:
     """Time ``fn`` (device and wrapper-included), ``plain_fn`` (median of
     ``plain_reps``) and, where one PyTorch call computes the same
-    function, ``library_fn`` at one caller's shape; ``work`` = (ops, peak
+    function, ``library_fn`` at one caller's shape; ``cost`` = (ops, peak
     ops/s, bytes) of these inputs; ``only``: the kernel's name where the
     wrapper launches others too."""
     dev_ms, timer, names = device_ms(fn, only=only)
-    b_ms, b_by = bound_ms(*work)
+    b_ms, b_by = bound(cost)
     row = dict(kernel=kernel, caller=caller, max_abs_err=err,
                device_ms=dev_ms, timer=timer, wrapper_ms=median_ms(fn),
                plain_ms=median_ms(plain_fn, reps=plain_reps,
@@ -824,8 +698,8 @@ def check_kernels(dev, scene, cam_r, orb_cfg, n_arena: int) -> list:
                                  f"at the {caller} shape")
         measure(rows, "orb_desc", caller, err, lambda: CO.ic_brief(*args),
                 lambda: CO.ic_brief_plain(*args),
-                describe_work((stack, blur, xy[valid], lvl[valid],
-                               hws[valid]), ka[valid]))
+                work.describe_work(stack.shape, xy[valid], lvl[valid],
+                                   hws[valid], ka[valid]))
 
     # describe: one rendered EuRoC-size frame, then one frame of the
     # reference fixture's KB8 camera at 0.75x
@@ -854,7 +728,7 @@ def check_kernels(dev, scene, cam_r, orb_cfg, n_arena: int) -> list:
         measure(rows, "masked_match", caller, err,
                 lambda: CM.fused_masked_match(*margs),
                 lambda: CM.fused_masked_match_plain(*margs),
-                masked_work(margs))
+                work.masked_work(*margs[1:5], *margs[6:]))
 
     # masked match: Q=4096 candidates x F=1024 features, planted matches
     # and exact ties (duplicated targets)
@@ -925,7 +799,8 @@ def check_kernels(dev, scene, cam_r, orb_cfg, n_arena: int) -> list:
                                  f"version at the {caller} shape")
         measure(rows, "min_hamming2", caller, err,
                 lambda: CM.min_hamming2(*hargs),
-                lambda: CM.min_hamming2_plain(*hargs), best2_work(hargs))
+                lambda: CM.min_hamming2_plain(*hargs),
+                work.best2_work(hargs[1], hargs[3]))
 
     def pose(caller: str, cam, n: int, spread):
         """A pose problem (``pose_problem``), the kernel held to the plain
@@ -938,7 +813,7 @@ def check_kernels(dev, scene, cam_r, orb_cfg, n_arena: int) -> list:
         measure(rows, "pose_opt", caller, err,
                 lambda: CP.pose_optimization_batched(*pargs),
                 lambda: CP.pose_optimization_plain(*plain),
-                pose_work(int(plain[-1].sum()), n_in, n, cam.kind))
+                work.pose_work(int(plain[-1].sum()), n_in, n, cam.kind))
 
     # pose: the EuRoC pinhole at N = 1024, then the fixture's KB8 camera
     # at its 768 feature slots over a wide field (up to ~60 deg off axis)
@@ -1017,20 +892,18 @@ def track_agents(dev, scene, cam_r, cam, orb_cfg, cfg, ms, trajs, n_kf,
     """Interleaved tracking of one arc per agent (extract -> step, the
     map and each agent's pose/velocity chained on the device); at
     ``ref_frame`` each agent also runs track_ref_kf from its last pose.
-    Returns per-agent results, the final map and the kernel launches per
-    tracked frame (extract + step)."""
+    Returns per-agent results and the final map."""
     from mam3slam_tpu_torch.slam import system
 
     fns = system.programs(cfg, cam.kind)
     id_q = torch.tensor([1.0, 0, 0, 0], device=dev)
     z3 = torch.zeros(3, device=dev)
     res, chains = [], []
-    frame_launches = collections.Counter()
     for traj in trajs:
         q0 = quat_of(traj[0][0]).to(dev)
         chains.append((q0, torch.tensor(traj[0][1], device=dev), id_q, z3,
                        False))
-        res.append(dict(n_in=[], t_err=[], r_err=[], sec=[]))
+        res.append(dict(n_in=[], t_err=[], r_err=[]))
     for i in range(len(trajs[0])):
         for a, traj in enumerate(trajs):
             R, t, C = traj[i]
@@ -1039,16 +912,11 @@ def track_agents(dev, scene, cam_r, cam, orb_cfg, cfg, ms, trajs, n_kf,
             ref_kf = min(i // KF_EVERY, n_kf - 1)
             q_last, t_last, vq, vt, has_vel = chains[a]
             ms_read = ms
-            sync(dev)
-            n0 = launches_now()
-            t0 = time.perf_counter()
             frame = frame_of(img, orb_cfg, cam)
             ms, _, _, _, vec, chains[a] = fns["track_frame_step"](
                 ms, frame, ref_kf, vq, vt, has_vel, q_last, t_last, id_q, z3,
                 False, cam.params)
             vec = vec.cpu().numpy()
-            res[a]["sec"].append(time.perf_counter() - t0)
-            frame_launches.update(launches_now() - n0)
             res[a]["n_in"].append(int(vec[21]))
             res[a]["t_err"].append(centre_err(vec[0:4], vec[4:7], C))
             res[a]["r_err"].append(rot_err(vec[0:4], q_true))
@@ -1059,7 +927,7 @@ def track_agents(dev, scene, cam_r, cam, orb_cfg, cfg, ms, trajs, n_kf,
                 res[a]["ref"] = dict(n_in=int(n_r), n_matches=int(n_m),
                                      r_err=rot_err(q_r, q_true),
                                      t_err=centre_err(q_r, t_r, C))
-    return res, ms, per(frame_launches, len(trajs) * len(trajs[0]))
+    return res, ms
 
 
 # ---------------------------------------------------------------------------
@@ -1069,61 +937,23 @@ def track_agents(dev, scene, cam_r, cam, orb_cfg, cfg, ms, trajs, n_kf,
 def run_slam(dev, scene, cam_r, cam, orb_cfg, cfg, arcs, server_cfg=None):
     """Interleaved frames of one arc per agent through
     ``SlamSystem.track`` only, with a ``LoopServer`` of ``server_cfg``
-    attached when one is given.  Per agent: the states, the host wall of
-    the frame that initialised (extract + track, synchronised) and of
-    every OK frame that inserted no keyframe.  Also the kernel launches
-    per such frame and per mapping epoch."""
+    attached when one is given.  Returns the system and per agent its id
+    and states."""
     from mam3slam_tpu_torch.slam import system
     from mam3slam_tpu_torch.slam.server import LoopServer
 
     sys_ = system.SlamSystem(cfg, cam, seed=0)
-    # programs() is cached and shared: count this system's epochs alone
-    sys_.fns = dict(sys_.fns)
-    epoch_fn = sys_.fns["mapping_epoch"]
-    frame_launches = collections.Counter()
-    epoch_launches = collections.Counter()
-
-    def counted_epoch(*args):
-        n0 = launches_now()
-        out = epoch_fn(*args)
-        epoch_launches.update(launches_now() - n0)
-        return out
-
-    sys_.fns["mapping_epoch"] = counted_epoch
     if server_cfg is not None:
         sys_.server = LoopServer(sys_, server_cfg)
-    agents = [dict(aid=sys_.add_agent(), states=[], init_ms=None,
-                   track_ms=[]) for _ in arcs]
+    agents = [dict(aid=sys_.add_agent(), states=[]) for _ in arcs]
     for i in range(len(arcs[0])):
         for ag, arc in zip(agents, arcs):
             R, t, _ = arc[i]
             img = scene.render(R, t, cam_r)
-            before = sys_.agents[ag["aid"]].state
-            n_epochs = len(sys_.epochs)
-            sync(dev)
-            n0 = launches_now()
-            t0 = time.perf_counter()
             state, _ = sys_.track(ag["aid"], frame_of(img, orb_cfg, cam),
                                   ts=i * DT)
-            sync(dev)
-            ms = (time.perf_counter() - t0) * 1e3
             ag["states"].append(state)
-            if before == system.NOT_INITIALIZED and state == system.OK:
-                ag["init_ms"] = ms
-            elif before == system.OK and len(sys_.epochs) == n_epochs:
-                ag["track_ms"].append(ms)
-                frame_launches.update(launches_now() - n0)
-    n_frames = sum(len(ag["track_ms"]) for ag in agents)
-    return sys_, agents, dict(per_frame=per(frame_launches, n_frames),
-                              per_epoch=per(epoch_launches,
-                                            len(sys_.epochs)))
-
-
-def ate_rmse(est: np.ndarray, gt: np.ndarray) -> float:
-    """RMSE of camera centres after Sim3 (Umeyama) alignment."""
-    s, Rm, t = umeyama(est, gt)
-    aligned = s * est @ Rm.T + t
-    return float(np.sqrt(((aligned - gt) ** 2).sum(1).mean()))
+    return sys_, agents
 
 
 def check_slam(sys_, agents, arcs, max_ate_frac=MAX_ATE_FRAC,
@@ -1147,9 +977,8 @@ def check_slam(sys_, agents, arcs, max_ate_frac=MAX_ATE_FRAC,
             if st == system.OK:
                 est.append(t_wc)
                 gt.append(arc[int(round(ts / DT))][2])
-        est, gt = np.asarray(est, np.float64), np.asarray(gt, np.float64)
-        ate = ate_rmse(est, gt)
-        span = float(np.ptp(gt, axis=0).max())
+        ate, _, span = geometry.ate(np.asarray(est, np.float64),
+                                    np.asarray(gt, np.float64))
         map_id = sys_.agents[ag["aid"]].map_id
         n_kf = int((kf_valid & (kf_map == map_id)).sum())
         n_mp = int((mp_valid & (mp_map == map_id)).sum())
@@ -1184,21 +1013,6 @@ def check_slam(sys_, agents, arcs, max_ate_frac=MAX_ATE_FRAC,
     if bad or live.sum() < 1000:
         raise AssertionError("forward and reverse observations disagree")
     return out
-
-
-def slam_times(sys_, agents, smi: str) -> None:
-    """Print the init, per-frame and mapping-epoch times."""
-    track = np.concatenate([np.asarray(ag["track_ms"]) for ag in agents])
-    epochs = np.concatenate([np.asarray(v) for k, v in
-                             sys_.timers.series.items()
-                             if k.startswith("LM_")])
-    log("slam_time", card=repr(smi),
-        init_ms=[round(ag["init_ms"], 3) for ag in agents],
-        track_frames=len(track), track_ms_median=float(np.median(track)),
-        track_ms_p90=float(np.percentile(track, 90)),
-        epochs=len(epochs), epoch_ms_median=float(np.median(epochs)),
-        epoch_ms_p90=float(np.percentile(epochs, 90)),
-        kf_culled=sys_.kf_culled)
 
 
 # ---------------------------------------------------------------------------
@@ -1263,20 +1077,9 @@ def relocalize(sys_, scene, cam_r, cam, orb_cfg, aid: int, arc,
         raise AssertionError(f"agent {aid} did not relocalize")
 
 
-def server_times(sys_, smi: str, path: str) -> None:
-    """Median and p90 ms of the server's PR (keyframe), LC (loop) and MM
-    (merge) series."""
-    out = {}
-    for k in ("PR", "LC", "MM"):
-        v = np.asarray(sys_.server.timers.series.get(k, []))
-        out[k] = (dict(n=len(v), median_ms=float(np.median(v)),
-                       p90_ms=float(np.percentile(v, 90)))
-                  if len(v) else dict(n=0))
-    log("server_time", path=path, card=repr(smi), **out)
-
-
 # ---------------------------------------------------------------------------
-# phase 7: the MultiAgentSystem facade at the reference fixture point
+# phase 7: the reference fixture point, and the facade's feed and gates
+# that phases 8, 9 and 12 share
 # ---------------------------------------------------------------------------
 
 def facade_yaml(cam, n_features: int = FIXTURE_FEATURES,
@@ -1312,91 +1115,40 @@ def facade_config(cam, n_features: int = FIXTURE_FEATURES,
                       **FACADE_SLAM)
 
 
-def cuda_census(prof, spans=()) -> dict:
-    """Kernels, copies and device busy us that a torch.profiler window
-    recorded on the card (memsets and the profiler's own annotations left
-    out), and for each ``record_function`` name in ``spans`` the device
-    us of the kernels launched inside it (``<name>_us``)."""
-    from torch.autograd import DeviceType
-
-    out = dict(kernels=0, copies=0, busy_us=0.0)
-    for e in prof.key_averages():
-        if e.key in spans and e.device_type == DeviceType.CPU:
-            out[f"{e.key}_us"] = (getattr(e, "device_time_total", None)
-                                  or getattr(e, "cuda_time_total", 0))
-        if (e.device_type != DeviceType.CUDA or e.key.startswith("Memset")
-                or getattr(e, "is_user_annotation", False)):
-            continue
-        out["copies" if e.key.startswith("Memcpy") else "kernels"] += e.count
-        out["busy_us"] += (getattr(e, "self_device_time_total", None)
-                           or getattr(e, "self_cuda_time_total", 0))
-    return out
-
-
-def run_facade(mas, frames, out_dir: str, dev, census: bool = True,
-               pace: bool = False, drain: int = 0, spans=()):
-    """Feed ``frames`` (pre-staged on ``dev``) to agent 0 of ``mas``
+def run_facade(mas, frames, out_dir: str, pace: bool = False,
+               drain: int = 0) -> dict:
+    """Feed ``frames`` (pre-staged on the card) to agent 0 of ``mas``
     through ``track_monocular`` at 20 Hz stamps (``pace``: no call
     before its stamp, as a camera delivers them; ``drain``: ``flush``
     after every ``drain``-th frame, as the reference's asynchronous tests
-    feed their systems); ``flush`` after the
-    ``FACADE_WARM`` warm frames, as bench.py does, then the frames from
-    there on are timed (each call's host wall, and the wall of all of
-    them to the end of ``flush``), then ``shutdown(out_dir)`` writes the
-    artifacts.  With ``census`` the ``FACADE_CENSUS`` frames just before
-    the timed ones run under torch.profiler, which counts every CUDA
-    kernel they launch (the timed frames run bare: the profiler adds host
-    time to every launch), and the device time inside each
-    ``record_function`` named in ``spans``.  The kernel counters are zeroed just before
-    the first frame and read just after the last ``flush``."""
-    from torch.profiler import ProfilerActivity, profile
-
+    feed their systems), with a ``flush`` after the ``FACADE_WARM``
+    warm-up frames and one at the end, as bench.py feeds them; then
+    ``shutdown(out_dir)`` writes the artifacts.  The kernel counters are
+    zeroed just before the first frame and read just after the last
+    ``flush``."""
     from mam3slam_tpu_torch import _build
 
-    warm, n_census = FACADE_WARM, FACADE_CENSUS
-    states, frame_ms, n_events = [], [], []
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    states = []
     _build.reset_counts()
-    t_all = time.perf_counter()
+    t0 = time.perf_counter()
     for i, img in enumerate(frames):
-        if census and i == warm - n_census:
-            sync(dev)
-            own0 = collections.Counter(_build.LAUNCHES)
-            prof.start()
-        if i == warm:
+        if i == FACADE_WARM:
             mas.sys.flush()
-            sync(dev)
-            if census:
-                prof.stop()
-                own = collections.Counter(_build.LAUNCHES) - own0
-            t0 = time.perf_counter()
         if pace:
-            time.sleep(max(0.0, t_all + i * DT - time.perf_counter()))
-        f0 = time.perf_counter()
-        st, _ = mas.track_monocular(0, img, i * DT)
-        frame_ms.append((time.perf_counter() - f0) * 1e3)
-        n_events.append(len(mas.server.events))
-        states.append(st)
+            time.sleep(max(0.0, t0 + i * DT - time.perf_counter()))
+        states.append(mas.track_monocular(0, img, i * DT)[0])
         if drain and i % drain == drain - 1:
             mas.sys.flush()
     mas.sys.flush()
-    sync(dev)
-    wall = time.perf_counter() - t0
-    counts = dict(launches=dict(_build.LAUNCHES),
-                  plain=dict(_build.PLAIN_CALLS))
+    out = dict(states=states, launches=dict(_build.LAUNCHES),
+               plain=dict(_build.PLAIN_CALLS))
     mas.shutdown(out_dir=out_dir)
-    out = dict(states=states, frame_ms=frame_ms, n_events=n_events,
-               wall=wall, run_s=time.perf_counter() - t_all, **counts)
-    if census:
-        out["census"] = dict(frames=(warm - n_census, warm - 1),
-                             **cuda_census(prof, spans),
-                             own=per(own, n_census))
     return out
 
 
 def facade_results(mas, res, traj) -> dict:
-    """OK share, events, ATE after Sim3 and the timings of a
-    ``run_facade`` run (the gates are ``check_facade``'s)."""
+    """OK share, events and ATE after Sim3 of a ``run_facade`` run (the
+    gates are ``check_facade``'s)."""
     states = res["states"]
     ok = 2   # slam.system.OK
     first_ok = states.index(ok) if ok in states else len(states)
@@ -1407,33 +1159,21 @@ def facade_results(mas, res, traj) -> dict:
         if st == ok:
             est.append(t_wc)
             gt.append(traj[int(round(ts / DT))][2])
-    est, gt = np.asarray(est, np.float64), np.asarray(gt, np.float64)
     span = float(np.ptp(np.asarray([p[2] for p in traj]), axis=0).max())
-    ate = ate_rmse(est, gt) if len(est) > 3 else float("inf")
-    timed = np.asarray(res["frame_ms"][FACADE_WARM:])
-    ev = res["n_events"]
-    lc = [j for j in range(FACADE_WARM, len(ev)) if ev[j] > ev[j - 1]
-          and any(e.startswith(("LOOP", "MERGE"))
-                  for e in mas.server.events[ev[j - 1]:ev[j]])]
+    ate = (geometry.ate(np.asarray(est, np.float64),
+                        np.asarray(gt, np.float64))[0]
+           if len(est) > 3 else float("inf"))
     ms = mas.sys.ms
     return dict(
         frames=len(states), first_ok=first_ok, ok_frac=ok_frac,
         loops=sum(e.startswith("LOOP") for e in mas.server.events),
         events=list(mas.server.events), system_events=list(mas.sys.events),
         keyframes=int(ms.kf_valid.sum()), map_points=int(ms.mp_valid.sum()),
-        ate=ate, span=span, ate_frac=ate / span,
-        fps=len(timed) / res["wall"],
-        frame_ms_p50=float(np.percentile(timed, 50)),
-        frame_ms_p90=float(np.percentile(timed, 90)),
-        frame_ms_p99=float(np.percentile(timed, 99)),
-        frame_ms_max=float(timed.max()),
-        lc_epoch_ms=max((res["frame_ms"][j] for j in lc), default=None),
-        launches_per_frame=per(collections.Counter(res["launches"]),
-                               len(states)))
+        ate=ate, span=span, ate_frac=ate / span)
 
 
 def check_facade(r: dict, res: dict, out_dir: str) -> None:
-    """The phase-7 gates (tests/test_rendered_hard.py:265-271), the
+    """The facade's gates (tests/test_rendered_hard.py:265-271), the
     kernels of the path launched with no plain version called, and the
     artifact set with unit quaternions."""
     if not r["ok_frac"] > FACADE_MIN_OK_FRAC:
@@ -1457,6 +1197,11 @@ def check_facade(r: dict, res: dict, out_dir: str) -> None:
         raise AssertionError("facade: trajectory rows missing or quaternions "
                              "not unit")
 
+
+# ---------------------------------------------------------------------------
+# phase 8: pipelined tracking, the mapping worker, the background global
+# BA and checkpoints, on phase 7's frames
+# ---------------------------------------------------------------------------
 
 def check_loop_edges(sys_, server) -> dict:
     """The stored loop and merge edges against the server's events: the
@@ -1489,11 +1234,6 @@ def check_loop_edges(sys_, server) -> dict:
     return dict(closures=len(closed), stored=len(stored),
                 removed=len(closed) - len(expected))
 
-
-# ---------------------------------------------------------------------------
-# phase 8: pipelined tracking, the mapping worker, the background global
-# BA and checkpoints, on phase 7's frames
-# ---------------------------------------------------------------------------
 
 def check_readback(sys_, n: int) -> list:
     """Hold the deferred read of each of the first ``n`` frames that
@@ -1530,13 +1270,8 @@ def phase8_system(fix_cam, yaml_path: str, dev, **kw):
     return mas
 
 
-def timing(r: dict) -> dict:
-    return {k: r[k] for k in ("fps", "frame_ms_p50", "frame_ms_p90",
-                              "frame_ms_p99", "frame_ms_max", "lc_epoch_ms")}
-
-
 def run_async(fix_cam, yaml_path: str, dev, frames, traj, out_dir: str,
-              drain: int, smi: str, tag: str):
+              drain: int, tag: str):
     """The asynchronous facade (the mapping worker, depth-4 pipelining,
     ``ServerConfig(async_gba=True)``) fed at the 20 Hz stamps, its back
     end drained every ``drain`` frames (0: never).  Logs its results;
@@ -1545,24 +1280,15 @@ def run_async(fix_cam, yaml_path: str, dev, frames, traj, out_dir: str,
 
     mas = phase8_system(fix_cam, yaml_path, dev, async_mapping=True,
                         server_config=ServerConfig(async_gba=True))
-    res = run_facade(mas, frames, out_dir, dev, census=False, pace=True,
-                     drain=drain)
+    res = run_facade(mas, frames, out_dir, pace=True, drain=drain)
     r = facade_results(mas, res, traj)
     gba = mas.server.gba
+    counters(tag, res["launches"], res["plain"])
     log(tag, drain_every=drain,
         refused=mas.sys.agents[0].kf_insertions_refused,
         gba_started=gba.started if gba is not None else [],
         gba_events=[e for e in mas.server.events if e.startswith("GBA")],
-        **{k: v for k, v in r.items()
-           if not k.startswith(("fps", "frame_ms", "lc_", "launches"))})
-    log("counters", path=tag, launches=res["launches"],
-        plain_calls=res["plain"], per_frame=r["launches_per_frame"])
-    epochs = np.asarray(mas.sys.timers.series.get("LM_0", [0.0]))
-    log(f"{tag}_time", card=repr(smi), paced_hz=1 / DT, **timing(r),
-        epochs=len(mas.sys.epochs),
-        epoch_ms_median=float(np.median(epochs)),
-        epoch_ms_p90=float(np.percentile(epochs, 90)),
-        run_seconds=res["run_s"])
+        **r)
     return mas, res, r
 
 
@@ -1622,7 +1348,6 @@ def resume(mas8b, fix_cam, yaml_path: str, dev, scene, path: str):
     states = [mas.track_monocular(0, img, (FACADE_FRAMES + i) * DT)[0]
               for i, img in enumerate(imgs)]
     mas.shutdown()
-    sync(dev)
     return states, dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
 
 
@@ -1648,13 +1373,16 @@ def kernels_ran(launches: dict, plain: dict, names) -> bool:
         plain.values())
 
 
-def pct(xs) -> dict:
-    """p50 / p90 / p99 / max of ``xs`` (ms)."""
-    a = np.asarray(xs, np.float64)
-    if not len(a):
-        return {}
-    return dict(p50=float(np.percentile(a, 50)), p90=float(np.percentile(a, 90)),
-                p99=float(np.percentile(a, 99)), max=float(a.max()))
+# the kernel launches of every path that phases 4-12 count, for the
+# kernels line
+PATH_LAUNCHES = collections.Counter()
+
+
+def counters(path: str, launches: dict, plain: dict) -> None:
+    """Log one path's kernel launches and plain-version calls, and add
+    the launches to ``PATH_LAUNCHES``."""
+    log("counters", path=path, launches=launches, plain_calls=plain)
+    PATH_LAUNCHES.update(launches)
 
 
 def run_euroc_twin(dev, scene, fix_cam, traj, frames, out: str) -> dict:
@@ -1682,29 +1410,22 @@ def run_euroc_twin(dev, scene, fix_cam, traj, frames, out: str) -> dict:
     mas, agents = twin.build_system([seq], out, dev, FIXTURE_FEATURES, 8,
                                     FACADE_SLAM)
     _build.reset_counts()
-    t0 = time.perf_counter()
     rows = twin.run_sequences(mas, agents, [seq], out,
                               frames_png=len(frames) // 10)[agents[0]]
     ate_lines = twin.finish(mas, agents, [seq], out)
-    sync(dev)
-    run_s = time.perf_counter() - t0
-    launches, plain = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
-    states = [r[1] for r in rows]
-    _, _, t_warm, _ = rows[FACADE_WARM]
-    _, _, t_last, ms_last = rows[-1]
-    res = dict(states=states, frame_ms=[r[3] for r in rows],
-               wall=t_last + ms_last / 1e3 - t_warm, n_events=[0] * len(rows),
-               launches=launches)
+    res = dict(states=[r[1] for r in rows], launches=dict(_build.LAUNCHES),
+               plain=dict(_build.PLAIN_CALLS))
     r = facade_results(mas, res, traj)
     pngs = sorted(os.listdir(os.path.join(out, f"frames_{agents[0]}")))
-    return dict(r=r, res=dict(res, plain=plain), decoded=len(decoded),
+    return dict(r=r, res=res, decoded=len(decoded),
                 loader=_build.host_library("loader")._name,
-                frames_png=len(pngs), ate_lines=ate_lines, run_s=run_s,
+                frames_png=len(pngs), ate_lines=ate_lines,
                 map_png=os.path.getsize(os.path.join(out, "map.png")))
 
 
 def check_euroc_twin(e: dict, out: str) -> None:
-    """Phase 9a's gates: phase 7's, ten annotated frames and map.png."""
+    """Phase 9a's gates: the facade's (``check_facade``), ten annotated
+    frames and map.png."""
     check_facade(e["r"], e["res"], out)
     if e["frames_png"] != 10 or e["map_png"] < 10000:
         raise AssertionError(f"euroc twin: {e['frames_png']} frames drawn, "
@@ -1859,11 +1580,9 @@ def run_daemon(dev, fix_cam, arcs, out: str, hz: float = DAEMON_HZ) -> dict:
         for th in threads:
             th.start()
         _build.reset_counts()
-        t0 = time.perf_counter()
         for th in clients:
             th.start()
         stats = twin.track_loop(mas, buffers, live, idle_exit_s=5.0)
-        wall = time.perf_counter() - t0
         sync(dev)
         launches, plain = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
         clients_alive = [th.is_alive() for th in clients]
@@ -1886,7 +1605,7 @@ def run_daemon(dev, fix_cam, arcs, out: str, hz: float = DAEMON_HZ) -> dict:
     if "error" in map_stats:
         raise map_stats["error"]
     ms = mas.sys.ms
-    res = dict(stats=stats, wall=wall, launches=launches, plain=plain,
+    res = dict(stats=stats, launches=launches, plain=plain,
                clients_alive=clients_alive, sent=sent,
                buffers={k: dict(pushed=b.n_pushed, taken=b.n_taken,
                                 dropped=b.n_dropped, taken_crc=b.taken)
@@ -1894,7 +1613,7 @@ def run_daemon(dev, fix_cam, arcs, out: str, hz: float = DAEMON_HZ) -> dict:
                jpegs={p: multipart_jpegs(b"".join(buf))
                       for p, buf in streams.items()},
                jpeg_hw=(fix_cam.height + 22, fix_cam.width),
-               mapdata=json.loads(mapdata), map_render_ms=map_stats["render_ms"],
+               mapdata=json.loads(mapdata),
                events=list(mas.server.events),
                system_events=list(mas.sys.events),
                maps=[a.map_id for a in mas.sys.agents],
@@ -2056,20 +1775,13 @@ class OrbitMotion:
         return out
 
 
-def run_inertial(dev, scene, cam_r, cam, orb_cfg, cfg, traj, imus,
-                 server_cfg=None, census: int = 0) -> dict:
+def run_inertial(scene, cam_r, cam, orb_cfg, cfg, traj, imus,
+                 server_cfg=None) -> dict:
     """One agent through ``SlamSystem.track(..., imu=)`` (a
     ``LoopServer`` of ``server_cfg`` attached when given), ``imus[i]``
-    fed with frame i.  Per frame: the state, and the host wall of extract
-    + ``track`` (synchronised) of OK frames that ran no mapping epoch,
-    split by the frame's prediction (IMU or constant velocity), with the
-    port's kernel launches of each kind; the IMU_INIT frame, its ms and
-    the initialisation call's own ms; the server events' frame.  With
-    ``census``, that many frames of each kind (no epoch) run alone under
-    torch.profiler, which counts every CUDA kernel and copy they launch
-    (those frames are left out of the timings)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    fed with frame i.  Returns the system, the agent's id, its state a
+    frame, the frame whose call initialised the IMU and the server events
+    of each frame that logged some."""
     from mam3slam_tpu_torch.slam import system
     from mam3slam_tpu_torch.slam.server import LoopServer
 
@@ -2078,73 +1790,18 @@ def run_inertial(dev, scene, cam_r, cam, orb_cfg, cfg, traj, imus,
         sys_.server = LoopServer(sys_, server_cfg)
     aid = sys_.add_agent()
     a = sys_.agents[aid]
-    r = dict(sys=sys_, aid=aid, states=[], ms=dict(imu=[], cv=[]),
-             launches=dict(imu=collections.Counter(),
-                           cv=collections.Counter()),
-             census=dict(imu=[], cv=[]), init_frame=None, init_ms=None,
-             init_call_ms=None, server_frames=[])
-    buffer_and_init = sys_._imu_buffer_and_init
-
-    def timed_init(*args):
-        """The initialisation's own ms (synchronised) on its frame."""
-        before = a.imu_initialized
-        sync(dev)
-        t0 = time.perf_counter()
-        buffer_and_init(*args)
-        sync(dev)
-        if a.imu_initialized and not before:
-            r["init_call_ms"] = (time.perf_counter() - t0) * 1e3
-
-    sys_._imu_buffer_and_init = timed_init
+    r = dict(sys=sys_, aid=aid, states=[], init_frame=None, server_frames=[])
     for i, (R, t, _) in enumerate(traj):
         img = scene.render(R, t, cam_r)
-        kind = ("imu" if imus[i] is not None and a.q is not None
-                and a.imu_initialized and a.imu_init_map == a.map_id
-                else "cv")
-        before, n_epochs = a.state, len(sys_.epochs)
         n_srv = len(sys_.server.events) if sys_.server else 0
-        prof = None
-        if (census and before == system.OK and i % 3 == 0
-                and len(r["census"][kind]) < census):
-            prof = profile(activities=[ProfilerActivity.CPU,
-                                       ProfilerActivity.CUDA])
-            prof.start()
-        sync(dev)
-        n0 = launches_now()
-        t0 = time.perf_counter()
         state, _ = sys_.track(aid, frame_of(img, orb_cfg, cam), i * DT,
                               imu=imus[i])
-        sync(dev)
-        ms = (time.perf_counter() - t0) * 1e3
-        clean = (before == state == system.OK
-                 and len(sys_.epochs) == n_epochs)
-        if prof is not None:
-            prof.stop()
-            if clean:
-                r["census"][kind].append(dict(frame=i, ms=ms,
-                                              **cuda_census(prof)))
-        elif r["init_frame"] is None and a.imu_initialized:
-            r["init_frame"], r["init_ms"] = i, ms
-        elif clean:
-            r["ms"][kind].append(ms)
-            r["launches"][kind].update(launches_now() - n0)
+        if r["init_frame"] is None and a.imu_initialized:
+            r["init_frame"] = i
         r["states"].append(state)
         if sys_.server and len(sys_.server.events) > n_srv:
             r["server_frames"].append((i, sys_.server.events[n_srv:]))
     return r
-
-
-def umeyama(est: np.ndarray, gt: np.ndarray):
-    """Sim3 (s, R, t) with gt ~ s R est + t (Umeyama)."""
-    mx, my = est.mean(0), gt.mean(0)
-    Xc, Yc = est - mx, gt - my
-    U, D, Vt = np.linalg.svd(Yc.T @ Xc / len(est))
-    S = np.eye(3)
-    if np.linalg.det(U) * np.linalg.det(Vt) < 0:
-        S[2, 2] = -1
-    s = np.trace(np.diag(D) @ S) / (Xc ** 2).sum() * len(est)
-    Rm = U @ S @ Vt
-    return s, Rm, my - s * Rm @ mx
 
 
 def inertial_results(r: dict, traj) -> dict:
@@ -2171,13 +1828,12 @@ def inertial_results(r: dict, traj) -> dict:
         if st == system.OK:
             est.append(t_wc)
             gt.append(traj[int(round(ts / DT))][2])
-    est, gt = np.asarray(est, np.float64), np.asarray(gt, np.float64)
-    s, Rm, _ = umeyama(est, gt)
-    span = float(np.ptp(gt, axis=0).max())
+    ate, (s, Rm, _), span = geometry.ate(np.asarray(est, np.float64),
+                                         np.asarray(gt, np.float64))
     out.update(first_ok=first_ok,
                ok_frac=float(np.mean([x == system.OK
                                       for x in states[first_ok:]])),
-               ate_frac=ate_rmse(est, gt) / span, span=span)
+               ate_frac=ate / span, span=span)
     if a.imu_initialized:
         g_true = Rm.T @ np.asarray(GRAVITY_W)
         g = np.asarray(a.gravity_w, np.float64)
@@ -2233,69 +1889,29 @@ def check_inertial(r10: dict, res: dict, burst: dict) -> None:
                              f"gravity {imu['gravity_deg']:.3f} deg")
 
 
-def run_phase10(dev, scene, cam_r, cam, orb_cfg, cfg, loop_arc, loop6b,
-                smi: str):
+def run_phase10(scene, cam_r, cam, orb_cfg, cfg, loop_arc):
     """Phase 10 (the gates are ``check_inertial``'s): 10a, one agent
     with IMU on phase 6b's frames through ``SlamSystem`` + ``LoopServer``
     with their defaults; 10b, the burst frames with IMU and without (no
-    server).  Prints the figures and the timings beside phase 6b's."""
+    server).  Logs the figures; returns 10a's results and kernel counts,
+    then 10b's."""
     from mam3slam_tpu_torch import _build
     from mam3slam_tpu_torch.slam import system
     from mam3slam_tpu_torch.slam.server import ServerConfig
 
     imus = OrbitMotion(LOOP_FRAMES, *LOOP_ARC[:2], bob=LOOP_ARC[2]).imu(10)
     _build.reset_counts()
-    r10 = run_inertial(dev, scene, cam_r, cam, orb_cfg, cfg, loop_arc, imus,
-                       ServerConfig(), census=INERTIAL_CENSUS)
-    sync(dev)
+    r10 = run_inertial(scene, cam_r, cam, orb_cfg, cfg, loop_arc, imus,
+                       ServerConfig())
     res10 = dict(launches=dict(_build.LAUNCHES),
                  plain=dict(_build.PLAIN_CALLS))
-    r10["per_frame"] = {k: per(r10["launches"][k], len(r10["ms"][k]))
-                        for k in ("imu", "cv")}
+    counters("inertial", res10["launches"], res10["plain"])
     i10 = inertial_results(r10, loop_arc)
-    sys_ = r10["sys"]
     log("inertial", frames=len(loop_arc), **{
         k: v for k, v in i10.items() if k not in ("events", "server")})
     log("server_events", path="inertial", events=i10["server"],
-        system=i10["events"], gba_runs=sys_.server.gba_runs)
-    log("counters", path="inertial", launches=res10["launches"],
-        plain_calls=res10["plain"], per_imu_frame=r10["per_frame"]["imu"],
-        per_cv_frame=r10["per_frame"]["cv"])
-    # every CUDA kernel and copy of single frames (torch.profiler), and
-    # of the preintegration + prediction alone
-    from torch.profiler import ProfilerActivity, profile
-
-    a = sys_.agents[r10["aid"]]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        sys_._imu_predict(a, imus[-1])
-        sync(dev)
-    predict = cuda_census(prof)
-    predict_ms = median_ms(lambda: sys_._imu_predict(a, imus[-1]))
-
-    def mean_of(rows, key):
-        return float(np.mean([c[key] for c in rows])) if rows else None
-
-    log("inertial_census", card=repr(smi), **{
-        f"{kind}_{key}": mean_of(r10["census"][kind], key)
-        for kind in ("imu", "cv") for key in ("kernels", "copies",
-                                              "busy_us")},
-        imu_frames=[c["frame"] for c in r10["census"]["imu"]],
-        cv_frames=[c["frame"] for c in r10["census"]["cv"]],
-        predict_kernels=predict["kernels"], predict_copies=predict["copies"],
-        predict_busy_us=predict["busy_us"], predict_ms=predict_ms)
-    lc = sys_.server.timers.series.get("LC", [])
-    log("inertial_time", card=repr(smi),
-        **{f"track_ms_{kind}_{k}": v for kind in ("imu", "cv")
-           for k, v in pct(r10["ms"][kind]).items()},
-        **{f"phase6b_track_ms_{k}": v
-           for k, v in pct(loop6b["track_ms"]).items()},
-        imu_frames=len(r10["ms"]["imu"]), cv_frames=len(r10["ms"]["cv"]),
-        init_frame=r10["init_frame"], init_frame_ms=r10["init_ms"],
-        init_call_ms=r10["init_call_ms"],
-        lc_4dof_ms=[round(v, 3) for v in lc],
-        phase6b_lc_sim3_ms=[round(v, 3) for v in loop6b["lc_ms"]])
-    del sys_, a, r10["sys"]
+        system=i10["events"], gba_runs=r10["sys"].server.gba_runs)
+    del r10
 
     motion = OrbitMotion(BURST_FRAMES, 0.0, 0.8 * (BURST_FRAMES - 1),
                          bob=LOOP_ARC[2], burst=(BURST_AT, BURST_LEN,
@@ -2305,33 +1921,27 @@ def run_phase10(dev, scene, cam_r, cam, orb_cfg, cfg, loop_arc, loop6b,
     _build.reset_counts()
     burst = {}
     for kind, feed in (("imu", bimus), ("cv", [None] * len(bimus))):
-        rb = run_inertial(dev, scene, cam_r, cam, orb_cfg, cfg, btraj, feed)
+        rb = run_inertial(scene, cam_r, cam, orb_cfg, cfg, btraj, feed)
         burst[kind] = dict(states=rb["states"], init_frame=rb["init_frame"],
                            n_fallback=rb["sys"].agents[0].n_fallback,
-                           ms=pct(rb["ms"]["imu"] + rb["ms"]["cv"]),
-                           init_frame_ms=rb["init_ms"],
-                           init_call_ms=rb["init_call_ms"],
                            **{k: v for k, v in inertial_results(
                                rb, btraj).items() if k in (
                                    "ok_frac", "ate_frac", "scale_err",
                                    "gravity_deg")})
         del rb
-    sync(dev)
     res10b = dict(launches=dict(_build.LAUNCHES),
                   plain=dict(_build.PLAIN_CALLS))
+    counters("burst", res10b["launches"], res10b["plain"])
     log("burst", at=BURST_AT, frames=len(btraj), **{
         f"{kind}_{k}": v for kind, b in burst.items() for k, v in (
             ("init_frame", b["init_frame"]), ("n_fallback", b["n_fallback"]),
             ("ok_in_burst", b["states"][BURST_AT:BURST_AT + 15].count(
                 system.OK)),
-            ("track_ms", b["ms"]), ("init_frame_ms", b["init_frame_ms"]),
-            ("init_call_ms", b["init_call_ms"]),
             ("ok_frac", b.get("ok_frac")),
             ("ate_frac", b.get("ate_frac")),
             ("scale_err", b.get("scale_err")),
-            ("gravity_deg", b.get("gravity_deg")))},
-        launches=res10b["launches"], plain_calls=res10b["plain"])
-    return r10, res10, i10, burst, res10b
+            ("gravity_deg", b.get("gravity_deg")))})
+    return i10, res10, burst, res10b
 
 
 # ---------------------------------------------------------------------------
@@ -2369,9 +1979,8 @@ def solve_all(mesh, ms, cfg, map_id: int, pose_args, dev) -> dict:
     oldest fixed (``anchored_mask``): ``dist_run_ba`` on its edge list
     (6 x 30), the three window solvers on its two-view problem (10 LM
     iterations), ``batched_pose_optimization``.
-    Returns, per solver, its result as numpy and its wall ms (the card
-    synchronised), and ``cam_held`` / ``pt_held``: the window cameras and
-    points compared."""
+    Returns, per solver, its result as numpy, and ``cam_held`` /
+    ``pt_held``: the window cameras and points compared."""
     from mam3slam_tpu_torch import convert
     from mam3slam_tpu_torch.parallel import dist_ba
     from mam3slam_tpu_torch.parallel import dist_window_ba as dwb
@@ -2400,11 +2009,7 @@ def solve_all(mesh, ms, cfg, map_id: int, pose_args, dev) -> dict:
                pt_held=(window.pm_valid.sum(1) >= PHASE11_MIN_OBS)
                .cpu().numpy())
     for name, fn in runs.items():
-        sync(dev)
-        t0 = time.perf_counter()
-        res = fn()
-        sync(dev)
-        out[name] = (convert.to_numpy(res), (time.perf_counter() - t0) * 1e3)
+        out[name] = convert.to_numpy(fn())
     return out
 
 
@@ -2444,12 +2049,8 @@ def rank11b(mesh, atlas: str, cfg, map_id: int, device: str):
         out["joined"] = dwb.serve(mesh)
         return out
     srv = LoopServer(sys_, ServerConfig(gba_mesh=mesh))
-    sync(dev)
-    t0 = time.perf_counter()
     srv._run_gba(map_id)
-    sync(dev)
-    out["server"] = (convert.to_numpy(sys_.ms), (time.perf_counter() - t0)
-                     * 1e3)
+    out["server"] = convert.to_numpy(sys_.ms)
     dwb.stop(mesh)
     return out
 
@@ -2476,7 +2077,7 @@ def gauge_diff(a, b, cams, pts) -> dict:
     (qa, ta, pa), (qb, tb, pb) = ([np.asarray(x, np.float64) for x in y]
                                   for y in (a, b))
     ca, cb = centres(qa[cams], ta[cams]), centres(qb[cams], tb[cams])
-    s, Rm, t = umeyama(ca, cb)
+    s, Rm, t = geometry.umeyama(ca, cb)
     n = min(len(pa), len(pb))
     pa, pb, sel = pa[:n], pb[:n], np.asarray(pts)[:n]
     return dict(
@@ -2498,7 +2099,7 @@ def max_diff(a, b, sel=None) -> float:
 
 
 def phase11b(dev, atlas: str, cfg, map_id: int, world1: dict, gba1,
-             dense_gba: bool, sel, smi: str, tmp: str) -> None:
+             dense_gba: bool, sel, tmp: str) -> None:
     """Phase 11b: two NCCL ranks on the one card (the outcome logged),
     then 11a's atlas on 2 and 4 gloo ranks and a (2, 2) mesh sharing the
     card (``rank11b``), each held to 11a's world-of-one results
@@ -2508,7 +2109,6 @@ def phase11b(dev, atlas: str, cfg, map_id: int, world1: dict, gba1,
     from mam3slam_tpu_torch.parallel import mesh as pmesh
 
     kf, mp = sel
-    t11b = time.perf_counter()
     try:
         pmesh.run_ranks(nccl_two_ranks, (2,), ("shard",),
                         os.path.join(tmp, "nccl2"), backend="nccl",
@@ -2518,8 +2118,6 @@ def phase11b(dev, atlas: str, cfg, map_id: int, world1: dict, gba1,
         lines = str(e).splitlines()
         nccl2 = next((ln for ln in lines if "Duplicate" in ln), lines[-1])
     log("nccl_two_ranks_one_card", outcome=repr(nccl2[:300]))
-    timings = {1: {k: v[1] for k, v in world1.items()
-                   if k not in ("cam_held", "pt_held")}}
     for shape, names in PHASE11_MESHES:
         key = "x".join(map(str, shape))
         ranks = pmesh.run_ranks(rank11b, shape, names,
@@ -2531,27 +2129,25 @@ def phase11b(dev, atlas: str, cfg, map_id: int, world1: dict, gba1,
         held = (world1["cam_held"], world1["pt_held"])
 
         def window(name, res):
-            return gauge_diff((res[name][0].cam_q, res[name][0].cam_t,
-                               res[name][0].pts),
-                              (world1[name][0].cam_q, world1[name][0].cam_t,
-                               world1[name][0].pts), *held)
+            return gauge_diff((res[name].cam_q, res[name].cam_t,
+                               res[name].pts),
+                              (world1[name].cam_q, world1[name].cam_t,
+                               world1[name].pts), *held)
 
-        srv_state = r0["server"][0]
+        srv_state = r0["server"]
         got = dict(
-            run_ba=max_diff(r0["run_ba"][0].cam_t, world1["run_ba"][0].cam_t),
-            pose=max_diff(r0["pose"][0].t, world1["pose"][0].t),
+            run_ba=max_diff(r0["run_ba"].cam_t, world1["run_ba"].cam_t),
+            pose=max_diff(r0["pose"].t, world1["pose"].t),
             **{name: window(name, r0) for name in ("dense", "psum", "cg")},
             server=gauge_diff((srv_state.kf_q, srv_state.kf_t,
                                srv_state.mp_pos),
                               (gba1.kf_q, gba1.kf_t, gba1.mp_pos), kf, mp))
         # the solvers' replicated results are equal bit for bit on every
         # rank (their sums take one order)
-        same = all(max_diff(r[k][0].cam_t, r0[k][0].cam_t) == 0.0
+        same = all(max_diff(r[k].cam_t, r0[k].cam_t) == 0.0
                    for r in ranks[1:]
                    for k in ("run_ba", "dense", "psum", "cg"))
         joined = [r["joined"] for r in ranks[1:]]
-        timings[key] = {k: r0[k][1] for k in ("run_ba", "dense", "psum", "cg",
-                                              "pose", "server")}
         log("gloo_ranks", mesh=key, axes=names, agree_with_world1=got,
             ranks_bit_equal=same, followers_joined=joined,
             tol="run_ba cam_t<1e-2, pose t<1e-4; after the gauge "
@@ -2570,26 +2166,20 @@ def phase11b(dev, atlas: str, cfg, map_id: int, world1: dict, gba1,
                      if dense_gba else srv["centre"] < 2e-2)
                 and same and joined == [1] * len(joined)):
             raise AssertionError(f"the {key} mesh disagrees with world 1")
-    log("gloo_ranks_time", card=repr(smi),
-        note="all ranks share one card over gloo: the cost of the "
-        "collectives, not scaling", ms_per_solve=timings,
-        phase11b_seconds=time.perf_counter() - t11b)
 
 
-def run_phase11(dev, scene6, cam_r, cam, orb_cfg, cfg, smi: str, tmp: str,
-                rows: list) -> dict:
+def run_phase11(dev, scene6, cam_r, cam, orb_cfg, cfg, tmp: str) -> int:
     """Phase 11a: ``SlamSystem`` + ``LoopServer(gba_mesh=)`` on a one-rank
     NCCL mesh with four agents (every global BA through
     ``dist_global_ba``), its gates, then the distributed solvers on the
     merged map against the single-card ones and the batched pose kernel
-    at B = 4 and 8 against its plain version (timed into ``rows``).
-    Phase 11b: the same state on 2 and 4 gloo ranks and a (2, 2) mesh
-    sharing the card, held to 11a's world-of-one results.  Returns the
-    main path's launches and the kernels' launches per frame."""
+    at B = 4 and 8 against its plain version.  Phase 11b: the same state
+    on 2 and 4 gloo ranks and a (2, 2) mesh sharing the card, held to
+    11a's world-of-one results.  Saves 11a's atlas in ``tmp`` as
+    ``phase11.npz`` and returns the id of its merged map."""
     from mam3slam_tpu_torch import _build, convert
     from mam3slam_tpu_torch.io import render
     from mam3slam_tpu_torch.mapstate import checkpoint
-    from mam3slam_tpu_torch.ops import cuda_pose as CP
     from mam3slam_tpu_torch.parallel import dist_ba
     from mam3slam_tpu_torch.parallel import dist_window_ba as dwb
     from mam3slam_tpu_torch.parallel import mesh as pmesh
@@ -2598,7 +2188,6 @@ def run_phase11(dev, scene6, cam_r, cam, orb_cfg, cfg, smi: str, tmp: str,
     from mam3slam_tpu_torch.solvers import ba as ba_mod
     from mam3slam_tpu_torch.solvers import ba_window as bw
 
-    t11 = time.perf_counter()
     arcs = [render.orbit_trajectory(PHASE11_FRAMES, a0, a1, radius=2.5,
                                     bob=b) for a0, a1, b in PHASE11_ARCS]
     mesh = pmesh.init_mesh((1,), ("shard",), "nccl",
@@ -2609,49 +2198,36 @@ def run_phase11(dev, scene6, cam_r, cam, orb_cfg, cfg, smi: str, tmp: str,
         # on the mesh; the single-card programs are counted (none may run)
         progs = system.programs(cfg, cfg.cam_kind)
         single = {k: progs[k] for k in ("global_ba", "global_ba_masks")}
-        single_calls = collections.Counter()
-        dist_gba, gba_ms = dwb.dist_global_ba, []
+        dist_gba, calls = dwb.dist_global_ba, collections.Counter()
 
-        def timed_dist_gba(*args, **kw):
-            sync(dev)
-            t0 = time.perf_counter()
-            out = dist_gba(*args, **kw)
-            sync(dev)
-            gba_ms.append((time.perf_counter() - t0) * 1e3)
-            return out
-
-        def counted(name):
+        def counted(name, fn):
             def call(*args, **kw):
-                single_calls[name] += 1
-                return single[name](*args, **kw)
+                calls[name] += 1
+                return fn(*args, **kw)
             return call
 
-        dwb.dist_global_ba = timed_dist_gba
-        progs.update({k: counted(k) for k in single})
+        dwb.dist_global_ba = counted("dist_global_ba", dist_gba)
+        progs.update({k: counted(k, fn) for k, fn in single.items()})
         _build.reset_counts()
         try:
-            sys11, agents, per = run_slam(dev, scene6, cam_r, cam, orb_cfg,
-                                          cfg, arcs,
-                                          ServerConfig(gba_mesh=mesh))
-            sync(dev)
+            sys11, agents = run_slam(dev, scene6, cam_r, cam, orb_cfg, cfg,
+                                     arcs, ServerConfig(gba_mesh=mesh))
         finally:
             dwb.dist_global_ba = dist_gba
             progs.update(single)
         launches = dict(_build.LAUNCHES)
         plain = dict(_build.PLAIN_CALLS)
+        counters("four_agents", launches, plain)
         srv = sys11.server
         merges = [e for e in srv.events if e.startswith("MERGE")]
-        log("counters", path="four_agents", launches=launches,
-            plain_calls=plain, **per)
         log("four_agents", merges=len(merges), gba_runs=srv.gba_runs,
-            dist_gba_ms=[round(v, 3) for v in gba_ms],
-            single_card_gba_calls=dict(single_calls), card=repr(smi),
-            slam_seconds=time.perf_counter() - t11)
+            global_ba_calls=dict(calls))
         check_merge(sys11, agents, arcs, PHASE11_MAX_ATE_FRAC)
         if len(merges) < PHASE11_MIN_MERGES:
             raise AssertionError(f"{len(merges)} MERGE events")
-        if (not gba_ms or len(gba_ms) != len(srv.gba_runs)
-                or sum(single_calls.values())):
+        if (not calls["dist_global_ba"]
+                or calls["dist_global_ba"] != len(srv.gba_runs)
+                or any(calls[k] for k in single)):
             raise AssertionError("a global BA ran outside dist_global_ba")
         if not kernels_ran(launches, plain, KERNELS):
             raise AssertionError("11a did not run every kernel")
@@ -2708,13 +2284,7 @@ def run_phase11(dev, scene6, cam_r, cam, orb_cfg, cfg, smi: str, tmp: str,
                                cost0=cost0, cost=float(ba_dist.cost))
         world1 = solve_all(mesh, ms, cfg, map_id,
                            pose_batch(dev, max(PHASE11_POSE_B))[1], dev)
-        ms_single = median_ms(lambda: glob(ms, map_id), reps=3, warmup=1)
-        ms_dist = median_ms(lambda: dwb.dist_global_ba(ms, cfg, mesh, map_id,
-                                                        kind), reps=3,
-                            warmup=0)
-        log("four_agents_gba", card=repr(smi), free_keyframes=n_free,
-            single_card_ms=ms_single, dist_world1_ms=ms_dist,
-            robust_costs=costs,
+        log("four_agents_gba", free_keyframes=n_free, robust_costs=costs,
             tol="after the similarity that aligns the "
             "camera centres (the gauge): dense vs single card centres<5e-3 "
             "points<2e-2 (points >= 3 keyframes observe), psum-CG vs the "
@@ -2731,40 +2301,22 @@ def run_phase11(dev, scene6, cam_r, cam, orb_cfg, cfg, smi: str, tmp: str,
                                  "the single-card one")
 
         # the pose kernel at the agent batch: one launch of B problems
-        pose_us = {}
         for B in PHASE11_POSE_B:
             pcam, stacked, probs = pose_batch(dev, B)
             res = dist_ba.batched_pose_optimization(mesh, kind, "shard")(
                 *stacked)
-            errs, n_in = zip(*(check_pose(f"batched B={B} agent {b}", pcam,
-                                          probs[b], [x[b] for x in res])
-                               for b in range(B)))
-            work = [pose_work(int(p[-1].sum()), n, 1024, kind)
-                    for p, n in zip(probs, n_in)]
-            kargs = stacked[:3] + (kind,) + stacked[3:]
-            measure(rows, "pose_opt",
-                    f"batched_pose_optimization B={B} x N=1024, one launch",
-                    max(errs), lambda: CP.pose_optimization_batched(*kargs),
-                    lambda: [CP.pose_optimization_plain(*p) for p in probs],
-                    (sum(w[0] for w in work), work[0][1],
-                     sum(w[2] for w in work)), plain_reps=3)
-            pose_us[B] = rows[-1]["device_ms"] * 1e3
+            for b in range(B):
+                check_pose(f"batched B={B} agent {b}", pcam, probs[b],
+                           [x[b] for x in res])
         atlas = os.path.join(tmp, "phase11.npz")
         checkpoint.save_atlas(sys11, atlas)
-        log("four_agents_time", card=repr(smi),
-            pose_device_us_per_launch=pose_us,
-            world1_solve_ms={k: round(v[1], 3) for k, v in world1.items()
-                             if k not in ("cam_held", "pt_held")},
-            phase11a_seconds=time.perf_counter() - t11)
         del sys11
     finally:
         pmesh.close_mesh()
 
     phase11b(dev, atlas, cfg, map_id, world1, gba1, n_free <= 32, (kf, mp),
-             smi, tmp)
-    log("four_agents_done", phase11_seconds=time.perf_counter() - t11)
-    return dict(launches=launches, per_frame=per["per_frame"],
-                pose_us=pose_us, map_id=map_id)
+             tmp)
+    return map_id
 
 
 # ---------------------------------------------------------------------------
@@ -2783,126 +2335,59 @@ def resize_yaml(src_cam, work_cam) -> str:
                                    f"Camera.newHeight: {work_cam.height}\n")
 
 
-def span_kernels(prof, name: str) -> int:
-    """The CUDA kernels that a torch.profiler window attributes to the
-    ``record_function`` spans called ``name`` and the ops inside them."""
-    from torch.autograd import DeviceType
-
-    def count(e):
-        return len(e.kernels) + sum(count(c) for c in e.cpu_children)
-
-    return sum(count(e) for e in prof.events()
-               if e.name == name and e.device_type == DeviceType.CPU)
-
-
-def check_resize(dev, smi: str) -> list:
+def check_resize(dev) -> None:
     """Phase 12a: ``area_resize`` on the card against the same call on the
     CPU, f32 noise in 0..255 from a seed, at every ``RESIZE_PAIRS``
-    shape; per pair the CUDA-event us of one call (median of 20), its
-    device us (``device_ms``: 20 calls queued behind a sleep, so no host
-    gap is timed) and the kernels a call launches (``span_kernels`` of
-    20 calls inside a torch.profiler window that 3 calls open: windows
-    taken one after another lost kernels at their edges).  Returns the
-    rows."""
-    from torch.profiler import ProfilerActivity, profile
-
+    shape."""
     from mam3slam_tpu_torch import api
 
     rng = np.random.default_rng(12)
-    rows = []
     for (h, w), (dh, dw) in RESIZE_PAIRS:
         img = rng.uniform(0, 255, (h, w)).astype(np.float32)
-        x = torch.tensor(img, device=dev)
-        got = api.area_resize(x, dh, dw)
+        got = api.area_resize(torch.tensor(img, device=dev), dh, dw)
         err = float((got.cpu() - api.area_resize(torch.tensor(img), dh,
                                                  dw)).abs().max())
-        call_ms = median_ms(lambda: api.area_resize(x, dh, dw))
-        dev_ms, timer, _ = device_ms(lambda: api.area_resize(x, dh, dw))
-        sync(dev)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                api.area_resize(x, dh, dw)
-            sync(dev)
-            with torch.profiler.record_function("calls"):
-                for _ in range(20):
-                    api.area_resize(x, dh, dw)
-            sync(dev)
-        row = dict(src=f"{h}x{w}", dst=f"{dh}x{dw}",
-                   rule="area" if dh <= h and dw <= w else "two-tap",
-                   max_abs_err=err, call_us=call_ms * 1e3,
-                   device_us=dev_ms * 1e3, timer=timer,
-                   kernels_per_call=span_kernels(prof, "calls") / 20)
-        log("resize", card=repr(smi), **row)
+        log("resize", src=f"{h}x{w}", dst=f"{dh}x{dw}",
+            rule="area" if dh <= h and dw <= w else "two-tap",
+            max_abs_err=err)
         if tuple(got.shape) != (dh, dw) or not err <= RESIZE_MAX_ERR:
             raise AssertionError(f"area_resize {h}x{w} -> {dh}x{dw}: "
                                  f"{err} from the CPU's")
-        rows.append(row)
-    return rows
 
 
-def run_resize(dev, scene, tmp: str, name: str, scale: float,
-               smi: str) -> dict:
+def run_resize(dev, scene, tmp: str, name: str, scale: float) -> None:
     """Phase 12b, one direction: the first ``RESIZE_FRAMES`` frames of
     phase 7's orbit rendered by the fixture camera at ``scale`` and fed as
     u8 host frames to a facade whose settings resize them to the fixture
-    point (``run_facade``: frames 40-59 profiled with the resize's
-    kernels counted apart, 60-119 timed).  Checks the working geometry,
-    the scaled intrinsics, the OK share, the ATE bound and the kernels;
-    returns the run's launches and results."""
+    point (``run_facade``).  Checks the working geometry, the scaled
+    intrinsics, the OK share, the ATE bound and the kernels."""
     from mam3slam_tpu_torch import api
     from mam3slam_tpu_torch.io import render
     from mam3slam_tpu_torch.slam.server import ServerConfig
 
     src = render.reference_kb8_cam(scale)
-    work = render.reference_kb8_cam(FIXTURE_SCALE)
+    work_cam = render.reference_kb8_cam(FIXTURE_SCALE)
     traj = render.orbit_trajectory(FACADE_FRAMES, *FACADE_ARC[:2],
                                    radius=2.5,
                                    bob=FACADE_ARC[2])[:RESIZE_FRAMES]
     frames = [u8_frame(scene.render(R, t, src)) for R, t, _ in traj]
     path = os.path.join(tmp, f"kb8_{name}.yaml")
     with open(path, "w") as f:
-        f.write(resize_yaml(src, work))
-    mas = api.MultiAgentSystem(slam_config=facade_config(work),
+        f.write(resize_yaml(src, work_cam))
+    mas = api.MultiAgentSystem(slam_config=facade_config(work_cam),
                                server_config=ServerConfig(), device=dev)
     mas.add_agent(path)
-    resize = api.area_resize
-
-    def annotated(img, height, width):
-        with torch.profiler.record_function("area_resize"):
-            return resize(img, height, width)
-
-    api.area_resize = annotated
-    try:
-        res = run_facade(mas, frames, os.path.join(tmp, f"output_{name}"),
-                         dev, spans=("area_resize",))
-    finally:
-        api.area_resize = resize
+    res = run_facade(mas, frames, os.path.join(tmp, f"output_{name}"))
     r = facade_results(mas, res, traj)
-    cen = res["census"]
-    busy = cen["busy_us"] / FACADE_CENSUS
-    resize_us = cen.get("area_resize_us", 0.0) / FACADE_CENSUS
-    factor = work.width / src.width
+    counters(f"resize_{name}", res["launches"], res["plain"])
+    factor = work_cam.width / src.width
     params = mas.sys.agents[0].cam.params[:4].cpu().numpy()
     want = np.float32([src.fx, src.fy, src.cx, src.cy]) * factor
     log("resize_facade", direction=name, frame=f"{src.width}x{src.height}",
         working=(mas.sys.cfg.width, mas.sys.cfg.height), factor=factor,
-        intrinsics=params.tolist(),
-        **{k: v for k, v in r.items()
-           if not k.startswith(("fps", "frame_ms", "lc_", "launches"))})
-    log("counters", path=f"resize_{name}", launches=res["launches"],
-        plain_calls=res["plain"], per_frame=r["launches_per_frame"])
-    log("resize_facade_time", card=repr(smi), direction=name,
-        fps_frames_60_119=r["fps"],
-        **{k: r[k] for k in ("frame_ms_p50", "frame_ms_p90",
-                             "frame_ms_p99", "frame_ms_max")},
-        census_frames=cen["frames"],
-        cuda_kernels_per_frame=cen["kernels"] / FACADE_CENSUS,
-        device_busy_ms_per_frame=busy / 1e3,
-        resize_device_us_per_frame=resize_us,
-        resize_share_of_busy=resize_us / busy if busy else None,
-        run_seconds=res["run_s"])
-    if (mas.sys.cfg.width, mas.sys.cfg.height) != (work.width, work.height):
+        intrinsics=params.tolist(), **r)
+    if (mas.sys.cfg.width, mas.sys.cfg.height) != (work_cam.width,
+                                                   work_cam.height):
         raise AssertionError(f"12b {name}: working geometry "
                              f"{mas.sys.cfg.width}x{mas.sys.cfg.height}")
     if not np.allclose(params, want, rtol=1e-5):
@@ -2916,28 +2401,11 @@ def run_resize(dev, scene, tmp: str, name: str, scale: float,
     if not kernels_ran(res["launches"], res["plain"], SLAM_KERNELS):
         raise AssertionError(f"12b {name}: the facade did not run its "
                              f"kernels")
-    return dict(launches=res["launches"], r=r)
 
 
 # ---------------------------------------------------------------------------
 # phase 13: reproducibility on the card
 # ---------------------------------------------------------------------------
-
-def segsum_work(plan, vals):
-    """Operations and bytes of one fixed-order segment sum on these
-    inputs: an add per kept value and 31 per used segment and column (the
-    lane fold); each kept row's values and its sorted index read once,
-    the segment table (start, end, key) read once, each output row
-    written once."""
-    C = math.prod(vals.shape[1:])
-    es = vals.element_size()
-    length = plan.end - plan.start
-    kept, used = int(length.sum()), int((length > 0).sum())
-    return (kept * C + 31 * used * C,
-            F32_OPS if vals.dtype == torch.float32 else F64_OPS,
-            kept * (C * es + 4) + 12 * plan.start.shape[0]
-            + plan.n_out * C * es)
-
 
 def plan_index(plan) -> torch.Tensor:
     """The index a plan was built from, its dropped rows at ``n_out``."""
@@ -3096,7 +2564,9 @@ def run_phase13(dev, atlas: str, cfg, map_id: int, scene, cam_r, orb_cfg,
         measure(rows, "segsum", caller, err,
                 lambda: segsum.segment_sum(plan, vals),
                 lambda: segsum.segment_sum_plain(plan, vals),
-                segsum_work(plan, vals), plain_reps=5, library_fn=library,
+                work.segsum_work(plan.start, plan.end, plan.n_out,
+                                 vals.shape, vals.dtype),
+                plain_reps=5, library_fn=library,
                 only="segsum")
         if parent is not None:
             segsum_ab(parent, plan, vals, caller, library, smi)
@@ -3278,6 +2748,18 @@ def sim3_errors(args, got, want) -> dict:
                 inliers_differ=int(((got[3] != want[3]) & ~edge).sum()))
 
 
+def sim3_work(n: int, n_valid: int, kinds, iters: int = 20):
+    """``iters`` linearisations of both directions of each valid pair
+    (``SIM3_OPS[kind][0]``), then one residual pass for the inliers
+    (``[1]``); each pair's valid flag read and inlier flag written, each
+    valid pair's 48 bytes (points, pixels, sigma^2) read once, 96 bytes of
+    cameras and start in, 40 out."""
+    lin = sum(SIM3_OPS[k][0] for k in kinds)
+    res = sum(SIM3_OPS[k][1] for k in kinds)
+    return (iters * n_valid * lin + n_valid * res, work.F32_OPS,
+            2 * n + 48 * n_valid + 136)
+
+
 def run_phase14(dev, smi: str) -> list:
     """OptimizeSim3's kernel against its plain version at
     ``SIM3_SHAPES``; raises where it disagrees, launches otherwise than
@@ -3302,7 +2784,7 @@ def run_phase14(dev, smi: str) -> list:
                 or _build.LAUNCHES["sim3_opt"] != before + 2):
             raise AssertionError(f"phase 14, {caller}: {err}, same bits "
                                  f"{same}")
-        b_ms, b_by = bound_ms(*sim3_work(n, n_valid, kinds))
+        b_ms, b_by = bound(sim3_work(n, n_valid, kinds))
         dev_ms = events_ms(lambda: CS.optimize_sim3(*args))
         row = dict(kernel=SIM3[0], caller=caller,
                    max_abs_err=max(err["angle"], err["t_rel"], err["s_rel"]),
@@ -3474,7 +2956,7 @@ def pgo_work(K: int, E: int, iters: int):
     n = 7 * K
     ops = iters * (n ** 3 / 3 + 2 * n * n + 16 * E * PGO_LANE_OPS
                    + (K + E) * PGO_VALUE_OPS) + E * PGO_VALUE_OPS
-    return ops, F32_OPS, iters * 3 * 4 * 49 * K * K
+    return ops, work.F32_OPS, iters * 3 * 4 * 49 * K * K
 
 
 def pgo_profile(fn, reps: int = 3) -> dict:
@@ -3547,7 +3029,7 @@ def run_phase15(dev, smi: str) -> list:
             raise AssertionError(f"phase 15, {caller}: {err}, same bits "
                                  f"{same}, launches {launched}, no plain "
                                  f"{no_plain}")
-        b_ms, b_by = bound_ms(*pgo_work(PGO_K, E, iters))
+        b_ms, b_by = bound(pgo_work(PGO_K, E, iters))
         dev_ms = events_ms(kern, reps=5)
         prof = pgo_profile(kern)
         row = dict(kernel=PGO[0], caller=caller,
@@ -3644,30 +3126,23 @@ def main() -> int:
     cam = cameras.make_pinhole(FX, FY, CX, CY, device=dev)
     arc0 = render.orbit_trajectory(N_ARC, 0, N_ARC, radius=2.5, bob=0.05)
     arc1 = render.orbit_trajectory(N_ARC, 0, N_ARC, radius=2.5, bob=-0.05)
-    t0 = time.perf_counter()
     ms = seed_map(dev, scene, cam_r, cam, orb_cfg, cfg, arc0)
     n_kf = int(ms.kf_valid.sum())
     n_mp = int(ms.mp_valid.sum())
-    log("map", keyframes=n_kf, map_points=n_mp,
-        seconds=time.perf_counter() - t0)
+    log("map", keyframes=n_kf, map_points=n_mp)
     if n_kf < 24 or n_mp < 10000:
         raise AssertionError("map smaller than 24 KF / 10k points")
 
     _build.reset_counts()
-    res, ms, track_per_frame = track_agents(
-        dev, scene, cam_r, cam, orb_cfg, cfg, ms, [arc0, arc1], n_kf,
-        ref_frame=N_ARC // 2)
-    torch.cuda.synchronize()
-    launches = dict(_build.LAUNCHES)
-    plain = dict(_build.PLAIN_CALLS)
+    res, ms = track_agents(dev, scene, cam_r, cam, orb_cfg, cfg, ms,
+                           [arc0, arc1], n_kf, ref_frame=N_ARC // 2)
+    counters("track", dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS))
+    if not kernels_ran(_build.LAUNCHES, _build.PLAIN_CALLS, KERNELS):
+        raise AssertionError("the main path did not run every kernel")
     for a, r in enumerate(res):
-        ms_frame = 1e3 * np.asarray(r["sec"])
         log("track", agent=a, frames=len(r["n_in"]),
             min_inliers=min(r["n_in"]), max_t_err_m=max(r["t_err"]),
-            max_r_err_deg=math.degrees(max(r["r_err"])),
-            frames_per_s=len(ms_frame) / (ms_frame.sum() / 1e3),
-            frame_ms_median=float(np.median(ms_frame)),
-            frame_ms_p90=float(np.percentile(ms_frame, 90)), card=repr(smi))
+            max_r_err_deg=math.degrees(max(r["r_err"])))
         ref = r["ref"]
         log("track_ref_kf", agent=a, n_in=ref["n_in"],
             n_matches=ref["n_matches"], t_err_m=ref["t_err"],
@@ -3677,29 +3152,17 @@ def main() -> int:
             raise AssertionError(f"agent {a} lost the true pose")
         if ref["t_err"] > MAX_T_ERR or ref["r_err"] > MAX_R_ERR:
             raise AssertionError(f"agent {a}: track_ref_kf off the pose")
-    log("counters", path="track", launches=launches, plain_calls=plain,
-        per_tracked_frame=track_per_frame)
-    if any(launches.get(k, 0) == 0 for k in KERNELS) or any(plain.values()):
-        raise AssertionError("the main path did not run every kernel")
 
     # 5. SLAM from no images: two agents, one arena, track() only
     arcs = [render.orbit_trajectory(SLAM_FRAMES, a0, a1, radius=2.5, bob=b)
             for a0, a1, b in SLAM_ARCS]
     _build.reset_counts()
-    t0 = time.perf_counter()
-    sys_, agents, slam_per = run_slam(dev, scene, cam_r, cam, orb_cfg, cfg,
-                                      arcs)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    slam_launches = dict(_build.LAUNCHES)
-    slam_plain = dict(_build.PLAIN_CALLS)
-    log("counters", path="slam", launches=slam_launches,
-        plain_calls=slam_plain, seconds=seconds, **slam_per)
-    check_slam(sys_, agents, arcs)
-    slam_times(sys_, agents, smi)
-    if (any(slam_launches.get(k, 0) == 0
-            for k in (*SLAM_KERNELS, SEGSUM[0])) or any(slam_plain.values())):
+    sys_, agents = run_slam(dev, scene, cam_r, cam, orb_cfg, cfg, arcs)
+    counters("slam", dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS))
+    if not kernels_ran(_build.LAUNCHES, _build.PLAIN_CALLS,
+                       (*SLAM_KERNELS, SEGSUM[0])):
         raise AssertionError("the SLAM path did not run its kernels")
+    check_slam(sys_, agents, arcs)
 
     # 6. the loop server: 6a merge then relocalization, 6b loop closure
     from mam3slam_tpu_torch.slam.server import ServerConfig
@@ -3710,35 +3173,22 @@ def main() -> int:
     loop_arc = render.orbit_trajectory(LOOP_FRAMES, *LOOP_ARC[:2],
                                        radius=2.5, bob=LOOP_ARC[2])
     _build.reset_counts()
-    t0 = time.perf_counter()
-    sys6, agents6, _ = run_slam(dev, scene6, cam_r, cam, orb_cfg, cfg,
-                                merge_arcs, ServerConfig())
+    sys6, agents6 = run_slam(dev, scene6, cam_r, cam, orb_cfg, cfg,
+                             merge_arcs, ServerConfig())
     check_merge(sys6, agents6, merge_arcs, MERGE_MAX_ATE_FRAC)
     relocalize(sys6, scene6, cam_r, cam, orb_cfg, agents6[1]["aid"],
                merge_arcs[0], MERGE_FRAMES * DT)
-    torch.cuda.synchronize()
     merge_launches = dict(_build.LAUNCHES)
     merge_plain = dict(_build.PLAIN_CALLS)
-    log("counters", path="merge_reloc", launches=merge_launches,
-        plain_calls=merge_plain, seconds=time.perf_counter() - t0)
-    server_times(sys6, smi, "merge_reloc")
-    map6 = sys6.agents[0].map_id
-    log("global_ba", map_id=map6, card=repr(smi),
-        keyframes=int((sys6.ms.kf_valid & (sys6.ms.kf_map == map6)).sum()),
-        caps=(cfg.max_kf, cfg.max_mp),
-        ms=median_ms(lambda: sys6.fns["global_ba"](sys6.ms, map6), reps=1,
-                     warmup=1))
+    counters("merge_reloc", merge_launches, merge_plain)
     del sys6
 
     _build.reset_counts()
-    t0 = time.perf_counter()
-    sys6, agents6, _ = run_slam(dev, scene6, cam_r, cam, orb_cfg, cfg,
-                                [loop_arc], ServerConfig())
-    torch.cuda.synchronize()
+    sys6, agents6 = run_slam(dev, scene6, cam_r, cam, orb_cfg, cfg,
+                             [loop_arc], ServerConfig())
     loop_launches = dict(_build.LAUNCHES)
     loop_plain = dict(_build.PLAIN_CALLS)
-    log("counters", path="loop", launches=loop_launches,
-        plain_calls=loop_plain, seconds=time.perf_counter() - t0)
+    counters("loop", loop_launches, loop_plain)
     log("server_events", events=sys6.server.events, system=sys6.events,
         gba_runs=sys6.server.gba_runs)
     if not any(e.startswith("LOOP") for e in sys6.server.events):
@@ -3747,10 +3197,6 @@ def main() -> int:
         raise AssertionError("no global BA after the loop")
     check_slam(sys6, agents6, [loop_arc], LOOP_MAX_ATE_FRAC,
                SERVER_MIN_OK_FRAC)
-    server_times(sys6, smi, "loop")
-    # phase 10 prints its times beside these
-    loop6b = dict(track_ms=list(agents6[0]["track_ms"]),
-                  lc_ms=list(sys6.server.timers.series.get("LC", [])))
     server_launches = {k: merge_launches.get(k, 0) + loop_launches.get(k, 0)
                        for k in (*KERNELS, SEGSUM[0], SIM3[0], PGO[0])}
     if (any(n == 0 for n in server_launches.values()) or any(
@@ -3758,97 +3204,47 @@ def main() -> int:
         raise AssertionError("the server path did not run every kernel")
     del sys6
 
-    # 7. the facade at the reference fixture point: settings file ->
-    # MultiAgentSystem -> track_monocular on frames pre-staged on the card
-    from mam3slam_tpu_torch import api
-
-    t7 = time.perf_counter()
+    # 7. the reference fixture point: its frames rendered on the card and
+    # its settings file, which phases 8 and 9 feed the facade
     fix_cam = render.reference_kb8_cam(FIXTURE_SCALE)
     fix_traj = render.orbit_trajectory(FACADE_FRAMES, *FACADE_ARC[:2],
                                        radius=2.5, bob=FACADE_ARC[2])
     frames = [scene.render(R, t, fix_cam) for R, t, _ in fix_traj]
-    torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
         yaml_path = os.path.join(tmp, "kb8_fixture.yaml")
         with open(yaml_path, "w") as f:
             f.write(facade_yaml(fix_cam))
-        mas = api.MultiAgentSystem(slam_config=facade_config(fix_cam),
-                                   server_config=ServerConfig(), device=dev)
-        mas.add_agent(yaml_path)
-        out_dir = os.path.join(tmp, "output")
-        fres = run_facade(mas, frames, out_dir, dev)
-        facade = facade_results(mas, fres, fix_traj)
-        log("facade", **{k: v for k, v in facade.items()
-                         if not k.startswith(("fps", "frame_ms", "lc_",
-                                              "launches"))})
-        cen = fres["census"]
-        log("counters", path="facade", launches=fres["launches"],
-            plain_calls=fres["plain"],
-            per_frame=facade["launches_per_frame"])
-        log("facade_census", card=repr(smi), frames=cen["frames"],
-            cuda_kernels_per_frame=cen["kernels"] / FACADE_CENSUS,
-            copies_per_frame=cen["copies"] / FACADE_CENSUS,
-            device_busy_ms_per_frame=cen["busy_us"] / 1e3 / FACADE_CENSUS,
-            port_kernels_per_frame=cen["own"])
-        log("facade_time", card=repr(smi), fps_frames_60_239=facade["fps"],
-            **{k: facade[k] for k in ("frame_ms_p50", "frame_ms_p90",
-                                      "frame_ms_p99", "frame_ms_max",
-                                      "lc_epoch_ms")},
-            run_seconds=fres["run_s"],
-            phase_seconds=time.perf_counter() - t7)
-        epochs = np.asarray(mas.sys.timers.series.get("LM_0", []))
-        log("facade_breakdown", card=repr(smi), epochs=len(epochs),
-            epoch_ms_median=float(np.median(epochs)) if len(epochs) else 0,
-            epoch_ms_p90=(float(np.percentile(epochs, 90)) if len(epochs)
-                          else 0),
-            **{f"server_{k}_ms": [round(v, 3) for v in
-                                  mas.server.timers.series.get(k, [])]
-               for k in ("LC", "MM")},
-            server_PR_ms_median=float(np.median(
-                mas.server.timers.series.get("PR", [0]))),
-            gba_runs=mas.server.gba_runs)
-        check_facade(facade, fres, out_dir)
-        log("loop_edges", **check_loop_edges(mas.sys, mas.server))
-        del mas
 
-        # 8. slice 4b on the same frames.  8a: bench.py's configuration
+        # 8. pipelining, the mapping worker, the background GBA and
+        # checkpoints on the same frames.  8a: bench.py's configuration
         # (pipelined to depth 4, synchronous mapping)
-        from mam3slam_tpu_torch.slam import system as tsys
-
-        t8 = time.perf_counter()
         mas = phase8_system(fix_cam, yaml_path, dev,
                             server_config=ServerConfig())
         checked = check_readback(mas.sys, READBACK_CHECKS)
         out8a = os.path.join(tmp, "output_8a")
-        res8a = run_facade(mas, frames, out8a, dev, census=False)
+        res8a = run_facade(mas, frames, out8a)
         r8a = facade_results(mas, res8a, fix_traj)
+        counters("pipelined", res8a["launches"], res8a["plain"])
         log("pipelined", depth=PIPELINE_DEPTH, readback_checked=len(checked),
-            refused=mas.sys.agents[0].kf_insertions_refused,
-            **{k: v for k, v in r8a.items()
-               if not k.startswith(("fps", "frame_ms", "lc_", "launches"))})
-        log("counters", path="pipelined", launches=res8a["launches"],
-            plain_calls=res8a["plain"], per_frame=r8a["launches_per_frame"])
-        log("pipelined_time", card=repr(smi), **timing(r8a),
-            synchronous_phase7=timing(facade),
-            run_seconds=res8a["run_s"])
+            refused=mas.sys.agents[0].kf_insertions_refused, **r8a)
         check_facade(r8a, res8a, out8a)
         if len(checked) < READBACK_CHECKS:
             raise AssertionError(f"only {len(checked)} deferred reads held "
                                  f"to a blocking read")
+        log("loop_edges", **check_loop_edges(mas.sys, mas.server))
         del mas
 
         # 8b: the asynchronous system (mapping worker, depth-4 pipeline,
         # background GBA) at the 20 Hz stamps, drained as the reference's
-        # tests drain it; 8b-bare: the stamps alone, measured (the
-        # worker's own gates only)
+        # tests drain it; 8b-bare: the stamps alone (the worker's own
+        # gates only)
         out8b = os.path.join(tmp, "output_8b")
         mas8b, res8b, r8b = run_async(fix_cam, yaml_path, dev, frames,
-                                      fix_traj, out8b, ASYNC_DRAIN, smi,
-                                      "async")
+                                      fix_traj, out8b, ASYNC_DRAIN, "async")
         check_async(r8b, res8b, mas8b, out8b)
         mas_bare, res_bare, _ = run_async(
             fix_cam, yaml_path, dev, frames, fix_traj,
-            os.path.join(tmp, "output_8b_bare"), 0, smi, "async_bare")
+            os.path.join(tmp, "output_8b_bare"), 0, "async_bare")
         check_worker(mas_bare, res_bare)
         del mas_bare
 
@@ -3856,38 +3252,26 @@ def main() -> int:
         states8c, launches8c, plain8c = resume(
             mas8b, fix_cam, yaml_path, dev, scene,
             os.path.join(tmp, "atlas.npz"))
-        n_ok = sum(s == tsys.OK for s in states8c)
-        log("resume", frames=len(states8c), ok=n_ok, fields="all equal",
-            launches=launches8c, plain_calls=plain8c,
-            phase8_seconds=time.perf_counter() - t8)
+        counters("resume", launches8c, plain8c)
+        n_ok = sum(s == system.OK for s in states8c)
+        log("resume", frames=len(states8c), ok=n_ok, fields="all equal")
         if n_ok < RESUME_MIN_OK:
             raise AssertionError(f"resumed agent: {n_ok} of "
                                  f"{len(states8c)} frames OK")
-        if (any(launches8c.get(k, 0) == 0 for k in SLAM_KERNELS)
-                or any(plain8c.values())):
+        if not kernels_ran(launches8c, plain8c, SLAM_KERNELS):
             raise AssertionError("the resumed path did not run its kernels")
         del mas8b
 
-        # 9. slice 4c through the example scripts' own code.  9a: the
-        # EuRoC twin on phase 7's frames written as PNGs and read back
-        t9 = time.perf_counter()
+        # 9. the example scripts' own code.  9a: the EuRoC twin on phase
+        # 7's frames written as PNGs and read back
         out9a = os.path.join(tmp, "euroc")
         e9 = run_euroc_twin(dev, scene, fix_cam, fix_traj,
                             [f.to(torch.uint8).cpu().numpy() for f in frames],
                             out9a)
-        r9 = e9["r"]
+        counters("euroc_twin", e9["res"]["launches"], e9["res"]["plain"])
         log("euroc_twin", decoded_equal=e9["decoded"], loader=e9["loader"],
             frames_drawn=e9["frames_png"], map_png_bytes=e9["map_png"],
-            ate_txt=e9["ate_lines"],
-            **{k: v for k, v in r9.items()
-               if not k.startswith(("fps", "frame_ms", "lc_", "launches"))})
-        log("counters", path="euroc_twin", launches=e9["res"]["launches"],
-            plain_calls=e9["res"]["plain"], per_frame=r9["launches_per_frame"])
-        log("euroc_twin_time", card=repr(smi), fps_frames_60_239=r9["fps"],
-            phase7_fps_frames_60_239=facade["fps"],
-            **{k: r9[k] for k in ("frame_ms_p50", "frame_ms_p90",
-                                  "frame_ms_p99", "frame_ms_max")},
-            run_seconds=e9["run_s"])
+            ate_txt=e9["ate_lines"], **e9["r"])
         check_euroc_twin(e9, out9a)
 
         # 9b: the live daemon, two agents over loopback TCP
@@ -3897,6 +3281,7 @@ def main() -> int:
         out9b = os.path.join(tmp, "daemon")
         os.makedirs(out9b)
         d9 = run_daemon(dev, fix_cam, daemon_arcs, out9b)
+        counters("daemon", d9["launches"], d9["plain"])
         for k, b in d9["buffers"].items():
             st = d9["stats"][k]
             stamps = [round(ts / DT) for ts, _ in b["taken_crc"]]
@@ -3909,66 +3294,42 @@ def main() -> int:
         log("daemon", events=d9["events"], system_events=d9["system_events"],
             keyframes=d9["keyframes"], map_points=d9["map_points"],
             mapdata_stats=d9["mapdata"]["stats"])
-        log("daemon_time", card=repr(smi), pace_hz=DAEMON_HZ,
-            frames_per_s=sum(b["taken"] for b in d9["buffers"].values())
-            / d9["wall"], wall_s=d9["wall"],
-            **{f"{key}_{k}": v for key in ("track_ms", "draw_ms", "encode_ms")
-               for k, v in pct([x for st in d9["stats"].values()
-                                for x in st[key]]).items()},
-            draw_plus_encode_ms_p50=float(np.median(
-                [a + b for st in d9["stats"].values()
-                 for a, b in zip(st["draw_ms"], st["encode_ms"])])),
-            map_views=len(d9["map_render_ms"]),
-            **{f"map_render_ms_{k}": v
-               for k, v in pct(d9["map_render_ms"]).items()})
-        log("counters", path="daemon", launches=d9["launches"],
-            plain_calls=d9["plain"])
         check_daemon(d9)
 
         # 9c: the synthetic demo twin on the card
         c9 = run_demo_twin(dev, os.path.join(tmp, "demo"))
+        counters("demo_twin", c9["launches"], c9["plain"])
         log("demo_twin", states=c9["states"], maps=c9["maps"],
             events=c9["events"], keyframes=c9["keyframes"],
-            map_points=c9["map_points"], files=c9["files"],
-            launches=c9["launches"], plain_calls=c9["plain"],
-            phase9_seconds=time.perf_counter() - t9)
+            map_points=c9["map_points"], files=c9["files"])
         check_demo_twin(c9)
     del frames
 
     # 10. the mono-inertial path: 10a phase 6b's loop with IMU, 10b the
     # yaw burst with and without
-    t10 = time.perf_counter()
-    r10, res10, i10, burst, res10b = run_phase10(
-        dev, scene6, cam_r, cam, orb_cfg, cfg, loop_arc, loop6b, smi)
-    log("inertial_done", phase10_seconds=time.perf_counter() - t10)
+    i10, res10, burst, res10b = run_phase10(scene6, cam_r, cam, orb_cfg, cfg,
+                                            loop_arc)
     check_inertial(i10, res10, burst)
     if not kernels_ran(res10b["launches"], res10b["plain"], SLAM_KERNELS):
         raise AssertionError("10b: the burst runs did not run their kernels")
-    phase10_launches = collections.Counter(res10["launches"])
-    phase10_launches.update(res10b["launches"])
 
     # 11. four agents with the global BA on a mesh: 11a one NCCL rank,
     # 11b 2 / 4 / (2, 2) gloo ranks sharing the card (11a's atlas is kept
     # for phase 13)
     tmp11 = tempfile.TemporaryDirectory()
-    p11 = run_phase11(dev, scene6, cam_r, cam, orb_cfg, cfg, smi, tmp11.name,
-                      timed)
+    map11 = run_phase11(dev, scene6, cam_r, cam, orb_cfg, cfg, tmp11.name)
 
     # 12. the facade's INTER_AREA resize: 12a against the CPU, 12b the
     # facade through settings that upscale and downscale its frames
-    t12 = time.perf_counter()
-    check_resize(dev, smi)
-    phase12_launches = collections.Counter()
+    check_resize(dev)
     with tempfile.TemporaryDirectory() as tmp:
         for name, scale in RESIZE_RUNS:
-            phase12_launches.update(
-                run_resize(dev, scene, tmp, name, scale, smi)["launches"])
-    log("resize_done", phase12_seconds=time.perf_counter() - t12)
+            run_resize(dev, scene, tmp, name, scale)
 
     # 13. reproducibility: the solvers and kernels twice on one input, the
     # segment sums against their plain version at their callers' shapes
-    run_phase13(dev, os.path.join(tmp11.name, "phase11.npz"), cfg,
-                p11["map_id"], scene6, cam_r, orb_cfg, smi, timed, parent)
+    run_phase13(dev, os.path.join(tmp11.name, "phase11.npz"), cfg, map11,
+                scene6, cam_r, orb_cfg, smi, timed, parent)
     tmp11.cleanup()
 
     # 14. OptimizeSim3's kernel against its plain version
@@ -3977,14 +3338,6 @@ def main() -> int:
     # 15. the PGO kernels against their plain version
     timed += run_phase15(dev, smi)
 
-    phase8_launches = collections.Counter()
-    for counts in (res8a["launches"], res8b["launches"],
-                   res_bare["launches"], launches8c):
-        phase8_launches.update(counts)
-    phase9_launches = collections.Counter()
-    for counts in (e9["res"]["launches"], d9["launches"], c9["launches"]):
-        phase9_launches.update(counts)
-
     kernels = dict(KERNELS)
     kernels[SEGSUM[0]] = SEGSUM[1:]
     kernels[SIM3[0]] = SIM3[1:]
@@ -3992,32 +3345,15 @@ def main() -> int:
     rows = {k: [r for r in timed if r["kernel"] == k] for k in kernels}
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
-         "launches": (launches.get(k, 0) + slam_launches.get(k, 0)
-                      + server_launches[k] + fres["launches"].get(k, 0)
-                      + phase8_launches[k] + phase9_launches[k]
-                      + phase10_launches[k] + p11["launches"].get(k, 0)
-                      + phase12_launches[k]),
          "max_abs_err": max(r["max_abs_err"] for r in rows[k]),
          "ms": rows[k][0]["wrapper_ms"], "device_ms": rows[k][0]["device_ms"],
          "plain_ms": rows[k][0]["plain_ms"],
+         "launches": PATH_LAUNCHES[k],
          "bound_ms": rows[k][0]["bound_us"] / 1e3,
          "bound_by": rows[k][0]["bound_by"],
          "library_ms": rows[k][0].get("library_ms"),
          "library": {SEGSUM[0]: SEGSUM_LIBRARY, SIM3[0]: SIM3_LIBRARY,
                      PGO[0]: PGO_LIBRARY}.get(k, NO_LIBRARY),
-         "launches_per_tracked_frame": track_per_frame.get(k, 0),
-         "launches_per_slam_frame": slam_per["per_frame"].get(k, 0),
-         "launches_per_epoch": slam_per["per_epoch"].get(k, 0),
-         "launches_per_facade_frame": facade["launches_per_frame"].get(k, 0),
-         "launches_phase8": phase8_launches[k],
-         "launches_phase9": phase9_launches[k],
-         "launches_daemon": d9["launches"].get(k, 0),
-         "launches_phase10": phase10_launches[k],
-         "launches_per_imu_frame": r10["per_frame"]["imu"].get(k, 0),
-         "launches_per_cv_frame": r10["per_frame"]["cv"].get(k, 0),
-         "launches_phase11": p11["launches"].get(k, 0),
-         "launches_per_phase11_frame": p11["per_frame"].get(k, 0),
-         "launches_phase12": phase12_launches[k],
          "callers": [{c: r.get(c) for c in (
              "caller", "device_ms", "timer", "wrapper_ms", "plain_ms",
              "library_ms", "bound_us", "bound_by", "share", "max_abs_err")}

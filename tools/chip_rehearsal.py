@@ -104,6 +104,7 @@ from mam3slam_tpu_torch.io import render  # noqa: E402
 from mam3slam_tpu_torch.ops import orb as O  # noqa: E402
 from mam3slam_tpu_torch.slam import server as tserver  # noqa: E402
 from mam3slam_tpu_torch.slam import system as tsystem  # noqa: E402
+from slambench.ref import geometry  # noqa: E402
 
 W, H = cs.W // 2, cs.H // 2
 FX, FY, CX, CY = cs.FX / 2, cs.FY / 2, cs.CX / 2, cs.CY / 2
@@ -123,9 +124,8 @@ def summary(name, sys_, aids, arcs, states, ok_code):
             if st == ok_code:
                 est.append(np.asarray(t_wc))
                 gt.append(arc[int(round(ts / cs.DT))][2])
-        est, gt = np.asarray(est, np.float64), np.asarray(gt, np.float64)
-        span = float(np.ptp(gt, axis=0).max())
-        ate = cs.ate_rmse(est, gt)
+        ate, _, span = geometry.ate(np.asarray(est, np.float64),
+                                    np.asarray(gt, np.float64))
         st = states[a][states[a].index(ok_code):]
         ok_frac = float(np.mean(np.equal(st, ok_code)))
         print(f"[{name}] agent={a} ok_frac={ok_frac:.4f} "

@@ -77,8 +77,8 @@ def main() -> int:
                                f"file://{tmp}/store", device=dev)
         try:
             for run in range(args.runs):
-                sys_, _, _ = cs.run_slam(dev, scene, cam_r, cam, orb_cfg, cfg,
-                                         arcs, ServerConfig(gba_mesh=mesh))
+                sys_, _ = cs.run_slam(dev, scene, cam_r, cam, orb_cfg, cfg,
+                                      arcs, ServerConfig(gba_mesh=mesh))
                 ms, map_id = sys_.ms, sys_.agents[0].map_id
                 mask = cs.gba_mask(ms, map_id)
                 sol = dict(single_a=glob(ms, map_id),

@@ -13,9 +13,9 @@ pass the whole arena with 10-17% visible).  Best-two (min_hamming2):
 Q = M in {128, 1024, 4096} with a valid share of 0.6 or 1.0 on each
 side.  Describe: N in {100, 1000, 4000} keypoints spread over the levels
 of an EuRoC-size stack.  Device times come from chip_smoke.device_ms
-(torch.profiler), each beside its bound (chip_smoke's count of the
-work); one line per point, with the card's nvidia-smi name and power
-limit first.
+(torch.profiler), each beside its bound (``slambench/ref/work.py``'s
+count of the work, as chip_smoke.py phase 3 takes it); one line per
+point, with the card's nvidia-smi name and power limit first.
 """
 
 import os
@@ -28,6 +28,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 import chip_smoke as cs  # noqa: E402
+from slambench.ref import work  # noqa: E402
 
 
 def main() -> int:
@@ -89,7 +90,7 @@ def main() -> int:
         for share in (0.6, 1.0):
             args = (dq, T(rng.random(n) < share), dt, T(rng.random(n) < share))
             ms, timer, _ = cs.device_ms(lambda: CM.min_hamming2(*args))
-            b_ms, b_by = cs.bound_ms(*cs.best2_work(args))
+            b_ms, b_by = cs.bound(work.best2_work(args[1], args[3]))
             cs.log("min_hamming2", Q=n, M=n, valid_share=share,
                    device_us=ms * 1e3, bound_us=b_ms * 1e3, bound_by=b_by,
                    timer=timer)
@@ -107,7 +108,8 @@ def main() -> int:
                 T(hw.astype(np.int32)))
         ms, timer, _ = cs.device_ms(lambda: CO.ic_brief(*args))
         angle = CO.ic_brief(*args)[0]
-        b_ms, b_by = cs.bound_ms(*cs.describe_work(args, angle))
+        b_ms, b_by = cs.bound(work.describe_work(stack.shape, *args[2:],
+                                                 angle))
         cs.log("orb_desc", N=n, device_us=ms * 1e3, bound_us=b_ms * 1e3,
                bound_by=b_by, timer=timer)
     return 0

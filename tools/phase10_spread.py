@@ -6,8 +6,7 @@ after each run, to see how far the card's runs spread.
     python3 tools/phase10_spread.py [--reps N]
 
 Since the solvers' sums take a fixed order (``ops/segsum.py``) every
-run prints the same ``ate_frac``.  Phase 6b's timings, which phase 10
-prints beside its own, are not run: they print as 1.0.
+run prints the same ``ate_frac``.
 """
 
 from __future__ import annotations
@@ -38,8 +37,7 @@ def main() -> int:
         print("phase10_spread: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
-    smi = cs.nvidia_smi()
-    print(smi, flush=True)
+    print(cs.nvidia_smi(), flush=True)
     _build.library()
     cam_r = render.RenderCam(cs.W, cs.H, cs.FX, cs.FY, cs.CX, cs.CY)
     orb_cfg = O.OrbConfig(height=cs.H, width=cs.W,
@@ -51,9 +49,7 @@ def main() -> int:
                                        radius=2.5, bob=cs.LOOP_ARC[2])
     for rep in range(args.reps):
         t = time.time()
-        _, _, i10, _, _ = cs.run_phase10(
-            dev, scene6, cam_r, cam, orb_cfg, cfg, loop_arc,
-            dict(track_ms=[1.0], lc_ms=[1.0]), smi)
+        i10 = cs.run_phase10(scene6, cam_r, cam, orb_cfg, cfg, loop_arc)[0]
         print(f"REP {rep} ate_frac={i10['ate_frac']} "
               f"bound={cs.INERTIAL_MAX_ATE_FRAC} s={time.time() - t:.1f}",
               flush=True)
